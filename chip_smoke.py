@@ -47,6 +47,10 @@ PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12}
 
 K1_TOL = {"float32": 1e-5, "float64": 1e-12}
 K2_TOL = {"float32": 5e-3, "float64": 1e-9}
+# K2's componentwise backward error max |LU - A| / (|L| |U|), in units of
+# N times the dtype's epsilon: catches a wrong L whose entries lie below
+# K2_TOL (on the test tiles they are about 1/N)
+K2_BWD = 4.0
 
 # (suite name, scale, expected K1 launches, expected K2 launches) per
 # factorization; the counts are the schedules' own, checked again here
@@ -114,16 +118,18 @@ class Clock:
 
 def check_kernels_at_shapes(dev) -> None:
     """Phase 3: kernel against plain version on random inputs at the main
-    path's shapes (grid64: K1 up to (905, 256, 384), K2 N=256; rajat12_like:
-    K1 (728, 1280, 1024), K2 N=768; and the K2 maximum N=1024)."""
+    path's shapes (grid64: K1 (D, R, C) up to (905, 90, 297),
+    (710, 135, 297) and (392, 199, 297), K2 N=160; rajat12_like: K1 about (728, 1280, 1024), K2
+    N=736; and the K2 maximum N=1024).  K2 is also held to its backward
+    error, which a wrong L cannot pass."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
 
     rng = np.random.default_rng(SEED)
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
-        for D, R, C in [(905, 256, 384), (452, 256, 384), (17, 256, 384),
-                        (1, 256, 384), (728, 1280, 1024)]:
+        for D, R, C in [(905, 90, 297), (710, 135, 297), (392, 199, 297),
+                        (17, 90, 288), (1, 90, 270), (728, 1280, 1024)]:
             cv = torch.from_numpy(rng.normal(size=(D, C))).to(dev, dtype)
             cb = torch.from_numpy(rng.normal(size=(D, R))).to(dev, dtype)
             dl = torch.from_numpy(rng.integers(0, C + 64, size=(D, R))
@@ -142,7 +148,7 @@ def check_kernels_at_shapes(dev) -> None:
         torch.cuda.synchronize(dev)
         assert bool((dup[:, 0] == 512).all()) and bool((dup[:, 1:] == 0).all())
         log(f"check K1 {name} all-duplicate positions: ok")
-        for N in (256, 768, 1024):
+        for N in (160, 736, 1024):
             a = torch.from_numpy(rng.normal(size=(N, N))).to(dev, dtype)
             a += N * torch.eye(N, dtype=dtype, device=dev)
             got = kernels.dense_lu(a)
@@ -150,8 +156,12 @@ def check_kernels_at_shapes(dev) -> None:
             want = ref.dense_lu_ref(a)
             torch.cuda.synchronize(dev)
             err = compare(got, want, K2_TOL[name])
+            bwd = ref.lu_backward_error(a, got)
+            bwd_tol = K2_BWD * N * torch.finfo(dtype).eps
+            assert bwd <= bwd_tol, (name, N, bwd, bwd_tol)
             log(f"check K2 {name} N={N}: max_abs_err={err:.3e} "
-                f"tol={K2_TOL[name]:g} ok")
+                f"tol={K2_TOL[name]:g}; backward error {bwd:.3e} <= "
+                f"{bwd_tol:.3e} ok")
 
 
 def newton_values(A, rng):
@@ -194,6 +204,18 @@ def drive_matrix(dev, clock, name, scale, want_k1, want_k2):
     k1, k2 = segmented_accumulate.launches, dense_lu.launches
     kinds = g._factorizer.kinds
     info = g.solve_info
+    # real work of the K1 and K2 steps, for the bounds: updates and
+    # destination slots that are not padding, and the tail's real size
+    nnz = g._factorizer.nnz
+    k1_groups = [gr.arrays for gr in g._factorizer._groups
+                 if gr.kind == "pallas"]
+    work = dict(
+        k1_real_updates=sum(int((a[2] < nnz).sum()) for a in k1_groups),
+        k1_real_slots=sum(int((a[5] < nnz).sum()) for a in k1_groups),
+        k1_padded_updates=sum(a[2].numel() for a in k1_groups),
+        k1_padded_slots=sum(a[5].numel() for a in k1_groups),
+        k2_sizes=[g._factorizer.dense_tail_info["size"]]
+        if g._factorizer.dense_tail_info else [])
     log(f"{name}: main path K1 launches={k1} (K1 groups {kinds.count('pallas')}, "
         f"expected {want_k1}), K2 launches={k2} (dense groups "
         f"{kinds.count('dense')}, expected {want_k2}), groups={len(kinds)}, "
@@ -267,18 +289,23 @@ def drive_matrix(dev, clock, name, scale, want_k1, want_k2):
         solve_steps=g._solver.last_n_dispatches,
         factorize_ms=fact_ms, solve_ms=solve_ms,
         factorize_call_ms=fact_call_ms, solve_call_ms=solve_call_ms,
-        refactor_residual_max="< 1e-9")
+        refactor_residual_max="< 1e-9", **work)
     log(f"{name}: factorize {fact_ms:.3f} ms (device values, CUDA events), "
         f"solve {solve_ms:.3f} ms; GLU.factorize call median {fact_call_ms:.3f} ms, "
         f"GLU.solve call median {solve_call_ms:.3f} ms")
     return report, rec_k1, rec_k2, g
 
 
-def kernel_entries(dev, clock, rec_k1, rec_k2, k1_launches, k2_launches):
+def kernel_entries(dev, clock, rec_k1, rec_k2, report):
     """Time each kernel, its plain version and the library yardstick on the
-    recorded main-path inputs; compute bounds from those inputs."""
+    recorded main-path inputs; compute bounds from the real (unpadded)
+    work of those inputs."""
     from repro_torch.kernels import dense_lu, segmented_accumulate
-    from repro_torch.kernels.ref import dense_lu_ref, segmented_accumulate_ref
+    from repro_torch.kernels.ref import (
+        dense_lu_ref,
+        lu_backward_error,
+        segmented_accumulate_ref,
+    )
 
     # K1 over every K1 call of one factorization
     err = 0.0
@@ -286,11 +313,12 @@ def kernel_entries(dev, clock, rec_k1, rec_k2, k1_launches, k2_launches):
         err = max(err, compare(segmented_accumulate(cv, cb, dl),
                                segmented_accumulate_ref(cv, cb, dl),
                                K1_TOL[str(cv.dtype).split(".")[-1]]))
+    # each real slot read and written once, each real contribution and its
+    # int32 position read once; one add per real contribution
     esize = rec_k1[0][0].element_size()
-    k1_bytes = sum(2 * cv.numel() * esize + cb.numel() * (esize + 4)
-                   for cv, cb, _ in rec_k1)
-    k1_ops = sum(int(((dl >= 0) & (dl < cv.shape[1])).sum().item())
-                 for cv, _, dl in rec_k1)
+    k1_bytes = (2 * report["k1_real_slots"] * esize
+                + report["k1_real_updates"] * (esize + 4))
+    k1_ops = report["k1_real_updates"]
     k1_t_bytes = k1_bytes / PEAK_BYTES_PER_S * 1e3
     k1_t_ops = k1_ops / PEAK_OPS_PER_S["float64"] * 1e3
     # library yardstick: one scatter_add_ per call into a prepared (D, C+1)
@@ -318,7 +346,7 @@ def kernel_entries(dev, clock, rec_k1, rec_k2, k1_launches, k2_launches):
     k1 = dict(name="segmented_accumulate", route="cuda",
               source="src/repro_torch/kernels/csrc/segmented_accumulate.cu",
               replaces="src/repro/kernels/level_update.py:60",
-              launches=k1_launches, max_abs_err=err,
+              launches=report["k1_launches"], max_abs_err=err,
               ms=clock.ms(run_k1), plain_ms=clock.ms(run_k1_plain, reps=3),
               bound_ms=max(k1_t_bytes, k1_t_ops),
               bound_by="bytes" if k1_t_bytes >= k1_t_ops else "operations",
@@ -329,10 +357,16 @@ def kernel_entries(dev, clock, rec_k1, rec_k2, k1_launches, k2_launches):
     # K2 on the recorded dense tail tile(s)
     err = 0.0
     for a in rec_k2:
-        err = max(err, compare(dense_lu(a), dense_lu_ref(a),
+        got = dense_lu(a)
+        err = max(err, compare(got, dense_lu_ref(a),
                                K2_TOL[str(a.dtype).split(".")[-1]]))
-    k2_bytes = sum(2 * a.numel() * a.element_size() for a in rec_k2)
-    k2_ops = sum(2 * a.shape[0] ** 3 / 3 for a in rec_k2)
+        bwd = lu_backward_error(a, got)
+        bwd_tol = K2_BWD * a.shape[0] * torch.finfo(a.dtype).eps
+        assert bwd <= bwd_tol, ("main-path K2", bwd, bwd_tol)
+    # the real tail, not its padding to K2's block
+    esize = rec_k2[0].element_size()
+    k2_bytes = sum(2 * m * m * esize for m in report["k2_sizes"])
+    k2_ops = sum(2 * m ** 3 / 3 for m in report["k2_sizes"])
     k2_t_bytes = k2_bytes / PEAK_BYTES_PER_S * 1e3
     k2_t_ops = k2_ops / PEAK_OPS_PER_S["float64"] * 1e3
 
@@ -351,7 +385,7 @@ def kernel_entries(dev, clock, rec_k1, rec_k2, k1_launches, k2_launches):
     k2 = dict(name="dense_lu", route="cuda",
               source="src/repro_torch/kernels/csrc/dense_lu.cu",
               replaces="src/repro/kernels/dense_lu.py:98",
-              launches=k2_launches, max_abs_err=err,
+              launches=report["k2_launches"], max_abs_err=err,
               ms=clock.ms(run_k2), plain_ms=clock.ms(run_k2_plain, reps=3),
               bound_ms=max(k2_t_bytes, k2_t_ops),
               bound_by="bytes" if k2_t_bytes >= k2_t_ops else "operations",
@@ -452,8 +486,7 @@ def main() -> int:
     for name, scale, want_k1, want_k2 in MATRICES:
         report, rec_k1, rec_k2, g = drive_matrix(dev, clock, name, scale,
                                                  want_k1, want_k2)
-        ents = kernel_entries(dev, clock, rec_k1, rec_k2,
-                              report["k1_launches"], report["k2_launches"])
+        ents = kernel_entries(dev, clock, rec_k1, rec_k2, report)
         report["kernels"] = ents
         report["profile"] = profile_path(dev, clock, g)
         if entries is None:           # the first matrix is the slice's main path

@@ -64,8 +64,10 @@ class GLU:
     ``static_pivot``, ``layout="planar"``, ``mesh``, ``jit_schedule=False``
     and ``verify`` other than ``"off"``, complex dtypes, ``rhs_pattern`` and
     the batched and many-right-hand-side methods are not ported yet and
-    raise ``NotImplementedError``.  The other options mean what they mean in
-    the JAX package's ``GLU``.
+    raise ``NotImplementedError``.  The JAX package's level-fusion options
+    (``fuse_levels``, ``fuse_buckets``, ``bucket_waste``) have no
+    counterpart: every level is its own step here.  The other options mean
+    what they mean in the JAX package's ``GLU``.
     """
 
     def __init__(
@@ -75,9 +77,6 @@ class GLU:
         symbolic: str = "auto",
         dtype=torch.float64,
         mc64="scale",
-        fuse_levels: bool = True,
-        fuse_buckets: bool = True,
-        bucket_waste: float = 4.0,
         jit_schedule: bool = True,
         panel_threshold: int = 16,
         static_pivot: Optional[float] = None,
@@ -96,8 +95,7 @@ class GLU:
             A, ordering=ordering, symbolic=symbolic, mc64=mc64,
             panel_threshold=panel_threshold, cache=plan_cache)
         self._setup(plan, scaling, A, from_cache=from_cache, dtype=dtype,
-                    fuse_levels=fuse_levels, fuse_buckets=fuse_buckets,
-                    bucket_waste=bucket_waste, refine=refine,
+                    refine=refine,
                     refine_tol=refine_tol, dense_tail=dense_tail,
                     dense_tail_density=dense_tail_density, device=device)
 
@@ -108,9 +106,6 @@ class GLU:
         A: CSC,
         dtype=torch.float64,
         mc64="scale",
-        fuse_levels: bool = True,
-        fuse_buckets: bool = True,
-        bucket_waste: float = 4.0,
         jit_schedule: bool = True,
         static_pivot: Optional[float] = None,
         refine: int = 0,
@@ -136,15 +131,14 @@ class GLU:
                 "row permutation; rebuild the plan (e.g. GLU(A, ...))")
         self = cls.__new__(cls)
         self._setup(plan, scaling, A, from_cache=True, dtype=dtype,
-                    fuse_levels=fuse_levels, fuse_buckets=fuse_buckets,
-                    bucket_waste=bucket_waste, refine=refine,
+                    refine=refine,
                     refine_tol=refine_tol, dense_tail=dense_tail,
                     dense_tail_density=dense_tail_density, device=device)
         return self
 
     def _setup(self, plan: SymbolicPlan, scaling: MC64Scaling, A: CSC,
-               from_cache: bool, dtype, fuse_levels: bool, fuse_buckets: bool,
-               bucket_waste: float, refine: int, refine_tol: Optional[float],
+               from_cache: bool, dtype, refine: int,
+               refine_tol: Optional[float],
                dense_tail: bool, dense_tail_density: float, device) -> None:
         self.device = resolve_device(device)
         self.dtype = resolve_value_dtype(dtype, self.device)
@@ -175,9 +169,7 @@ class GLU:
         self.levelization = plan.levelization
         self.plan = plan.fplan
         self._factorizer = TorchFactorizer(
-            self.plan, dtype=self.dtype, device=dev, fuse_levels=fuse_levels,
-            fuse_buckets=fuse_buckets, bucket_waste=bucket_waste,
-            dense_tail=dense_tail, dense_tail_density=dense_tail_density)
+            self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail, dense_tail_density=dense_tail_density)
         self._solver = TorchTriangularSolver(self.plan, device=dev)
         self._vals: Optional[torch.Tensor] = None
         self._a_vals: Optional[torch.Tensor] = None

@@ -5,25 +5,25 @@ executor.
                              host oracle, verbatim loop structure.
 * ``factorize_numpy_fast`` — the same math with a CSR view of the pattern.
 * ``TorchFactorizer``      — the GLU3.0 executor: level-scheduled, three
-                             adaptive modes, the same bucketed level groups as
-                             the JAX package, SEGMENTED/PANEL levels through
-                             kernel K1 and the dense trailing block through
-                             kernel K2.
+                             adaptive modes, one step per level,
+                             SEGMENTED/PANEL levels through kernel K1 and the
+                             dense trailing block through kernel K2.
 
 The executor is built once from a :class:`FactorizePlan` and reused for
 every refactorization with new values on the same pattern (the
 Newton-Raphson inner loop of circuit simulation).
 
-Padding: the level groups are the JAX package's, built from padded shapes,
-but eager PyTorch needs no equal shapes, so a flat or scan level keeps only
-its real entries, stored in fixed-order rounds of distinct destinations
-(``kernels.ops.round_order``), so its scatter-add is exact and the same
-bits on every run.  K1 levels keep the padded (D, R, C) layout:
-the value buffer has one trash slot past the real values (``vals[nnz]``),
-every padded index of that layout is ``nnz``, and padded reads feed only
-padded writes into the trash slot, whose value is never read into a real
-slot.  The dense tail gathers and scatters through explicit lists of its
-real positions, so its non-pattern entries read exact zeros.
+Padding: eager PyTorch needs no equal shapes, so every level is its own
+step.  A flat level keeps only its real entries, stored in fixed-order
+rounds of distinct destinations (``kernels.ops.round_order``), so its
+scatter-add is exact and the same bits on every run.  A K1 level is laid
+out as (D, R, C) with R and C the level's own largest row and segment: the
+value buffer has one trash slot past the real values (``vals[nnz]``), every
+padded index of that layout is ``nnz``, and padded reads feed only padded
+writes into the trash slot, whose value is never read into a real slot.
+The dense tail is padded to a multiple of K2's block; it gathers and
+scatters through explicit lists of its real positions, so its non-pattern
+entries read exact zeros.
 """
 from __future__ import annotations
 
@@ -33,16 +33,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.dense_lu import dense_lu
+from ..kernels.dense_lu import BLOCK, dense_lu
 from ..kernels.ops import add_in_rounds_, level_update_body, round_order
 from ..sparse.csc import csc_transpose_pattern
-from .plan import (
-    MODE_PANEL,
-    MODE_SEGMENTED,
-    FactorizePlan,
-    bucketize,
-    pow2_pad,
-)
+from .plan import MODE_PANEL, MODE_SEGMENTED, FactorizePlan
 from .symbolic import FilledPattern
 
 __all__ = ["factorize_numpy", "factorize_numpy_fast", "TorchFactorizer",
@@ -127,7 +121,7 @@ def split_lu(As: FilledPattern, vals: np.ndarray):
 
 
 # --------------------------------------------------------------------------
-# Plan-time layouts (host numpy, identical to the JAX package's)
+# Plan-time layouts (host numpy)
 # --------------------------------------------------------------------------
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
@@ -151,22 +145,12 @@ def value_dtype(dtype) -> torch.dtype:
     return _TORCH_DTYPES[nd]
 
 
-def _pad_to(x: np.ndarray, size: int, fill: int) -> np.ndarray:
-    out = np.full(size, fill, dtype=np.int32)
-    out[: len(x)] = x
-    return out
-
-
-_pow2 = pow2_pad
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((max(x, 1) + m - 1) // m) * m
-
-
 def _build_pallas_layout(plan: FactorizePlan, seg, pad_key: int):
     """Host-side (D, R, C) segmented layout for one level (see kernels/ops):
-    (norm_idx, norm_diag, lidx2d, uidx2d, didx_local, col_positions)."""
+    (norm_idx, norm_diag, lidx2d, uidx2d, didx_local, col_positions).  R is
+    the level's most updates into one destination column and C its longest
+    destination column; shorter rows are padded (``pad_key``, and C in
+    ``didx_local``)."""
     us = seg.upd_slice
     dst = plan.dst_col[us]
     li, ui, di = plan.lidx[us], plan.uidx[us], plan.didx[us]
@@ -174,11 +158,10 @@ def _build_pallas_layout(plan: FactorizePlan, seg, pad_key: int):
     starts = np.append(starts, len(dst))
     counts = np.diff(starts)
     D = len(uniq)
-    R = _round_up(int(counts.max()) if D else 1, 256)
+    R = int(counts.max())
     col_start = plan.indptr[uniq].astype(np.int64)
     col_len = (plan.indptr[uniq + 1] - plan.indptr[uniq]).astype(np.int64)
-    Cmax = int(col_len.max()) if D else 1
-    C = _round_up(Cmax, 128) if Cmax <= 512 else _round_up(Cmax, 512)
+    C = int(col_len.max())
 
     lidx2d = np.full((D, R), pad_key, dtype=np.int32)
     uidx2d = np.full((D, R), pad_key, dtype=np.int32)
@@ -192,10 +175,9 @@ def _build_pallas_layout(plan: FactorizePlan, seg, pad_key: int):
     pos = col_start[:, None] + np.arange(C)[None, :]
     pos = np.where(np.arange(C)[None, :] < col_len[:, None], pos, pad_key)
     ns = seg.norm_slice
-    pn = _pow2(seg.n_norm)
     return (
-        _pad_to(plan.norm_idx[ns], pn, pad_key),
-        _pad_to(plan.norm_diag[ns], pn, pad_key),
+        plan.norm_idx[ns],
+        plan.norm_diag[ns],
         lidx2d,
         uidx2d,
         didx_local,
@@ -245,10 +227,10 @@ def _find_dense_tail(plan: FactorizePlan, min_size: int = 64,
 def _build_dense_tail(plan: FactorizePlan, c_star: int):
     """Real positions of the trailing block: (value indices, flat positions
     in the row-major (Np, Np) tile, flat positions of the padded diagonal,
-    Np).  Np is the block size rounded up to a multiple of 128."""
+    Np).  Np is the block size rounded up to a multiple of K2's ``BLOCK``."""
     n = plan.n
     size = n - c_star
-    Np = ((size + 127) // 128) * 128
+    Np = -(-size // BLOCK) * BLOCK
     vidx, flat = [], []
     for j in range(c_star, n):
         s, e = int(plan.indptr[j]), int(plan.indptr[j + 1])
@@ -262,14 +244,12 @@ def _build_dense_tail(plan: FactorizePlan, c_star: int):
 
 @dataclasses.dataclass
 class _Group:
-    """One executor step: a run of same-shape levels ("scan"), a single
-    level ("flat"), a K1-segmented level ("pallas", the JAX package's name
-    for the kind) or the dense trailing block ("dense")."""
+    """One executor step: a single level ("flat"), a K1-segmented level
+    ("pallas", the JAX package's name for the kind) or the dense trailing
+    block ("dense")."""
 
-    kind: str      # "scan" | "flat" | "pallas" | "dense"
-    arrays: tuple  # device tensors (scan/flat: one tuple per level, with
-                   # the level's round bounds)
-    n_levels: int = 1
+    kind: str      # "flat" | "pallas" | "dense"
+    arrays: tuple  # device tensors (flat: with the level's round bounds)
 
 
 # --------------------------------------------------------------------------
@@ -306,16 +286,15 @@ class TorchFactorizer:
     device: ``None`` (the card; raises when there is none), ``"cuda"`` or
         ``"cpu"``.  On the card SEGMENTED/PANEL levels launch K1 and the
         dense tail K2; on the CPU the same steps run the plain versions.
-    fuse_levels / fuse_buckets / bucket_waste: the JAX package's grouping
-        of runs of equal (bucketed) padded level shapes into one scan group;
-        the groups are the same, and a scan group runs its levels in order.
     dense_tail / dense_tail_density: switch-to-dense for a dense-enough
         trailing column block, as in the JAX package.
 
-    ``n_groups`` is the group count; ``last_n_dispatches`` the number of
-    host-issued steps of the latest factorization (the entry scatter plus
-    one per level, kernel group or dense tail): eager PyTorch issues each
-    step's operations separately.
+    Every level before the dense tail is one step, where the JAX package
+    fuses runs of equal padded shapes into scan groups: eager PyTorch issues
+    each level's operations separately either way.  ``kinds`` lists the
+    steps, ``n_groups`` counts them, and ``last_n_dispatches`` is the number
+    of host-issued steps of the latest factorization (the entry scatter plus
+    one per step).
     """
 
     def __init__(
@@ -323,9 +302,6 @@ class TorchFactorizer:
         plan: FactorizePlan,
         dtype=torch.float64,
         device=None,
-        fuse_levels: bool = True,
-        fuse_buckets: bool = True,
-        bucket_waste: float = 4.0,
         dense_tail: bool = True,
         dense_tail_density: float = 0.25,
     ):
@@ -344,7 +320,7 @@ class TorchFactorizer:
         self._a_scatter = idx(plan.a_scatter)
         self._diag_idx = idx(plan.diag_idx)
 
-        pad_key = plan.nnz   # padding index == nnz: the trash slot
+        pad_key = plan.nnz   # K1 padding index == nnz: the trash slot
         self.dense_tail_info = None
         level_cut = plan.num_levels
         if dense_tail:
@@ -356,60 +332,22 @@ class TorchFactorizer:
                                             size=plan.n - c_star, padded=Np)
                 self._dense_tail = (idx(tv), idx(tf), idx(ef), Np)
 
-        fuse_buckets = fuse_buckets and fuse_levels
-        buckets = plan.level_shape_buckets(bucket_waste) if fuse_buckets else None
-
-        def _bucket(p: int, axis: str) -> int:
-            return bucketize(p, buckets[axis]) if buckets is not None else p
-
         groups: list[_Group] = []
-        run: list[tuple] = []
-        run_shape = None
-
-        def level_arrays(norm_idx, norm_diag, lidx, uidx, didx):
-            perm, bounds = round_order(didx)
-            return (idx(norm_idx), idx(norm_diag), idx(lidx[perm]),
-                    idx(uidx[perm]), idx(didx[perm]), bounds)
-
-        def flush():
-            nonlocal run, run_shape
-            if not run:
-                return
-            groups.append(_Group(kind="scan" if len(run) > 1 else "flat",
-                                 arrays=tuple(level_arrays(*lev) for lev in run),
-                                 n_levels=len(run)))
-            run, run_shape = [], None
-
         for seg in plan.segments:
             if seg.level >= level_cut:
                 break  # replaced by the dense trailing block
-            mode = seg.mode
-            if mode in (MODE_SEGMENTED, MODE_PANEL) and seg.n_upd:
-                flush()
+            if seg.mode in (MODE_SEGMENTED, MODE_PANEL) and seg.n_upd:
                 ni, nd, li, ui, dl, cp = _build_pallas_layout(plan, seg, pad_key)
-                groups.append(_Group(
-                    kind="pallas",
-                    arrays=(idx(ni), idx(nd), idx(li), idx(ui),
-                            idx(dl, torch.int32), idx(cp))))
+                groups.append(_Group("pallas", (
+                    idx(ni), idx(nd), idx(li), idx(ui), idx(dl, torch.int32),
+                    idx(cp))))
                 continue
             ns, us = seg.norm_slice, seg.upd_slice
-            # the padded shapes decide the grouping; the level keeps its
-            # real entries only
-            pn = _bucket(_pow2(seg.n_norm), "norm")
-            pu = _bucket(_pow2(seg.n_upd), "upd")
-            arrs = (plan.norm_idx[ns], plan.norm_diag[ns], plan.lidx[us],
-                    plan.uidx[us], plan.didx[us])
-            # with buckets the execution is mode-agnostic, so the key is
-            # shape-only (the JAX package's rule)
-            shape = (pn, pu) if fuse_buckets else (pn, pu, mode)
-            if fuse_levels and shape == run_shape:
-                run.append(arrs)
-            else:
-                flush()
-                run, run_shape = [arrs], shape
-            if not fuse_levels:
-                flush()
-        flush()
+            perm, bounds = round_order(plan.didx[us])
+            groups.append(_Group("flat", (
+                idx(plan.norm_idx[ns]), idx(plan.norm_diag[ns]),
+                idx(plan.lidx[us][perm]), idx(plan.uidx[us][perm]),
+                idx(plan.didx[us][perm]), bounds)))
         if self.dense_tail_info is not None:
             groups.append(_Group(kind="dense", arrays=self._dense_tail))
         self._groups = groups
@@ -428,26 +366,24 @@ class TorchFactorizer:
         a = torch.as_tensor(a_vals, dtype=self.dtype, device=self.device)
         vals = torch.zeros(self.nnz + 1, dtype=self.dtype, device=self.device)
         vals[self._a_scatter] = a
-        return self._run(vals, n_dispatch=1)
+        return self._run(vals)
 
     def factorize_filled(self, vals) -> torch.Tensor:
         """Factorize an already-filled (nnz,) value array (not modified)."""
         buf = torch.zeros(self.nnz + 1, dtype=self.dtype, device=self.device)
         buf[: self.nnz] = torch.as_tensor(vals, dtype=self.dtype,
                                           device=self.device)
-        return self._run(buf, n_dispatch=1)
+        return self._run(buf)
 
-    def _run(self, vals, n_dispatch: int) -> torch.Tensor:
+    def _run(self, vals) -> torch.Tensor:
         for g in self._groups:
             if g.kind == "pallas":
                 level_update_body(vals, *g.arrays)
             elif g.kind == "dense":
                 _dense_tail_step(vals, *g.arrays)
-            else:  # "scan" and "flat": the levels of the run in order
-                for lev in g.arrays:
-                    _level_step(vals, *lev)
-            n_dispatch += g.n_levels
-        self.last_n_dispatches = n_dispatch
+            else:
+                _level_step(vals, *g.arrays)
+        self.last_n_dispatches = 1 + len(self._groups)
         return vals[: self.nnz]
 
     __call__ = factorize

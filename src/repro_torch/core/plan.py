@@ -32,7 +32,6 @@ from .dependency import Levelization, levelize_relaxed, longest_path_levels
 from .symbolic import FilledPattern
 
 __all__ = ["FactorizePlan", "LevelSegment", "build_plan",
-           "pow2_pad", "choose_buckets", "bucketize",
            "MODE_FLAT", "MODE_SEGMENTED", "MODE_PANEL"]
 
 MODE_FLAT = "flat"            # one fused scatter-add (type A levels)
@@ -57,74 +56,6 @@ class LevelSegment:
     @property
     def n_upd(self) -> int:
         return self.upd_slice.stop - self.upd_slice.start
-
-
-# --------------------------------------------------------------------------
-# Padded-shape buckets (ragged level fusion)
-# --------------------------------------------------------------------------
-#
-# The JAX executors pad every level's index arrays to a power of two so that
-# levels with equal padded shapes can fuse into one scan group; the PyTorch
-# executor groups levels the same way.  Exact-pow2
-# matching breaks a long run of *near*-equal narrow levels into many groups
-# (one per distinct pow2 class) — the per-group dispatch overhead GLU3.0
-# identifies as the bottleneck on long, narrow schedules.  Quantizing the
-# padded shapes to a small geometric bucket ladder chosen from the plan's
-# level-shape histogram lets those runs share one shape.  Over-padding is
-# bit-inert by the plan's padding convention, so the only cost is bounded
-# wasted lanes.
-
-def pow2_pad(x: int, lo: int = 8) -> int:
-    """Smallest power of two >= ``x`` (at least ``lo``)."""
-    return max(lo, 1 << (int(x - 1).bit_length())) if x > 0 else lo
-
-
-def choose_buckets(sizes, max_waste: float = 4.0, lo: int = 8,
-                   pad_slack: int = 1024,
-                   work_budget: float = 1.25) -> np.ndarray:
-    """Work-aware geometric bucket ladder covering ``sizes``.
-
-    Buckets are a subset of the pow2-padded sizes actually present, always
-    including the largest.  Walking the ladder from the top, a rung is
-    dropped (its levels round up to the next kept rung) only when all of:
-
-    * per-level inflation stays within ``max_waste``x its own pow2 pad,
-    * the step to the next kept rung is small in absolute terms
-      (``<= pad_slack`` elements per level) — narrow levels always fuse —
-      OR dropping it is globally cheap: the total extra padded elements
-      across the histogram stay within ``work_budget``x the exact
-      pow2-padded total.
-
-    So the long runs of near-equal narrow levels that dominate circuit
-    schedules collapse to one or two buckets, while the few wide levels
-    that carry the real update work keep their exact pow2 shapes instead
-    of multiplying it.
-    """
-    padded = np.asarray([pow2_pad(int(s), lo)
-                         for s in np.asarray(sizes).ravel()], dtype=np.int64)
-    if padded.size == 0:
-        return np.asarray([lo], dtype=np.int64)
-    uniq, counts = np.unique(padded, return_counts=True)
-    total = int((uniq * counts).sum())
-    budget = (work_budget - 1.0) * total
-    kept = [int(uniq[-1])]
-    spent = 0.0
-    for p, c in zip(uniq[:-1][::-1], counts[:-1][::-1]):
-        p, c = int(p), int(c)
-        extra = (kept[-1] - p) * c
-        cheap = (kept[-1] - p) <= pad_slack or spent + extra <= budget
-        if kept[-1] <= max_waste * p and cheap:
-            spent += extra
-            continue
-        kept.append(p)
-    return np.asarray(sorted(kept), dtype=np.int64)
-
-
-def bucketize(size: int, buckets) -> int:
-    """Smallest bucket >= ``size`` (clamped to the largest bucket)."""
-    buckets = np.asarray(buckets)
-    i = int(np.searchsorted(buckets, int(size)))
-    return int(buckets[min(i, len(buckets) - 1)])
 
 
 @dataclasses.dataclass
@@ -179,19 +110,6 @@ class FactorizePlan:
     def flops(self) -> int:
         """2 flops per MAC update + 1 per normalisation division."""
         return 2 * len(self.lidx) + len(self.norm_idx)
-
-    def level_shape_buckets(self, max_waste: float = 4.0) -> dict:
-        """Per-dimension pad-bucket ladders from the plan's level-shape
-        histogram: ``norm`` (normalisation entries), ``upd`` (update
-        triples) and ``cols`` (columns per level).  Executors quantize each
-        level's pow2-padded shapes to these buckets so long runs of
-        near-equal levels fuse into one scan group."""
-        segs = self.segments
-        return {
-            "norm": choose_buckets([s.n_norm for s in segs], max_waste),
-            "upd": choose_buckets([s.n_upd for s in segs], max_waste),
-            "cols": choose_buckets([len(s.cols) for s in segs], max_waste),
-        }
 
 
 def _mode_for_level(n_cols: int, n_upd: int, panel_threshold: int) -> str:

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -79,33 +80,41 @@ def _digest(sources) -> str:
 
 
 def _build(out_dir: Path, digest: str) -> Path:
+    """Compile and link in a private directory, then move the library and
+    its hash stamp into place: processes that build at once never share an
+    object file, and a reader sees either the old library or the new one."""
     nvcc = nvcc_path()
     out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = []
-    for src in _sources():
-        obj = out_dir / (src.stem + ".o")
-        procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for src, p in procs:
-        out, _ = p.communicate()
-        logs.append(f"== {src.name}\n{out}")
-        if p.returncode != 0:
-            failed.append(src.name)
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
-    tmp = out_dir / (LIB_NAME + f".{os.getpid()}.tmp")
-    objs = [str(out_dir / (s.stem + ".o")) for s in _sources()]
-    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    lib_path = out_dir / LIB_NAME
-    os.replace(tmp, lib_path)
-    (out_dir / (LIB_NAME + ".hash")).write_text(digest)
+    work = Path(tempfile.mkdtemp(dir=out_dir, prefix="build."))
+    try:
+        t0 = time.perf_counter()
+        procs = []
+        for src in _sources():
+            obj = work / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        tmp = work / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        stamp = work / (LIB_NAME + ".hash")
+        stamp.write_text(digest)
+        lib_path = out_dir / LIB_NAME
+        os.replace(tmp, lib_path)
+        os.replace(stamp, out_dir / stamp.name)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
                       log="\n".join(logs), path=str(lib_path))
     return lib_path

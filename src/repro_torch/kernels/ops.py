@@ -29,7 +29,7 @@ def level_update_body(vals, norm_idx, norm_diag, lidx2d, uidx2d, didx_local,
     """One GLU level via K1, in place on ``vals``.
 
     vals:          (nnz + 1,) filled values, trash slot last
-    norm_idx/diag: (Pn,)  flat normalisation indices (padded with nnz)
+    norm_idx/diag: (Pn,)  flat normalisation indices of the level
     lidx2d/uidx2d: (D, R) value indices of each update's L and U operand
     didx_local:    (D, R) int32 position of each update inside its
                           destination segment (padded with C)

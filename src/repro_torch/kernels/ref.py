@@ -5,10 +5,8 @@ They run for CPU tensors (the wrappers in ``level_update.py`` and
 the card.  Each repeats its kernel's arithmetic in eager PyTorch and is no
 yardstick of speed.
 
-``level_update_ref`` is also the executor's step for the flat and scan
-level groups, which have no kernel of their own.  Scatter-adds go through
-``scatter_add_``: PyTorch's sorted scatter-add under deterministic mode, so
-equal inputs give equal bits on the card too.
+Scatter-adds go through ``scatter_add_``: PyTorch's sorted scatter-add
+under deterministic mode, so equal inputs give equal bits on the card too.
 """
 from __future__ import annotations
 
@@ -16,7 +14,7 @@ import torch
 
 from ..device import deterministic
 
-__all__ = ["level_update_ref", "segmented_accumulate_ref", "dense_lu_ref",
+__all__ = ["segmented_accumulate_ref", "dense_lu_ref", "lu_backward_error",
            "spmv_ref", "scatter_add_"]
 
 
@@ -27,14 +25,6 @@ def scatter_add_(dst, idx, src):
     with deterministic():
         dst.index_put_((idx,), src, accumulate=True)
     return dst
-
-
-def level_update_ref(vals, norm_idx, norm_diag, lidx, uidx, didx):
-    """One GLU level, in place on ``vals``: normalise the level's L parts,
-    then apply all MAC updates ``vals[didx] -= vals[lidx] * vals[uidx]``
-    (duplicates sum in index order).  Returns ``vals``."""
-    vals[norm_idx] = vals[norm_idx] / vals[norm_diag]
-    return scatter_add_(vals, didx, -(vals[lidx] * vals[uidx]))
 
 
 def segmented_accumulate_ref(col_vals, contribs, didx_local):
@@ -66,6 +56,18 @@ def dense_lu_ref(a):
         # an elementwise outer product (no matmul, so no TF32 on the card)
         m[j + 1:, j + 1:] -= m[j + 1:, j:j + 1] * m[j:j + 1, j + 1:]
     return m
+
+
+def lu_backward_error(a, lu) -> float:
+    """Componentwise backward error of an in-place-layout LU of ``a``:
+    ``max |L U - A| / (|L| |U|)``, in float64 (0 where both are 0).  A
+    correct LU keeps it near N times the value type's epsilon, whatever the
+    size of L's entries; a wrong L does not."""
+    a, lu = a.double(), lu.double()
+    eye = torch.eye(a.shape[0], dtype=torch.float64, device=a.device)
+    L, U = torch.tril(lu, -1) + eye, torch.triu(lu)
+    den = (L.abs() @ U.abs()).clamp_min(torch.finfo(torch.float64).tiny)
+    return ((L @ U - a).abs() / den).max().item()
 
 
 def spmv_ref(row_ids, colidx, vals, x, n_rows):

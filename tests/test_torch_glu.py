@@ -34,7 +34,11 @@ def pair():
 
 def test_same_schedule_and_factors(pair):
     _, gj, gt, _ = pair
-    assert gt._factorizer.kinds == gj._factorizer._kinds
+    steps = []
+    for g in gj._factorizer._groups:   # the reference's levels, one per step
+        steps += (["flat"] * g.n_levels if g.kind in ("scan", "flat")
+                  else [g.kind])
+    assert gt._factorizer.kinds == tuple(steps)
     assert "dense" in gt._factorizer.kinds and "pallas" in gt._factorizer.kinds
     np.testing.assert_allclose(gt.factorized_values().numpy(),
                                np.asarray(gj.factorized_values()),
@@ -69,14 +73,15 @@ def test_solve_info_keys_and_values(pair):
     assert info_j["pallas_disabled_reason"] is None
     assert info_t["kernels_disabled_reason"] == (
         "device='cpu' runs the plain PyTorch versions of the kernels")
-    for key in ("batched", "layout", "n_groups", "n_devices", "batch_spec",
+    for key in ("batched", "layout", "n_devices", "batch_spec",
                 "n_perturbed", "n_perturbed_global", "verify_report",
                 "refine_iters", "converged"):
         assert info_t[key] == info_j[key], key
     for key in ("pivot_growth", "min_diag"):
         np.testing.assert_allclose(info_t[key], info_j[key], rtol=1e-10)
-    assert info_t["n_dispatches"] == 1 + sum(
-        g.n_levels for g in gt._factorizer._groups)
+    # the port's steps: one per level, K1 level or dense tail
+    assert info_t["n_groups"] == len(gt._factorizer.kinds)
+    assert info_t["n_dispatches"] == 1 + info_t["n_groups"]
     assert info_t["solve_dispatches"] > 0
 
 

@@ -22,7 +22,7 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.ref import (
     dense_lu_ref,
-    level_update_ref,
+    lu_backward_error,
     segmented_accumulate_ref,
 )
 
@@ -105,23 +105,42 @@ def test_dense_lu_ref_does_not_modify_input(rng):
     assert torch.equal(a, before)
 
 
-def test_level_update_ref_trash_slot(rng):
-    """One flat level: padded slots (index nnz) touch only the trash slot,
-    even when the trash slot holds NaN."""
-    nnz = 10
-    vals = torch.from_numpy(rng.normal(size=nnz + 1) + 3.0)
-    vals[nnz] = float("nan")
-    want = vals[:nnz].clone()
-    want[[4, 5]] = want[[4, 5]] / want[[2, 2]]
-    want[7] -= want[4] * want[1]
-    want[7] -= want[5] * want[1]
-    pad = nnz
-    level_update_ref(vals, torch.tensor([4, 5, pad, pad]),
-                     torch.tensor([2, 2, pad, pad]),
-                     torch.tensor([4, 5, pad, pad]),
-                     torch.tensor([1, 1, pad, pad]),
-                     torch.tensor([7, 7, pad, pad]))
-    torch.testing.assert_close(vals[:nnz], want, rtol=0, atol=0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_lu_ref_backward_error(dtype, rng):
+    """The L factor is held to its reconstruction, not only to an absolute
+    tolerance its entries (about 1/N here) lie below: a zero or scaled L
+    fails the check."""
+    N = 160
+    a = torch.from_numpy(rng.normal(size=(N, N)) + N * np.eye(N)).to(dtype)
+    lu = dense_lu(a)
+    assert lu_backward_error(a, lu) <= 4.0 * N * torch.finfo(dtype).eps
+    assert lu_backward_error(a, torch.triu(lu)) > 1.0
+    bad = lu.clone()
+    bad[1:, 0] *= 1.01
+    assert lu_backward_error(a, bad) > 1e-3
+
+
+def test_flat_level_step_is_sequential(rng):
+    """One flat level of the executor (normalise, then the MAC updates in
+    round order) gives the bits of a sequential loop, duplicates included."""
+    from repro_torch.core.factorize import _level_step
+
+    nnz = 12
+    vals = rng.normal(size=nnz) + 3.0
+    norm_idx, norm_diag = np.array([4, 5, 6]), np.array([2, 2, 3])
+    lidx = np.array([4, 5, 6, 4, 6])
+    uidx = np.array([1, 1, 0, 8, 9])
+    didx = np.array([7, 7, 10, 11, 7])
+    want = vals.copy()
+    want[norm_idx] = want[norm_idx] / want[norm_diag]
+    for l, u, d in zip(lidx, uidx, didx):
+        want[d] -= want[l] * want[u]
+    perm, bounds = round_order(didx)
+    got = torch.from_numpy(vals.copy())
+    t = torch.from_numpy
+    _level_step(got, t(norm_idx), t(norm_diag), t(lidx[perm]), t(uidx[perm]),
+                t(didx[perm]), bounds)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_spmv_matches_scipy(rng):
