@@ -8,15 +8,20 @@ Phases, in order; any failure exits non-zero before the result line:
  1. the card's name and power limit (``nvidia-smi``);
  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
  3. each kernel against its plain PyTorch version at the main path's
-    shapes, float64 and float32, with the stated tolerances;
- 4. for each matrix (grid64, then rajat12_like, both at scale 1.0): plan on
-    the host, build ``GLU(A)`` on the card and drive the main path
-    (factorize + solve) with every launch counter set to 0 just before and
-    read just after: each K1/K2 launch count must equal the schedule's
-    count of K1 and dense groups;
- 5. five refactorizations with fresh values (a Newton-like perturbation from
-    a numpy seed), each solved with ``residual < 1e-9``, and two
-    factorizations of the same values that must be bit-identical;
+    shapes, float64 and float32 (complex128 and complex64 planes for K3),
+    with the stated tolerances; K2 and K3 also against their componentwise
+    backward error;
+ 4. for each matrix (grid64 and rajat12_like, real, at scale 1.0; then
+    rajat12_ac, the complex AC matrix ``G + jwC`` on rajat12_like's
+    pattern): plan on the host, build ``GLU(A)`` on the card and drive the
+    path (factorize + solve) with every launch counter set to 0 just before
+    and read just after: the K1, K2 and K3 launch counts must equal the
+    schedule's count of K1 and dense groups;
+ 5. refactorizations with fresh values (real matrices: a Newton-like
+    perturbation from a numpy seed; rajat12_ac: other frequencies in a
+    decade around 1e3 rad/s), each solved with ``residual < 1e-9``, a
+    refined solve that converges, and two factorizations and solves of the
+    same values that must be bit-identical;
  6. timings with CUDA events after warm-up: factorization and solve, and
     each kernel, its plain version and a one-call library yardstick
     replayed on the exact inputs the main path gave the kernel; bounds from
@@ -24,7 +29,8 @@ Phases, in order; any failure exits non-zero before the result line:
     launches and device-busy share per factorization and per solve
     (torch.profiler), beside this host's cost of one small op.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``, one entry per kernel
+and matrix, over all matrices; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -46,16 +52,20 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12}
 
 K1_TOL = {"float32": 1e-5, "float64": 1e-12}
-K2_TOL = {"float32": 5e-3, "float64": 1e-9}
-# K2's componentwise backward error max |LU - A| / (|L| |U|), in units of
-# N times the dtype's epsilon: catches a wrong L whose entries lie below
-# K2_TOL (on the test tiles they are about 1/N)
+K2_TOL = {"float32": 5e-3, "float64": 1e-9}   # K3 too, on its planes
+# K2's and K3's componentwise backward error max |LU - A| / (|L| |U|), in
+# units of N times the plane dtype's epsilon: catches a wrong L whose
+# entries lie below K2_TOL (on the test tiles they are about 1/N)
 K2_BWD = 4.0
 
-# (suite name, scale, expected K1 launches, expected K2 launches) per
-# factorization; the counts are the schedules' own, checked again here
-MATRICES = [("grid64", 1.0, 154, 1), ("rajat12_like", 1.0, 10, 1)]
+# (matrix, expected K1, K2 and K3 launches per factorization); the counts
+# are the schedules' own, checked again here.  rajat12_ac is
+# ac_jacobian(1879, avg_degree=6.9, seed=0): rajat12_like's exact pattern
+# with complex values, so it plans into the same schedule
+MATRICES = [("grid64", 154, 1, 0), ("rajat12_like", 10, 1, 0),
+            ("rajat12_ac", 10, 0, 1)]
 N_REFACTOR = 5
+AC_OMEGAS = np.logspace(2.5, 3.5, N_REFACTOR)   # rad/s, around the plan's 1e3
 SEED = 1234
 
 
@@ -119,9 +129,11 @@ class Clock:
 def check_kernels_at_shapes(dev) -> None:
     """Phase 3: kernel against plain version on random inputs at the main
     path's shapes (grid64: K1 (D, R, C) up to (905, 90, 297),
-    (710, 135, 297) and (392, 199, 297), K2 N=160; rajat12_like: K1 about (728, 1280, 1024), K2
-    N=736; and the K2 maximum N=1024).  K2 is also held to its backward
-    error, which a wrong L cannot pass."""
+    (710, 135, 297) and (392, 199, 297), K2 N=160; rajat12_like: K1 about
+    (728, 1280, 1024), K2 N=736; rajat12_ac: K1 on (2·728, 1280) planes,
+    K3 N=736; K3 also at N=96, and K2's and K3's maximum N=1024).  K2 and
+    K3 are also held to their backward error, which a wrong L cannot
+    pass."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
 
@@ -162,6 +174,39 @@ def check_kernels_at_shapes(dev) -> None:
             log(f"check K2 {name} N={N}: max_abs_err={err:.3e} "
                 f"tol={K2_TOL[name]:g}; backward error {bwd:.3e} <= "
                 f"{bwd_tol:.3e} ok")
+        for N in (96, 736, 1024):
+            a = torch.from_numpy(rng.normal(size=(2, N, N))).to(dev, dtype)
+            a[0] += N * torch.eye(N, dtype=dtype, device=dev)
+            got = kernels.dense_lu_planar(a)
+            torch.cuda.synchronize(dev)
+            want = ref.dense_lu_planar_ref(a)
+            torch.cuda.synchronize(dev)
+            err = compare(got, want, K2_TOL[name])
+            bwd = ref.lu_backward_error(a, got)
+            bwd_tol = K2_BWD * N * torch.finfo(dtype).eps
+            assert bwd <= bwd_tol, ("K3", name, N, bwd, bwd_tol)
+            log(f"check K3 {name} planes (complex) N={N}: max_abs_err="
+                f"{err:.3e} tol={K2_TOL[name]:g}; complex backward error "
+                f"{bwd:.3e} <= {bwd_tol:.3e} ok")
+
+
+def make_matrix(name):
+    from repro_torch.sparse import ac_jacobian, make_suite_matrix
+
+    if name == "rajat12_ac":
+        return ac_jacobian(1879, avg_degree=6.9, seed=0)
+    return make_suite_matrix(name, 1.0)
+
+
+def refactor_values(name, A, rng):
+    """Values for the refactorizations on A's pattern: other frequencies of
+    the AC matrix, Newton-like iterates of a real one."""
+    from repro_torch.sparse import ac_jacobian
+
+    if name == "rajat12_ac":
+        return [ac_jacobian(1879, omega=w, avg_degree=6.9, seed=0).data
+                for w in AC_OMEGAS]
+    return [newton_values(A, rng) for _ in range(N_REFACTOR)]
 
 
 def newton_values(A, rng):
@@ -174,63 +219,80 @@ def newton_values(A, rng):
     return np.asarray(A.data) * scale
 
 
-def drive_matrix(dev, clock, name, scale, want_k1, want_k2):
-    """Phases 4-6 for one matrix.  Returns the matrix's report and the
-    kernels' inputs recorded from one factorization."""
+def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
+    """Phases 4-6 for one matrix.  Returns the matrix's report, the GLU and
+    the kernels' inputs recorded from one factorization."""
     import repro_torch.core.factorize as factorize_mod
     import repro_torch.kernels.ops as ops_mod
     from repro_torch import GLU
     from repro_torch.core import plan_factorization
-    from repro_torch.kernels import dense_lu, segmented_accumulate
-    from repro_torch.sparse import make_suite_matrix
+    from repro_torch.kernels import (
+        dense_lu,
+        dense_lu_planar,
+        segmented_accumulate,
+    )
 
-    A = make_suite_matrix(name, scale)
+    A = make_matrix(name)
+    cplx = np.iscomplexobj(A.data)
+    dtype = torch.complex128 if cplx else torch.float64
     t0 = time.perf_counter()
-    plan_factorization(A)             # fills the process-wide plan cache
+    # fills the process-wide plan cache; rajat12_ac's MC64 matching equals
+    # rajat12_like's, so it reuses that plan, as an AC sweep after a
+    # transient run on the same circuit would
+    _, _, from_cache = plan_factorization(A)
     plan_s = time.perf_counter() - t0
-    log(f"{name}: n={A.n} nnz={A.nnz} planning {plan_s:.3f} s (host numpy)")
+    log(f"{name}: n={A.n} nnz={A.nnz} {dtype} planning {plan_s:.3f} s "
+        f"(host numpy, plan from cache: {from_cache})")
     rng = np.random.default_rng(SEED)
     b = rng.normal(size=A.n)
+    if cplx:
+        b = b + 1j * rng.normal(size=A.n)
 
-    # -- the main path: counters at 0 just before, read just after ----------
+    # -- the path: counters at 0 just before, read just after ---------------
     segmented_accumulate.launches = 0
     dense_lu.launches = 0
+    dense_lu_planar.launches = 0
     t0 = time.perf_counter()
-    g = GLU(A)
+    g = GLU(A, dtype=dtype)
     build_s = time.perf_counter() - t0
     g.factorize()
     x = g.solve(b)
     torch.cuda.synchronize(dev)
     k1, k2 = segmented_accumulate.launches, dense_lu.launches
+    k3 = dense_lu_planar.launches
     kinds = g._factorizer.kinds
     info = g.solve_info
-    # real work of the K1 and K2 steps, for the bounds: updates and
+    # real work of the K1 and dense-tail steps, for the bounds: updates and
     # destination slots that are not padding, and the tail's real size
     nnz = g._factorizer.nnz
     k1_groups = [gr.arrays for gr in g._factorizer._groups
                  if gr.kind == "pallas"]
     work = dict(
+        planes=2 if cplx else 1,
         k1_real_updates=sum(int((a[2] < nnz).sum()) for a in k1_groups),
         k1_real_slots=sum(int((a[5] < nnz).sum()) for a in k1_groups),
         k1_padded_updates=sum(a[2].numel() for a in k1_groups),
         k1_padded_slots=sum(a[5].numel() for a in k1_groups),
-        k2_sizes=[g._factorizer.dense_tail_info["size"]]
+        tail_sizes=[g._factorizer.dense_tail_info["size"]]
         if g._factorizer.dense_tail_info else [])
-    log(f"{name}: main path K1 launches={k1} (K1 groups {kinds.count('pallas')}, "
-        f"expected {want_k1}), K2 launches={k2} (dense groups "
-        f"{kinds.count('dense')}, expected {want_k2}), groups={len(kinds)}, "
-        f"levels={g.num_levels}, nnz_filled={g.nnz_filled}, "
+    n_dense = kinds.count("dense")
+    log(f"{name}: path K1 launches={k1} (K1 groups {kinds.count('pallas')}, "
+        f"expected {want_k1}), K2 launches={k2} (expected {want_k2}), K3 "
+        f"launches={k3} (expected {want_k3}; dense groups {n_dense}), "
+        f"groups={len(kinds)}, levels={g.num_levels}, "
+        f"nnz_filled={g.nnz_filled}, layout={info['layout']}, "
         f"dense_tail={g._factorizer.dense_tail_info}")
     assert k1 == kinds.count("pallas") == want_k1, (k1, want_k1)
-    assert k2 == kinds.count("dense") == want_k2, (k2, want_k2)
+    assert k2 == want_k2 and k3 == want_k3 and k2 + k3 == n_dense, (k2, k3)
     assert info["kernels_disabled_reason"] is None, info
+    assert info["layout"] == ("planar" if cplx else "native"), info
     res0 = g.residual(b, x)
     assert np.isfinite(x).all() and x.shape == (A.n,) and res0 < 1e-9, res0
     log(f"{name}: solve residual={res0:.3e}; GLU build {build_s:.3f} s")
 
     # -- refactorizations with fresh values ----------------------------------
     S = A.to_scipy()
-    vals_set = [newton_values(A, rng) for _ in range(N_REFACTOR)]
+    vals_set = refactor_values(name, A, rng)
     for i, new in enumerate(vals_set):
         x = g.factorize(new).solve(b)
         S.data = new
@@ -239,7 +301,7 @@ def drive_matrix(dev, clock, name, scale, want_k1, want_k2):
         log(f"{name}: refactorization {i}: residual={res:.3e} < 1e-9 ok")
     x2 = g.solve(b, refine=2)
     rinfo = g.solve_info
-    assert rinfo["converged"], rinfo
+    assert rinfo["converged"] and np.isfinite(x2).all(), rinfo
     log(f"{name}: refine=2 backward_error={rinfo['backward_error']:.3e} "
         f"iters={rinfo['refine_iters']} residual="
         f"{float(np.abs(S @ x2 - b).max() / np.abs(b).max()):.3e}")
@@ -254,24 +316,29 @@ def drive_matrix(dev, clock, name, scale, want_k1, want_k2):
         "bit-identical")
 
     # -- record the kernels' inputs from one factorization ------------------
-    rec_k1, rec_k2 = [], []
-    real_k1, real_k2 = ops_mod.segmented_accumulate, factorize_mod.dense_lu
+    rec = {"k1": [], "k2": [], "k3": []}
+    real = {"k1": ops_mod.segmented_accumulate, "k2": factorize_mod.dense_lu,
+            "k3": factorize_mod.dense_lu_planar}
 
     def k1_recorder(cv, cb, dl):
-        rec_k1.append((cv.clone(), cb.clone(), dl.clone()))
-        return real_k1(cv, cb, dl)
+        rec["k1"].append((cv.clone(), cb.clone(), dl.clone()))
+        return real["k1"](cv, cb, dl)
 
-    def k2_recorder(a):
-        rec_k2.append(a.clone())
-        return real_k2(a)
+    def tile_recorder(key):
+        def record(a):
+            rec[key].append(a.clone())
+            return real[key](a)
+        return record
 
     ops_mod.segmented_accumulate = k1_recorder
-    factorize_mod.dense_lu = k2_recorder
+    factorize_mod.dense_lu = tile_recorder("k2")
+    factorize_mod.dense_lu_planar = tile_recorder("k3")
     try:
         g.factorize(vals_set[0])
     finally:
-        ops_mod.segmented_accumulate = real_k1
-        factorize_mod.dense_lu = real_k2
+        ops_mod.segmented_accumulate = real["k1"]
+        factorize_mod.dense_lu = real["k2"]
+        factorize_mod.dense_lu_planar = real["k3"]
     torch.cuda.synchronize(dev)
 
     # -- timings ----------------------------------------------------------------
@@ -282,9 +349,13 @@ def drive_matrix(dev, clock, name, scale, want_k1, want_k2):
     fact_call_ms = clock.median_ms(lambda: g.factorize(vals_set[1]))
     solve_call_ms = clock.median_ms(lambda: g.solve(b))
     report = dict(
-        matrix=name, scale=scale, n=A.n, nnz=A.nnz, nnz_filled=g.nnz_filled,
-        levels=g.num_levels, groups=len(kinds), planning_s=plan_s,
-        glu_build_s=build_s, k1_launches=k1, k2_launches=k2,
+        matrix=name, dtype=str(dtype), n=A.n, nnz=A.nnz,
+        nnz_filled=g.nnz_filled, levels=g.num_levels, groups=len(kinds),
+        planning_s=plan_s, plan_from_cache=from_cache, glu_build_s=build_s,
+        k1_launches=k1,
+        k2_launches=k2, k3_launches=k3, refine2=dict(
+            iters=rinfo["refine_iters"],
+            backward_error=rinfo["backward_error"]),
         factorize_steps=info["n_dispatches"],
         solve_steps=g._solver.last_n_dispatches,
         factorize_ms=fact_ms, solve_ms=solve_ms,
@@ -293,19 +364,35 @@ def drive_matrix(dev, clock, name, scale, want_k1, want_k2):
     log(f"{name}: factorize {fact_ms:.3f} ms (device values, CUDA events), "
         f"solve {solve_ms:.3f} ms; GLU.factorize call median {fact_call_ms:.3f} ms, "
         f"GLU.solve call median {solve_call_ms:.3f} ms")
-    return report, rec_k1, rec_k2, g
+    return report, rec, g
 
 
-def kernel_entries(dev, clock, rec_k1, rec_k2, report):
-    """Time each kernel, its plain version and the library yardstick on the
-    recorded main-path inputs; compute bounds from the real (unpadded)
-    work of those inputs."""
-    from repro_torch.kernels import dense_lu, segmented_accumulate
-    from repro_torch.kernels.ref import (
-        dense_lu_ref,
-        lu_backward_error,
-        segmented_accumulate_ref,
-    )
+def _bound(n_bytes, n_ops):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S["float64"] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_entries(dev, clock, rec, report):
+    """Time each kernel the matrix's path ran, its plain version and the
+    library yardstick on the recorded path inputs; compute bounds from the
+    real (unpadded) work of those inputs."""
+    out = []
+    if rec["k1"]:
+        out.append(_k1_entry(dev, clock, rec["k1"], report))
+    if rec["k2"]:
+        out.append(_tile_entry(clock, rec["k2"], report, planar=False))
+    if rec["k3"]:
+        out.append(_tile_entry(clock, rec["k3"], report, planar=True))
+    for e in out:
+        e["matrix"] = report["matrix"]
+    return out
+
+
+def _k1_entry(dev, clock, rec_k1, report):
+    from repro_torch.kernels import segmented_accumulate
+    from repro_torch.kernels.ref import segmented_accumulate_ref
 
     # K1 over every K1 call of one factorization
     err = 0.0
@@ -314,13 +401,13 @@ def kernel_entries(dev, clock, rec_k1, rec_k2, report):
                                segmented_accumulate_ref(cv, cb, dl),
                                K1_TOL[str(cv.dtype).split(".")[-1]]))
     # each real slot read and written once, each real contribution and its
-    # int32 position read once; one add per real contribution
+    # int32 position read once; one add per real contribution; a complex
+    # path folds both planes into K1's rows, so each counts twice
     esize = rec_k1[0][0].element_size()
-    k1_bytes = (2 * report["k1_real_slots"] * esize
-                + report["k1_real_updates"] * (esize + 4))
-    k1_ops = report["k1_real_updates"]
-    k1_t_bytes = k1_bytes / PEAK_BYTES_PER_S * 1e3
-    k1_t_ops = k1_ops / PEAK_OPS_PER_S["float64"] * 1e3
+    planes = report["planes"]
+    k1_bytes = planes * (2 * report["k1_real_slots"] * esize
+                         + report["k1_real_updates"] * (esize + 4))
+    k1_ops = planes * report["k1_real_updates"]
     # library yardstick: one scatter_add_ per call into a prepared (D, C+1)
     # buffer whose last column collects the padding
     lib_in = []
@@ -348,50 +435,71 @@ def kernel_entries(dev, clock, rec_k1, rec_k2, report):
               replaces="src/repro/kernels/level_update.py:60",
               launches=report["k1_launches"], max_abs_err=err,
               ms=clock.ms(run_k1), plain_ms=clock.ms(run_k1_plain, reps=3),
-              bound_ms=max(k1_t_bytes, k1_t_ops),
-              bound_by="bytes" if k1_t_bytes >= k1_t_ops else "operations",
+              **_bound(k1_bytes, k1_ops),
               library_ms=clock.ms(run_k1_lib))
     k1["per_launch_us"] = k1["ms"] * 1e3 / max(1, len(rec_k1))
     k1["calls_timed"] = len(rec_k1)
+    return k1
 
-    # K2 on the recorded dense tail tile(s)
+
+def _tile_entry(clock, tiles, report, planar: bool):
+    """K2 (real (N, N) tiles) or K3 ((2, N, N) complex planes) on the
+    recorded dense-tail tile(s)."""
+    from repro_torch.kernels import dense_lu, dense_lu_planar
+    from repro_torch.kernels.ref import (
+        dense_lu_planar_ref,
+        dense_lu_ref,
+        lu_backward_error,
+    )
+
+    kernel = dense_lu_planar if planar else dense_lu
+    plain = dense_lu_planar_ref if planar else dense_lu_ref
     err = 0.0
-    for a in rec_k2:
-        got = dense_lu(a)
-        err = max(err, compare(got, dense_lu_ref(a),
+    for a in tiles:
+        got = kernel(a)
+        err = max(err, compare(got, plain(a),
                                K2_TOL[str(a.dtype).split(".")[-1]]))
         bwd = lu_backward_error(a, got)
-        bwd_tol = K2_BWD * a.shape[0] * torch.finfo(a.dtype).eps
-        assert bwd <= bwd_tol, ("main-path K2", bwd, bwd_tol)
-    # the real tail, not its padding to K2's block
-    esize = rec_k2[0].element_size()
-    k2_bytes = sum(2 * m * m * esize for m in report["k2_sizes"])
-    k2_ops = sum(2 * m ** 3 / 3 for m in report["k2_sizes"])
-    k2_t_bytes = k2_bytes / PEAK_BYTES_PER_S * 1e3
-    k2_t_ops = k2_ops / PEAK_OPS_PER_S["float64"] * 1e3
+        bwd_tol = K2_BWD * a.shape[-1] * torch.finfo(a.dtype).eps
+        assert bwd <= bwd_tol, ("path tile", planar, bwd, bwd_tol)
+    # the real tail, not its padding to the block: each value read and
+    # written once; 2m^3/3 multiply-adds as operations, a complex one being
+    # 4 real multiplies and 4 adds (8m^3/3 real operations in all)
+    esize = tiles[0].element_size()
+    per = 2 if planar else 1
+    n_bytes = sum(2 * per * m * m * esize for m in report["tail_sizes"])
+    n_ops = sum(per * per * 2 * m ** 3 / 3 for m in report["tail_sizes"])
+    # library yardstick: one unpivoted LU call on the same tile, complex
+    # for K3 (converted once, outside the timing)
+    lib_in = [torch.complex(a[0], a[1]) if planar else a for a in tiles]
 
-    def run_k2():
-        for a in rec_k2:
-            dense_lu(a)
+    def run():
+        for a in tiles:
+            kernel(a)
 
-    def run_k2_plain():
-        for a in rec_k2:
-            dense_lu_ref(a)
+    def run_plain():
+        for a in tiles:
+            plain(a)
 
-    def run_k2_lib():
-        for a in rec_k2:
+    def run_lib():
+        for a in lib_in:
             torch.linalg.lu_factor(a, pivot=False)
 
-    k2 = dict(name="dense_lu", route="cuda",
-              source="src/repro_torch/kernels/csrc/dense_lu.cu",
-              replaces="src/repro/kernels/dense_lu.py:98",
-              launches=report["k2_launches"], max_abs_err=err,
-              ms=clock.ms(run_k2), plain_ms=clock.ms(run_k2_plain, reps=3),
-              bound_ms=max(k2_t_bytes, k2_t_ops),
-              bound_by="bytes" if k2_t_bytes >= k2_t_ops else "operations",
-              library_ms=clock.ms(run_k2_lib))
-    k2["N"] = [int(a.shape[0]) for a in rec_k2]
-    return [k1, k2]
+    if planar:
+        ent = dict(name="dense_lu_planar", route="cuda",
+                   source="src/repro_torch/kernels/csrc/dense_lu_planar.cu",
+                   replaces="src/repro/kernels/dense_lu.py:207",
+                   launches=report["k3_launches"])
+    else:
+        ent = dict(name="dense_lu", route="cuda",
+                   source="src/repro_torch/kernels/csrc/dense_lu.cu",
+                   replaces="src/repro/kernels/dense_lu.py:98",
+                   launches=report["k2_launches"])
+    ent.update(max_abs_err=err, ms=clock.ms(run),
+               plain_ms=clock.ms(run_plain, reps=3), **_bound(n_bytes, n_ops),
+               library_ms=clock.ms(run_lib))
+    ent["N"] = [int(a.shape[-1]) for a in tiles]
+    return ent
 
 
 def _profile(dev, fn):
@@ -482,17 +590,19 @@ def main() -> int:
     # 4-6. the main path per matrix
     clock = Clock(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    entries = None
-    for name, scale, want_k1, want_k2 in MATRICES:
-        report, rec_k1, rec_k2, g = drive_matrix(dev, clock, name, scale,
-                                                 want_k1, want_k2)
-        ents = kernel_entries(dev, clock, rec_k1, rec_k2, report)
+    entries = []
+    for name, want_k1, want_k2, want_k3 in MATRICES:
+        report, rec, g = drive_matrix(dev, clock, name, want_k1, want_k2,
+                                      want_k3)
+        ents = kernel_entries(dev, clock, rec, report)
         report["kernels"] = ents
         report["profile"] = profile_path(dev, clock, g)
-        if entries is None:           # the first matrix is the slice's main path
-            entries = ents
+        entries += ents
         log(json.dumps({"matrix_report": report}))
-        del rec_k1, rec_k2, g
+        del rec, g
+    names = {e["name"] for e in entries}
+    assert names == {"segmented_accumulate", "dense_lu", "dense_lu_planar"}, \
+        names
     log(f"peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(f"card: {card}")

@@ -8,8 +8,9 @@
 Host planning is numpy (:mod:`.planner`, through its content-addressed
 plan cache); ``factorize``/``solve`` are the fast repeated path.  The
 numeric phase runs on the card by default: SEGMENTED/PANEL levels through
-kernel K1, the dense trailing block through kernel K2.  ``device="cpu"``
-runs the same schedule with the kernels' plain PyTorch versions.
+kernel K1, the dense trailing block through kernel K2 (real values) or K3
+(complex values, on re/im planes).  ``device="cpu"`` runs the same
+schedule with the kernels' plain PyTorch versions.
 
 Permutation algebra: with row_map/col_map (old -> new),
 ``A_perm[row_map[i], col_map[j]] = A[i, j]``; solving ``A x = b`` becomes
@@ -30,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..sparse.csc import CSC
-from .factorize import TorchFactorizer, value_dtype
+from .factorize import TorchFactorizer, ported_layout, value_dtype
 from .planner import MC64Scaling, SymbolicPlan, compute_scaling, plan_factorization
 from .triangular import TorchTriangularSolver
 
@@ -60,14 +61,21 @@ class GLU:
     """Refactorize-and-solve on one sparsity pattern.
 
     ``device``: ``None`` runs on the card (and raises when there is none),
-    ``"cpu"`` runs the plain PyTorch versions of the kernels.  The options
-    ``static_pivot``, ``layout="planar"``, ``mesh``, ``jit_schedule=False``
-    and ``verify`` other than ``"off"``, complex dtypes, ``rhs_pattern`` and
-    the batched and many-right-hand-side methods are not ported yet and
-    raise ``NotImplementedError``.  The JAX package's level-fusion options
-    (``fuse_levels``, ``fuse_buckets``, ``bucket_waste``) have no
-    counterpart: every level is its own step here.  The other options mean
-    what they mean in the JAX package's ``GLU``.
+    ``"cpu"`` runs the plain PyTorch versions of the kernels.
+
+    ``dtype``: float64 (default), float32, complex128 or complex64.  Complex
+    values (AC analysis, ``A = G + jwC``) take ``layout="auto"`` or
+    ``"planar"``: K1 and K3 run on their re/im planes and callers see
+    native complex.  ``layout="native"`` with a complex dtype, the JAX
+    package's route off the kernels, is not ported and raises
+    ``NotImplementedError``, as do ``static_pivot``, ``mesh``,
+    ``jit_schedule=False``, ``verify`` other than ``"off"``,
+    ``rhs_pattern`` and the batched and many-right-hand-side methods.
+
+    The JAX package's level-fusion options (``fuse_levels``,
+    ``fuse_buckets``, ``bucket_waste``) have no counterpart: every level is
+    its own step here.  The other options mean what they mean in the JAX
+    package's ``GLU``.
     """
 
     def __init__(
@@ -95,7 +103,7 @@ class GLU:
             A, ordering=ordering, symbolic=symbolic, mc64=mc64,
             panel_threshold=panel_threshold, cache=plan_cache)
         self._setup(plan, scaling, A, from_cache=from_cache, dtype=dtype,
-                    refine=refine,
+                    layout=layout, refine=refine,
                     refine_tol=refine_tol, dense_tail=dense_tail,
                     dense_tail_density=dense_tail_density, device=device)
 
@@ -131,13 +139,13 @@ class GLU:
                 "row permutation; rebuild the plan (e.g. GLU(A, ...))")
         self = cls.__new__(cls)
         self._setup(plan, scaling, A, from_cache=True, dtype=dtype,
-                    refine=refine,
+                    layout=layout, refine=refine,
                     refine_tol=refine_tol, dense_tail=dense_tail,
                     dense_tail_density=dense_tail_density, device=device)
         return self
 
     def _setup(self, plan: SymbolicPlan, scaling: MC64Scaling, A: CSC,
-               from_cache: bool, dtype, refine: int,
+               from_cache: bool, dtype, layout: str, refine: int,
                refine_tol: Optional[float],
                dense_tail: bool, dense_tail_density: float, device) -> None:
         self.device = resolve_device(device)
@@ -169,12 +177,15 @@ class GLU:
         self.levelization = plan.levelization
         self.plan = plan.fplan
         self._factorizer = TorchFactorizer(
-            self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail, dense_tail_density=dense_tail_density)
+            self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail,
+            dense_tail_density=dense_tail_density, layout=layout)
+        self.layout = self._factorizer.layout
         self._solver = TorchTriangularSolver(self.plan, device=dev)
         self._vals: Optional[torch.Tensor] = None
         self._a_vals: Optional[torch.Tensor] = None
         self._a_abs: Optional[torch.Tensor] = None
         self.refine_default = int(refine)
+        # 4 ulp of the value dtype (of its plane dtype for complex values)
         self.refine_tol = (float(refine_tol) if refine_tol is not None
                            else 4.0 * float(torch.finfo(self.dtype).eps))
         self._info: Optional[dict] = None
@@ -199,7 +210,8 @@ class GLU:
         return self
 
     def factorized_values(self) -> torch.Tensor:
-        """Factored (nnz,) values in the plan's filled pattern."""
+        """Factored (nnz,) values in the plan's filled pattern, in the
+        native value dtype (complex values as a complex tensor)."""
         if self._vals is None:
             raise RuntimeError("call factorize() first")
         return self._vals
@@ -235,7 +247,7 @@ class GLU:
                 "n_perturbed": None, "refine_iters": None,
                 "backward_error": None, "converged": None,
                 "n_groups": self._factorizer.n_groups, "n_dispatches": None,
-                "solve_dispatches": None, "layout": "native",
+                "solve_dispatches": None, "layout": self.layout.name,
                 "kernels_disabled_reason":
                     self._factorizer.kernels_disabled_reason,
                 "n_devices": 1, "batch_spec": None,
@@ -255,7 +267,7 @@ class GLU:
     def solve_info(self) -> Optional[dict]:
         """Robustness report of the latest factorize/solve, with the JAX
         package's keys for this path (``pallas_disabled_reason`` is
-        ``kernels_disabled_reason`` here: None when K1 and K2 ran on the
+        ``kernels_disabled_reason`` here: None when the kernels ran on the
         card).  ``n_dispatches``/``solve_dispatches`` count host-issued
         steps."""
         if self._info is None:
@@ -286,10 +298,9 @@ class GLU:
 
 
 def _check_slice(dtype, jit_schedule, static_pivot, layout, mesh, verify):
-    value_dtype(dtype)               # complex raises NotImplementedError
+    """Refuse what this package does not run before any planning work."""
+    ported_layout(layout, dtype)
     _not_ported("jit_schedule", jit_schedule, True)
     _not_ported("static_pivot", static_pivot, None)
-    if layout not in ("auto", "native"):
-        _not_ported("layout", layout, "native")
     _not_ported("mesh", mesh, None)
     _not_ported("verify", verify, "off")

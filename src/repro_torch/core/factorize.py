@@ -7,7 +7,8 @@ executor.
 * ``TorchFactorizer``      — the GLU3.0 executor: level-scheduled, three
                              adaptive modes, one step per level,
                              SEGMENTED/PANEL levels through kernel K1 and the
-                             dense trailing block through kernel K2.
+                             dense trailing block through kernel K2 (real
+                             values) or K3 (complex values, on re/im planes).
 
 The executor is built once from a :class:`FactorizePlan` and reused for
 every refactorization with new values on the same pattern (the
@@ -24,6 +25,11 @@ writes into the trash slot, whose value is never read into a real slot.
 The dense tail is padded to a multiple of K2's block; it gathers and
 scatters through explicit lists of its real positions, so its non-pattern
 entries read exact zeros.
+
+Complex values (``layout="planar"``) are a complex64/complex128 value
+array: flat levels run in PyTorch's complex arithmetic, K1 levels on the
+re/im plane view (``kernels.ops.level_update_planar_body``), and the dense
+tail through K3 on a (2, Np, Np) plane tile.
 """
 from __future__ import annotations
 
@@ -33,14 +39,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.dense_lu import BLOCK, dense_lu
-from ..kernels.ops import add_in_rounds_, level_update_body, round_order
+from ..kernels.dense_lu import BLOCK, dense_lu, dense_lu_planar
+from ..kernels.ops import (
+    add_in_rounds_,
+    level_update_body,
+    level_update_planar_body,
+    round_order,
+)
 from ..sparse.csc import csc_transpose_pattern
+from ..sparse.layout import ValueLayout, resolve_layout
 from .plan import MODE_PANEL, MODE_SEGMENTED, FactorizePlan
 from .symbolic import FilledPattern
 
 __all__ = ["factorize_numpy", "factorize_numpy_fast", "TorchFactorizer",
-           "split_lu", "value_dtype"]
+           "split_lu", "value_dtype", "ported_layout"]
 
 
 # --------------------------------------------------------------------------
@@ -125,24 +137,34 @@ def split_lu(As: FilledPattern, vals: np.ndarray):
 # --------------------------------------------------------------------------
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                 np.dtype(np.float64): torch.float64}
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.complex64): torch.complex64,
+                 np.dtype(np.complex128): torch.complex128}
 
 
 def value_dtype(dtype) -> torch.dtype:
-    """A torch value dtype from a torch or numpy spelling.  The port runs
-    real float32 and float64 only; complex values are a later slice."""
+    """A torch value dtype from a torch or numpy spelling: float32, float64,
+    complex64 or complex128."""
     if isinstance(dtype, torch.dtype):
-        if dtype.is_complex:
-            raise NotImplementedError("complex dtypes are not ported yet")
-        if dtype in (torch.float32, torch.float64):
+        if dtype in _TORCH_DTYPES.values():
             return dtype
         raise TypeError(f"unsupported value dtype {dtype}")
     nd = np.dtype(dtype)
-    if np.issubdtype(nd, np.complexfloating):
-        raise NotImplementedError("complex dtypes are not ported yet")
     if nd not in _TORCH_DTYPES:
         raise TypeError(f"unsupported value dtype {nd}")
     return _TORCH_DTYPES[nd]
+
+
+def ported_layout(layout, dtype) -> ValueLayout:
+    """:func:`resolve_layout`, refusing what this package does not run:
+    complex values in the native layout (the JAX package's route off the
+    kernels) raise ``NotImplementedError``."""
+    lay = resolve_layout(layout, value_dtype(dtype))
+    if lay.dtype.is_complex and not lay.planar:
+        raise NotImplementedError(
+            "layout='native' for complex values is not ported to the "
+            "PyTorch package yet; use layout='auto' or 'planar'")
+    return lay
 
 
 def _build_pallas_layout(plan: FactorizePlan, seg, pad_key: int):
@@ -259,7 +281,9 @@ class _Group:
 def _level_step(vals, norm_idx, norm_diag, lidx, uidx, didx, bounds):
     """One flat level: normalise its L parts, then
     ``vals[didx] -= vals[lidx] * vals[uidx]`` in fixed-order rounds (the
-    triples are stored in :func:`round_order` of ``didx``)."""
+    triples are stored in :func:`round_order` of ``didx``).  Real or
+    complex values alike: complex ones divide and multiply in PyTorch's
+    complex arithmetic."""
     vals[norm_idx] = vals[norm_idx] / vals[norm_diag]
     add_in_rounds_(vals, didx, vals[lidx] * vals[uidx], bounds, alpha=-1.0)
 
@@ -276,16 +300,36 @@ def _dense_tail_step(vals, tail_vidx, tail_flat, eye_flat, Np: int):
     return vals
 
 
+def _dense_tail_step_planar(vals, tail_vidx, tail_flat, eye_flat, Np: int):
+    """Complex twin of :func:`_dense_tail_step`: gather the trailing block
+    into (2, Np, Np) re/im planes (exact zeros off the pattern, ``1+0j`` on
+    the padded diagonal: only the real plane gets the ones), factor them
+    with K3, scatter the real positions back."""
+    planes = torch.zeros((2, Np * Np), dtype=vals.real.dtype,
+                         device=vals.device)
+    planes[:, tail_flat] = torch.view_as_real(vals[tail_vidx]).T
+    planes[0, eye_flat] = 1.0
+    lu = dense_lu_planar(planes.view(2, Np, Np)).view(2, Np * Np)
+    vals[tail_vidx] = torch.complex(lu[0, tail_flat], lu[1, tail_flat])
+    return vals
+
+
 class TorchFactorizer:
     """Level-scheduled GLU3.0 numeric factorization on one device.
 
     Parameters
     ----------
     plan: FactorizePlan
-    dtype: torch.float32 or torch.float64 (numpy spellings accepted)
+    dtype: torch.float32, float64, complex64 or complex128 (numpy
+        spellings accepted)
     device: ``None`` (the card; raises when there is none), ``"cuda"`` or
         ``"cpu"``.  On the card SEGMENTED/PANEL levels launch K1 and the
-        dense tail K2; on the CPU the same steps run the plain versions.
+        dense tail K2 (K3 for complex values); on the CPU the same steps
+        run the plain versions.
+    layout: ``"auto"`` (planar for complex values, native for real ones)
+        or ``"planar"``.  ``"native"`` with a complex dtype, the JAX
+        package's route off the kernels, is not ported and raises
+        ``NotImplementedError``.
     dense_tail / dense_tail_density: switch-to-dense for a dense-enough
         trailing column block, as in the JAX package.
 
@@ -304,10 +348,12 @@ class TorchFactorizer:
         device=None,
         dense_tail: bool = True,
         dense_tail_density: float = 0.25,
+        layout: str = "auto",
     ):
         self.plan = plan
         self.device = resolve_device(device)
         self.dtype = value_dtype(dtype)
+        self.layout = ported_layout(layout, self.dtype)
         self.kernels_disabled_reason = (
             None if self.device.type == "cuda" else
             "device='cpu' runs the plain PyTorch versions of the kernels")
@@ -351,6 +397,12 @@ class TorchFactorizer:
         if self.dense_tail_info is not None:
             groups.append(_Group(kind="dense", arrays=self._dense_tail))
         self._groups = groups
+        planar = self.layout.planar
+        self._step = {
+            "flat": _level_step,
+            "pallas": level_update_planar_body if planar else level_update_body,
+            "dense": _dense_tail_step_planar if planar else _dense_tail_step,
+        }
         self._kinds = tuple(g.kind for g in groups)
         self.n_groups = len(groups)
         self.last_n_dispatches = 0
@@ -377,12 +429,7 @@ class TorchFactorizer:
 
     def _run(self, vals) -> torch.Tensor:
         for g in self._groups:
-            if g.kind == "pallas":
-                level_update_body(vals, *g.arrays)
-            elif g.kind == "dense":
-                _dense_tail_step(vals, *g.arrays)
-            else:
-                _level_step(vals, *g.arrays)
+            self._step[g.kind](vals, *g.arrays)
         self.last_n_dispatches = 1 + len(self._groups)
         return vals[: self.nnz]
 

@@ -12,7 +12,13 @@ Refinement runs on whatever system the factors describe (for the GLU
 facade, the scaled and permuted one): each sweep computes ``r = b - A x``
 with a COO SpMV of A's values, the componentwise backward error
 ``max_i |r_i| / (|A||x| + |b|)_i`` as the stopping test, and, while above
-tolerance, one more triangular solve.  Sweeps run in chunks of
+tolerance, one more triangular solve.
+
+Complex factors and right-hand sides run the same steps in PyTorch's
+complex arithmetic (the scatter-adds on re/im plane views, see
+``kernels.ops.add_in_rounds_``); the backward error then takes complex
+magnitudes, ``|r| / (|A||x| + |b|)``, as the JAX package's planar path
+does.  Sweeps run in chunks of
 ``sync_every`` with the convergence mask applied on the device, so the
 common ``refine <= 2`` case costs one device-to-host read.
 """

@@ -1,7 +1,7 @@
 # Hand-written CUDA kernels for the card, each with its plain PyTorch twin.
 # Nothing is compiled at import: the first launch builds csrc/ (see _build).
 from . import ops, ref
-from .dense_lu import dense_lu
+from .dense_lu import dense_lu, dense_lu_planar
 from .level_update import segmented_accumulate
 
-__all__ = ["ops", "ref", "dense_lu", "segmented_accumulate"]
+__all__ = ["ops", "ref", "dense_lu", "dense_lu_planar", "segmented_accumulate"]

@@ -1,10 +1,13 @@
-"""Step functions around the kernels, in the real single-matrix forms.
+"""Step functions around the kernels, in the single-matrix forms.
 
 ``level_update_body`` consumes the host-precomputed (D, R, C) segmented
 layout of one level (built once per plan in ``TorchFactorizer``): the
 normalisation and the operand gathers are plain PyTorch, K1 accumulates the
 contributions per destination column, and the updated segments are written
 back (segments are disjoint, so the write is race-free).
+``level_update_planar_body`` is its complex twin: it runs on the re/im
+plane view of complex values and folds the plane axis into K1's row axis,
+so the real kernel accumulates both planes in one launch.
 
 The factorizer's value array carries one trash slot past the real values
 (``vals[nnz]``): every padded index of the K1 layout points there, so padded
@@ -17,11 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..sparse.layout import pdiv, pmul
 from .level_update import segmented_accumulate
 from .ref import spmv_ref
 
-__all__ = ["level_update_body", "spmv", "factor_stats", "masked_correction",
-           "round_order", "add_in_rounds_"]
+__all__ = ["level_update_body", "level_update_planar_body", "spmv",
+           "factor_stats", "masked_correction", "round_order",
+           "add_in_rounds_"]
 
 
 def level_update_body(vals, norm_idx, norm_diag, lidx2d, uidx2d, didx_local,
@@ -40,6 +45,35 @@ def level_update_body(vals, norm_idx, norm_diag, lidx2d, uidx2d, didx_local,
     contribs = -(vals[lidx2d] * vals[uidx2d])
     out = segmented_accumulate(vals[col_positions], contribs, didx_local)
     vals[col_positions] = out
+    return vals
+
+
+def level_update_planar_body(vals, norm_idx, norm_diag, lidx2d, uidx2d,
+                             didx_local, col_positions):
+    """Planar twin of :func:`level_update_body` for complex ``vals``
+    (complex64/complex128, trash slot last), in place.  It normalises with
+    :func:`pdiv`, forms the contributions with :func:`pmul`, folds the
+    re/im plane axis into K1's rows (contributions ``(2·D, R)``, segments
+    ``(2·D, C)``), runs K1 once and writes both planes back.  The planes
+    accumulate independently: the complex cross terms are all in ``pmul``,
+    before the scatter.
+
+    Gathers and writes index the complex tensor itself, one element per
+    index, and only their results are viewed as planes: indexing rows of
+    the ``(nnz + 1, 2)`` plane view takes PyTorch's row-gather kernel,
+    which cost 15 ms of a 19 ms rajat12_ac factorization on an H100
+    (PERF.md)."""
+    planes = torch.view_as_real
+    D, R = lidx2d.shape
+    C = col_positions.shape[1]
+    norm = pdiv(planes(vals[norm_idx]), planes(vals[norm_diag]))
+    vals[norm_idx] = torch.view_as_complex(norm)
+    contribs = -pmul(planes(vals[lidx2d]), planes(vals[uidx2d]))
+    contribs = contribs.movedim(-1, 0).reshape(2 * D, R)
+    cv = planes(vals[col_positions]).movedim(-1, 0).reshape(2 * D, C)
+    dl = didx_local.expand(2, D, R).reshape(2 * D, R)
+    out = segmented_accumulate(cv, contribs, dl).view(2, D, C)
+    vals[col_positions] = torch.complex(out[0], out[1])
     return vals
 
 
@@ -67,9 +101,13 @@ def add_in_rounds_(dst, idx, src, bounds, alpha: float = 1.0):
     """``dst[idx] += alpha * src`` for entries in :func:`round_order`: each
     round's targets are distinct, so every ``index_add_`` is exact and the
     sum order per target is the entries' original order, on any device and
-    in any run."""
+    in any run.  Complex tensors add on their re/im plane views: the same
+    sums, through the real ``index_add_``."""
+    target = torch.view_as_real(dst) if dst.is_complex() else dst
+    if src.is_complex():
+        src = torch.view_as_real(src)
     for s, e in zip(bounds[:-1], bounds[1:]):
-        dst.index_add_(0, idx[s:e], src[s:e], alpha=alpha)
+        target.index_add_(0, idx[s:e], src[s:e], alpha=alpha)
     return dst
 
 
@@ -80,10 +118,11 @@ spmv = spmv_ref
 
 def factor_stats(vals, diag_idx, a_max):
     """Element pivot growth ``max|LU| / max|A|`` and the smallest factored
-    diagonal magnitude, as 0-d tensors."""
-    tiny = torch.finfo(vals.dtype).tiny
-    growth = vals.abs().max() / torch.clamp(a_max, min=tiny)
-    return growth, vals[diag_idx].abs().min()
+    diagonal magnitude, as 0-d tensors; complex values reduce magnitudes."""
+    mag = vals.abs()
+    tiny = torch.finfo(mag.dtype).tiny
+    growth = mag.max() / torch.clamp(a_max, min=tiny)
+    return growth, mag[diag_idx].min()
 
 
 def masked_correction(x, d, berr, tol: float):

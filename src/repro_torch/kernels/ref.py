@@ -14,8 +14,8 @@ import torch
 
 from ..device import deterministic
 
-__all__ = ["segmented_accumulate_ref", "dense_lu_ref", "lu_backward_error",
-           "spmv_ref", "scatter_add_"]
+__all__ = ["segmented_accumulate_ref", "dense_lu_ref", "dense_lu_planar_ref",
+           "lu_backward_error", "spmv_ref", "scatter_add_"]
 
 
 def scatter_add_(dst, idx, src):
@@ -58,13 +58,44 @@ def dense_lu_ref(a):
     return m
 
 
+def dense_lu_planar_ref(a):
+    """Planar twin of :func:`dense_lu_ref`: ``a`` is (2, N, N) re/im planes
+    of a complex tile.  The complex multiply is 4 real outer products and a
+    sign; the pivot reciprocal is ``conj(p) / (re^2 + im^2)``."""
+    m = a.clone()
+    mr, mi = m[0], m[1]
+    n = m.shape[-1]
+    for j in range(n - 1):
+        pr, pi = mr[j, j], mi[j, j]
+        inv = 1.0 / (pr * pr + pi * pi)
+        cr, ci = mr[j + 1:, j], mi[j + 1:, j]
+        qr = (cr * pr + ci * pi) * inv
+        qi = (ci * pr - cr * pi) * inv
+        mr[j + 1:, j] = qr
+        mi[j + 1:, j] = qi
+        lr, li = qr[:, None], qi[:, None]
+        rr, ri = mr[j:j + 1, j + 1:], mi[j:j + 1, j + 1:]
+        mr[j + 1:, j + 1:] -= lr * rr - li * ri
+        mi[j + 1:, j + 1:] -= lr * ri + li * rr
+    return m
+
+
+def _widest(t):
+    """float64 for a real tile, complex128 for a complex one or for
+    (2, N, N) re/im planes."""
+    if t.dim() == 3:
+        return torch.complex(t[0].double(), t[1].double())
+    return t.to(torch.complex128) if t.is_complex() else t.double()
+
+
 def lu_backward_error(a, lu) -> float:
     """Componentwise backward error of an in-place-layout LU of ``a``:
-    ``max |L U - A| / (|L| |U|)``, in float64 (0 where both are 0).  A
-    correct LU keeps it near N times the value type's epsilon, whatever the
-    size of L's entries; a wrong L does not."""
-    a, lu = a.double(), lu.double()
-    eye = torch.eye(a.shape[0], dtype=torch.float64, device=a.device)
+    ``max |L U - A| / (|L| |U|)``, in float64 or complex128 (0 where both
+    are 0).  ``a`` and ``lu`` are real or complex (N, N) tiles or (2, N, N)
+    re/im planes.  A correct LU keeps it near N times the value type's
+    epsilon, whatever the size of L's entries; a wrong L does not."""
+    a, lu = _widest(a), _widest(lu)
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
     L, U = torch.tril(lu, -1) + eye, torch.triu(lu)
     den = (L.abs() @ U.abs()).clamp_min(torch.finfo(torch.float64).tiny)
     return ((L @ U - a).abs() / den).max().item()

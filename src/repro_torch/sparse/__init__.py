@@ -1,6 +1,16 @@
 from .csc import CSC, concat_ranges, csc_from_coo, csc_to_dense, csc_transpose_pattern, pattern_digest
+from .layout import (
+    ValueLayout,
+    pabs,
+    pack_planes,
+    pdiv,
+    pmul,
+    resolve_layout,
+    unpack_planes,
+)
 from .gen import (
     SUITES,
+    ac_jacobian,
     asic_like,
     circuit_jacobian,
     grid_laplacian,
@@ -16,9 +26,17 @@ __all__ = [
     "csc_transpose_pattern",
     "pattern_digest",
     "SUITES",
+    "ac_jacobian",
     "asic_like",
     "circuit_jacobian",
     "grid_laplacian",
     "make_suite_matrix",
     "rc_ladder",
+    "ValueLayout",
+    "resolve_layout",
+    "pack_planes",
+    "unpack_planes",
+    "pmul",
+    "pdiv",
+    "pabs",
 ]

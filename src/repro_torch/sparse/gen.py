@@ -24,6 +24,7 @@ __all__ = [
     "rc_ladder",
     "circuit_jacobian",
     "asic_like",
+    "ac_jacobian",
     "SUITES",
     "make_suite_matrix",
 ]
@@ -147,6 +148,34 @@ def asic_like(n: int, seed: int = 0) -> CSC:
 
 # Named suite mirroring the paper's Table I matrix list (synthetic stand-ins).
 # sizes are scaled down so CPU-hosted benchmarks finish; pass scale>1 to grow.
+def ac_jacobian(
+    n: int,
+    omega: float = 1e3,
+    avg_degree: float = 4.0,
+    cap_coupling: float = 0.25,
+    seed: int = 0,
+) -> CSC:
+    """Complex AC small-signal matrix ``G + jwC`` on a circuit pattern.
+
+    ``G`` is a :func:`circuit_jacobian`; ``C`` puts ground capacitors on
+    every diagonal and couples a ``cap_coupling`` fraction of the
+    off-diagonal entries (symmetrically signed, like real MNA cap stamps).
+    The result is complex128 with the exact sparsity pattern of ``G``: one
+    real matrix and its whole frequency sweep share a symbolic plan.
+    """
+    G = circuit_jacobian(n, avg_degree=avg_degree, seed=seed)
+    rng = np.random.default_rng(seed + 3)
+    c = np.zeros(G.nnz)
+    cols = np.repeat(np.arange(G.n), np.diff(G.indptr))
+    off = G.indices != cols
+    pick = off & (rng.uniform(size=G.nnz) < cap_coupling)
+    c[pick] = -rng.uniform(1e-4, 1e-3, size=int(pick.sum()))
+    diag = np.zeros(G.n)
+    np.add.at(diag, G.indices[pick], -c[pick])
+    c[G.diag_value_indices()] = diag + rng.uniform(1e-4, 1e-3, size=G.n)
+    return CSC(G.n, G.indptr, G.indices, np.asarray(G.data) + 1j * omega * c)
+
+
 SUITES = {
     "rajat12_like": ("circuit_jacobian", dict(n=1879, avg_degree=6.9)),
     "circuit_2_like": ("circuit_jacobian", dict(n=4510, avg_degree=4.7, n_rails=4)),

@@ -120,19 +120,22 @@ def test_float32_solve():
     assert g.residual(b, x) < 1e-4
 
 
-@pytest.mark.parametrize("option", [
-    dict(static_pivot=1e-10),
-    dict(layout="planar"),
-    dict(mesh=object()),
-    dict(jit_schedule=False),
-    dict(verify="plan"),
-    dict(dtype=torch.complex128),
-    dict(dtype=np.complex64),
+@pytest.mark.parametrize("option,exc", [
+    (dict(static_pivot=1e-10), NotImplementedError),
+    # planar storage needs complex values; real ones are refused as in the
+    # JAX package's resolve_layout
+    (dict(layout="planar"), ValueError),
+    (dict(mesh=object()), NotImplementedError),
+    (dict(jit_schedule=False), NotImplementedError),
+    (dict(verify="plan"), NotImplementedError),
+    # complex values run on re/im planes; their native layout is not ported
+    (dict(dtype=torch.complex128, layout="native"), NotImplementedError),
+    (dict(dtype=np.complex64, layout="native"), NotImplementedError),
 ], ids=["static_pivot", "planar", "mesh", "jit_schedule", "verify",
         "complex128", "complex64"])
-def test_out_of_slice_options_raise(option):
+def test_out_of_slice_options_raise(option, exc):
     A = torch_circuit_jacobian(40, seed=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         repro_torch.GLU(A, device="cpu", **option)
 
 
