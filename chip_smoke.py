@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero before the result line:
  3. each kernel against its plain PyTorch version at the main path's
     shapes, float64 and float32 (complex128 and complex64 planes for K3),
     with the stated tolerances; K2 and K3 also against their componentwise
-    backward error;
+    backward error, from a single block (N = 32) to more blocks than the
+    card keeps CTAs resident (K2 at N = 2048), with ``a`` left unchanged
+    and a second call bit-identical;
  4. for each matrix (grid64 and rajat12_like, real, at scale 1.0; then
     rajat12_ac, the complex AC matrix ``G + jwC`` on rajat12_like's
     pattern): plan on the host, build ``GLU(A)`` on the card and drive the
@@ -27,7 +29,10 @@ Phases, in order; any failure exits non-zero before the result line:
     replayed on the exact inputs the main path gave the kernel; bounds from
     the bytes and operations of those inputs; peak device memory; kernel
     launches and device-busy share per factorization and per solve
-    (torch.profiler), beside this host's cost of one small op.
+    (torch.profiler), beside this host's cost of one small op; each
+    factorization must show exactly one dense-LU device kernel per dense
+    group (K2 and K3 are one device kernel a call); K2 and K3 print their
+    time over the library call's.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 and matrix, over all matrices; the last line is
@@ -131,9 +136,10 @@ def check_kernels_at_shapes(dev) -> None:
     path's shapes (grid64: K1 (D, R, C) up to (905, 90, 297),
     (710, 135, 297) and (392, 199, 297), K2 N=160; rajat12_like: K1 about
     (728, 1280, 1024), K2 N=736; rajat12_ac: K1 on (2·728, 1280) planes,
-    K3 N=736; K3 also at N=96, and K2's and K3's maximum N=1024).  K2 and
+    K3 N=736; K3 also at N=96, K2 and K3 at one block, N=32, and at
+    N=1024; K2 at N=2048, more update blocks than resident CTAs).  K2 and
     K3 are also held to their backward error, which a wrong L cannot
-    pass."""
+    pass, and must leave ``a`` unchanged and repeat bit for bit."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
 
@@ -160,34 +166,32 @@ def check_kernels_at_shapes(dev) -> None:
         torch.cuda.synchronize(dev)
         assert bool((dup[:, 0] == 512).all()) and bool((dup[:, 1:] == 0).all())
         log(f"check K1 {name} all-duplicate positions: ok")
-        for N in (160, 736, 1024):
-            a = torch.from_numpy(rng.normal(size=(N, N))).to(dev, dtype)
-            a += N * torch.eye(N, dtype=dtype, device=dev)
-            got = kernels.dense_lu(a)
-            torch.cuda.synchronize(dev)
-            want = ref.dense_lu_ref(a)
-            torch.cuda.synchronize(dev)
-            err = compare(got, want, K2_TOL[name])
-            bwd = ref.lu_backward_error(a, got)
-            bwd_tol = K2_BWD * N * torch.finfo(dtype).eps
-            assert bwd <= bwd_tol, (name, N, bwd, bwd_tol)
-            log(f"check K2 {name} N={N}: max_abs_err={err:.3e} "
-                f"tol={K2_TOL[name]:g}; backward error {bwd:.3e} <= "
-                f"{bwd_tol:.3e} ok")
-        for N in (96, 736, 1024):
-            a = torch.from_numpy(rng.normal(size=(2, N, N))).to(dev, dtype)
-            a[0] += N * torch.eye(N, dtype=dtype, device=dev)
-            got = kernels.dense_lu_planar(a)
-            torch.cuda.synchronize(dev)
-            want = ref.dense_lu_planar_ref(a)
-            torch.cuda.synchronize(dev)
-            err = compare(got, want, K2_TOL[name])
-            bwd = ref.lu_backward_error(a, got)
-            bwd_tol = K2_BWD * N * torch.finfo(dtype).eps
-            assert bwd <= bwd_tol, ("K3", name, N, bwd, bwd_tol)
-            log(f"check K3 {name} planes (complex) N={N}: max_abs_err="
-                f"{err:.3e} tol={K2_TOL[name]:g}; complex backward error "
-                f"{bwd:.3e} <= {bwd_tol:.3e} ok")
+        for label, kernel, plain, sizes, planes in (
+                ("K2", kernels.dense_lu, ref.dense_lu_ref,
+                 (32, 160, 736, 1024, 2048), ()),
+                ("K3", kernels.dense_lu_planar, ref.dense_lu_planar_ref,
+                 (32, 96, 736, 1024), (2,))):
+            for N in sizes:
+                a = torch.from_numpy(rng.normal(size=(*planes, N, N))).to(
+                    dev, dtype)
+                (a[0] if planes else a).add_(
+                    N * torch.eye(N, dtype=dtype, device=dev))
+                a0 = a.clone()
+                got = kernel(a)
+                again = kernel(a)
+                torch.cuda.synchronize(dev)
+                want = plain(a)
+                torch.cuda.synchronize(dev)
+                err = compare(got, want, K2_TOL[name])
+                bwd = ref.lu_backward_error(a, got)
+                bwd_tol = K2_BWD * N * torch.finfo(dtype).eps
+                assert bwd <= bwd_tol, (label, name, N, bwd, bwd_tol)
+                assert torch.equal(a, a0), (label, name, N, "a modified")
+                assert torch.equal(again, got), (label, name, N, "repeat")
+                log(f"check {label} {name}{' planes (complex)' if planes else ''}"
+                    f" N={N}: max_abs_err={err:.3e} tol={K2_TOL[name]:g}; "
+                    f"backward error {bwd:.3e} <= {bwd_tol:.3e}; a unchanged, "
+                    "repeat bit-identical ok")
 
 
 def make_matrix(name):
@@ -499,7 +503,15 @@ def _tile_entry(clock, tiles, report, planar: bool):
                plain_ms=clock.ms(run_plain, reps=3), **_bound(n_bytes, n_ops),
                library_ms=clock.ms(run_lib))
     ent["N"] = [int(a.shape[-1]) for a in tiles]
+    ent["ratio_to_library"] = ent["ms"] / ent["library_ms"]
+    log(f"{report['matrix']}: {ent['name']} N={ent['N']} {ent['ms']:.4f} ms, "
+        f"library {ent['library_ms']:.4f} ms, ms/library_ms="
+        f"{ent['ratio_to_library']:.3f}, bound {ent['bound_ms']:.5f} ms "
+        f"({ent['bound_by']})")
     return ent
+
+
+_TAIL_SPINS = 16
 
 
 def _profile(dev, fn):
@@ -511,11 +523,18 @@ def _profile(dev, fn):
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
+        # Later in a run the card's profiler has lost device records of a
+        # window, mostly its last ones: trailing spin kernels, left out of
+        # the rows, keep the factorization's own kernels off the tail.
+        for _ in range(_TAIL_SPINS):
+            torch.cuda._sleep(100)
         torch.cuda.synchronize(dev)
     rows = []
     for evt in prof.key_averages():
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue                  # host ops: their kernels are listed too
+        if "spin_kernel" in evt.key:
+            continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
@@ -525,27 +544,54 @@ def _profile(dev, fn):
         return {"profiler": "not measured (no device time recorded)"}
     rows.sort(reverse=True)
     return {"kernels": sum(r[2] for r in rows),
+            "dense_lu_kernels": sum(r[2] for r in rows
+                                    if "dense_lu_kernel" in r[1]),
             "device_busy_ms": sum(r[0] for r in rows) / 1e3,
             "top": [{"name": k[:70], "device_ms": t / 1e3, "count": c}
                     for t, k, c in rows[:6]]}
+
+
+def _profile_until(dev, fn, dense_lu_kernels, tries=8):
+    """``_profile(dev, fn)`` until its window shows ``dense_lu_kernels``
+    dense-LU device kernels.  The profiler loses device records (see
+    ``_profile``) but never adds any: a window that shows more than the
+    expected kernels fails at once, and one that shows them exactly ends
+    the search.  Returns the profile and the number of windows taken."""
+    for i in range(1, tries + 1):
+        prof = _profile(dev, fn)
+        got = prof.get("dense_lu_kernels", 0)
+        assert got <= dense_lu_kernels, \
+            ("more dense-LU device kernels than expected", dense_lu_kernels,
+             prof)
+        if got == dense_lu_kernels and "kernels" in prof:
+            return prof, i
+    raise AssertionError(("no complete profiler window", dense_lu_kernels,
+                          tries, prof))
 
 
 def profile_path(dev, clock, g):
     """Device kernels and device-busy time per factorization and per solve,
     and this host's cost of one small PyTorch op on the card (the unit the
     eager schedule pays per launch).  Busy share = device-busy time over
-    the CUDA-event time of the same call."""
+    the CUDA-event time of the same call.  A factorization must show
+    exactly one dense-LU device kernel per dense group."""
     b = torch.ones(g.n, dtype=g.dtype, device=dev)
     y = torch.zeros(8, dtype=g.dtype, device=dev)
     out = {"host_op_us": clock.ms(lambda: [y.add_(1.0) for _ in range(1000)],
                                   reps=3)}
-    for name, fn in (("factorize", lambda: g._factorizer.factorize(g._a_vals)),
-                     ("solve", lambda: g._solver.solve(g._vals, b))):
-        prof = _profile(dev, fn)
+    n_dense = g._factorizer.kinds.count("dense")
+    for name, fn, want in (
+            ("factorize", lambda: g._factorizer.factorize(g._a_vals), n_dense),
+            ("solve", lambda: g._solver.solve(g._vals, b), 0)):
+        prof, prof["profiler_tries"] = _profile_until(dev, fn, want)
         if "device_busy_ms" in prof:
             prof["event_ms"] = clock.ms(fn, reps=5)
             prof["device_busy_share"] = prof["device_busy_ms"] / prof["event_ms"]
         out[name] = prof
+    fact = out["factorize"]
+    log(f"profile: {fact['dense_lu_kernels']} dense-LU device kernel(s) per "
+        f"factorization for {n_dense} dense group(s) ok "
+        f"(profiler windows: {fact['profiler_tries']})")
     return out
 
 
@@ -597,6 +643,13 @@ def main() -> int:
         ents = kernel_entries(dev, clock, rec, report)
         report["kernels"] = ents
         report["profile"] = profile_path(dev, clock, g)
+        # K2 and K3 run once per dense group: the factorization's count of
+        # dense-LU device kernels over their launches is kernels per call
+        for e in ents:
+            if e["name"] in ("dense_lu", "dense_lu_planar"):
+                e["device_kernels_per_call"] = (
+                    report["profile"]["factorize"]["dense_lu_kernels"]
+                    / e["launches"])
         entries += ents
         log(json.dumps({"matrix_report": report}))
         del rec, g

@@ -34,10 +34,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "glu_segmented_accumulate_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "glu_segmented_accumulate_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "glu_dense_lu_f32": [_P, _I, _P],
-    "glu_dense_lu_f64": [_P, _I, _P],
-    "glu_dense_lu_planar_f32": [_P, _I, _P],
-    "glu_dense_lu_planar_f64": [_P, _I, _P],
+    "glu_dense_lu_f32": [_P, _P, _I, _P],
+    "glu_dense_lu_f64": [_P, _P, _I, _P],
+    "glu_dense_lu_planar_f32": [_P, _P, _I, _P],
+    "glu_dense_lu_planar_f64": [_P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

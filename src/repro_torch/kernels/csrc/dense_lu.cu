@@ -3,20 +3,26 @@
 //
 // Replaces the TPU kernel dense_lu of the JAX package (kernels/dense_lu.py,
 // body _lu_kernel with _panel_factor and _trsm_rows, pallas_call at
-// dense_lu.py:98).  The kernels are in dense_lu.cuh, shared with K3; here
-// they run on RealOps with 64 x 64 update tiles (4 x 4 outputs a thread).
+// dense_lu.py:98).  The kernel is in dense_lu.cuh, shared with K3; here it
+// runs on RealOps.
 //
-// Bound: 2N^3/3 operations against the card's float64 rate, or 2 N^2 values
-// moved, whichever is larger; at the slice's N (160 to 1024) both are a few
-// microseconds at most, and the 3 N / kB - 2 launches dominate.  A
-// persistent single-launch version with DMMA for the update is later work.
+// One cooperative launch per tile, N / 32 - 1 grid barriers (N = 160: 4,
+// N = 736: 22), no copy launch: the kernel reads `a` and writes `out`.
+// float64 block products on FP64 tensor cores (mma.sync m8n8k4 .f64),
+// float32 on plain FMA (no TF32).  A panel factor runs on 4 warps of 8
+// diagonal columns each.
+//
+// Bound: operations, 2N^3/3 multiply-adds against the FP64 tensor-core rate
+// (about 4 us at N = 736), or 2 N^2 values moved (2.6 us).  The chain of N
+// dependent pivot steps and N / 32 grid barriers sets the time on this
+// card, not the arithmetic.
 
 #include "dense_lu.cuh"
 
-extern "C" int glu_dense_lu_f32(void* a, int N, void* stream) {
-  return dense_lu<RealOps<float>, 64>(a, N, stream);
+extern "C" int glu_dense_lu_f32(const void* a, void* out, int N, void* stream) {
+  return dense_lu<RealOps<float>>(a, out, N, stream);
 }
 
-extern "C" int glu_dense_lu_f64(void* a, int N, void* stream) {
-  return dense_lu<RealOps<double>, 64>(a, N, stream);
+extern "C" int glu_dense_lu_f64(const void* a, void* out, int N, void* stream) {
+  return dense_lu<RealOps<double>>(a, out, N, stream);
 }

@@ -4,11 +4,11 @@
 tile: L strictly below the diagonal (unit diagonal implied), U on and above
 it.  ``dense_lu_planar(a)`` (K3) does the same for a complex tile held as
 (2, N, N) re/im planes, the JAX package's interface.  A CUDA tensor runs
-the hand-written kernels in ``csrc/dense_lu.cuh`` (block width ``BLOCK``;
-per block step one diagonal-block factor, one panel solve and one tiled
-trailing update, all issued by one C call): K2 from ``csrc/dense_lu.cu``,
-K3 from ``csrc/dense_lu_planar.cu``.  A CPU tensor runs the plain PyTorch
-version in ``ref.py``.  Any other device raises.
+the hand-written kernel in ``csrc/dense_lu.cuh`` (block width ``BLOCK``):
+one cooperative launch per tile that reads ``a``, writes the new tensor
+and walks the block steps with grid-wide barriers; K2 from
+``csrc/dense_lu.cu``, K3 from ``csrc/dense_lu_planar.cu``.  A CPU tensor
+runs the plain PyTorch version in ``ref.py``.  Any other device raises.
 """
 from __future__ import annotations
 
@@ -27,13 +27,13 @@ _PLANAR_ENTRY = {torch.float32: "glu_dense_lu_planar_f32",
 
 
 def _launch(entry: str, a: torch.Tensor, N: int, what: str) -> torch.Tensor:
-    """Copy ``a`` and factor the copy in place on the caller's stream."""
-    out = torch.empty_like(a, memory_format=torch.contiguous_format)
-    out.copy_(a)
+    """Factor ``a`` into a new tensor on the caller's stream."""
+    a = a.contiguous()
+    out = torch.empty_like(a)
     lib = _build.load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = getattr(lib, entry)(out.data_ptr(), N, stream)
+        rc = getattr(lib, entry)(a.data_ptr(), out.data_ptr(), N, stream)
     _build.check(rc, what)
     return out
 

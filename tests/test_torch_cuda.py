@@ -70,41 +70,44 @@ def test_k1_duplicates_and_determinism(cuda):
     assert torch.all(ones[:, 0] == R) and torch.all(ones[:, 1:] == 0)
 
 
-@pytest.mark.parametrize("N", [128, 160, 256, 736, 768, 1024])
+def _check_dense_lu(kernel, plain, a, N):
+    """One call: one launch on the counter, ``a`` untouched, agreement with
+    the plain version and the componentwise backward error, and a second
+    call bit-identical to the first."""
+    a0 = a.clone()
+    before = kernel.launches
+    got = kernel(a)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(a, a0)
+    tol = K2_TOL[a.dtype]
+    torch.testing.assert_close(got, plain(a), rtol=tol, atol=tol)
+    # L's entries (about 1/N) lie below the f32 tolerance: hold L to the
+    # reconstruction too
+    assert lu_backward_error(a, got) <= 4.0 * N * torch.finfo(a.dtype).eps
+    assert torch.equal(kernel(a), got)
+    assert kernel.launches == before + 2
+
+
+# N = 32 is a single block; N = 2048 has more update blocks than the card
+# keeps resident CTAs
+@pytest.mark.parametrize("N", [32, 64, 128, 160, 256, 736, 768, 1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k2_matches_plain(cuda, N, dtype):
     rng = np.random.default_rng(N)
     a = torch.from_numpy(rng.normal(size=(N, N)) + N * np.eye(N)).to(cuda, dtype)
-    before = dense_lu.launches
-    got = dense_lu(a)
-    torch.cuda.synchronize()
-    assert dense_lu.launches == before + 1
-    want = dense_lu_ref(a)
-    tol = K2_TOL[dtype]
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-    # L's entries (about 1/N) lie below the f32 tolerance: hold L to the
-    # reconstruction too
-    assert lu_backward_error(a, got) <= 4.0 * N * torch.finfo(dtype).eps
-    assert torch.equal(dense_lu(a), got)
+    _check_dense_lu(dense_lu, dense_lu_ref, a, N)
 
 
-@pytest.mark.parametrize("N", [96, 736])
+@pytest.mark.parametrize("N", [32, 96, 736, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_matches_plain(cuda, N, dtype):
     rng = np.random.default_rng(N + 1)
     a = rng.normal(size=(2, N, N))
     a[0] += N * np.eye(N)
     a = torch.from_numpy(a).to(cuda, dtype)
-    before = dense_lu_planar.launches
-    got = dense_lu_planar(a)
-    torch.cuda.synchronize()
-    assert dense_lu_planar.launches == before + 1
-    want = dense_lu_planar_ref(a)
-    tol = K2_TOL[dtype]
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     # the complex backward error sees a wrong L that the tolerance cannot
-    assert lu_backward_error(a, got) <= 4.0 * N * torch.finfo(dtype).eps
-    assert torch.equal(dense_lu_planar(a), got)
+    _check_dense_lu(dense_lu_planar, dense_lu_planar_ref, a, N)
 
 
 def test_wrappers_check_their_inputs(cuda):
