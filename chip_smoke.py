@@ -8,31 +8,38 @@ Phases, in order; any failure exits non-zero before the result line:
  1. the card's name and power limit (``nvidia-smi``);
  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
  3. each kernel against its plain PyTorch version at the main path's
-    shapes, float64 and float32 (complex128 and complex64 planes for K3),
-    with the stated tolerances; K2 and K3 also against their componentwise
-    backward error, from a single block (N = 32) to more blocks than the
-    card keeps CTAs resident (K2 at N = 2048), with ``a`` left unchanged
-    and a second call bit-identical;
+    shapes: K1 ``level_run`` on synthetic runs in float64, float32,
+    complex128 and complex64, bit for bit and repeated bit for bit (runs of
+    grid64's widest levels, rajat12_like's maxima D 801, R 2,355, C 794, a
+    row of more than 1,024 slots, all-duplicate positions, one level); K2
+    and K3 in float64 and float32 (complex128 and complex64 planes for K3)
+    with the stated tolerances and against their componentwise backward
+    error, from a single block (N = 32) to more blocks than the card keeps
+    CTAs resident (K2 at N = 2048), with ``a`` left unchanged and a second
+    call bit-identical;
  4. for each matrix (grid64 and rajat12_like, real, at scale 1.0; then
     rajat12_ac, the complex AC matrix ``G + jwC`` on rajat12_like's
     pattern): plan on the host, build ``GLU(A)`` on the card and drive the
     path (factorize + solve) with every launch counter set to 0 just before
-    and read just after: the K1, K2 and K3 launch counts must equal the
-    schedule's count of K1 and dense groups;
+    and read just after: one K1 launch per run of K1 levels (one run on
+    each matrix), and the K2 and K3 counts equal to the dense groups;
  5. refactorizations with fresh values (real matrices: a Newton-like
     perturbation from a numpy seed; rajat12_ac: other frequencies in a
     decade around 1e3 rad/s), each solved with ``residual < 1e-9``, a
     refined solve that converges, and two factorizations and solves of the
     same values that must be bit-identical;
  6. timings with CUDA events after warm-up: factorization and solve, and
-    each kernel, its plain version and a one-call library yardstick
-    replayed on the exact inputs the main path gave the kernel; bounds from
-    the bytes and operations of those inputs; peak device memory; kernel
-    launches and device-busy share per factorization and per solve
-    (torch.profiler), beside this host's cost of one small op; each
-    factorization must show exactly one dense-LU device kernel per dense
-    group (K2 and K3 are one device kernel a call); K2 and K3 print their
-    time over the library call's.
+    each kernel, its plain version and a library yardstick replayed on the
+    exact inputs the main path gave the kernel (K1: the value array just
+    before the run, which must come out of the kernel bit for bit as out of
+    its plain version; its yardstick is the library route, the per-level
+    eager steps with one ``scatter_add_`` a level); bounds from the bytes
+    and operations of those inputs; peak device memory; kernel launches and
+    device-busy share per factorization and per solve (torch.profiler),
+    beside this host's cost of one small op; each factorization must show
+    exactly one run-kernel device kernel per run and one dense-LU device
+    kernel per dense group (K1, K2 and K3 are one device kernel a call);
+    each kernel prints its time over the yardstick's.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 and matrix, over all matrices; the last line is
@@ -56,7 +63,6 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12}
 
-K1_TOL = {"float32": 1e-5, "float64": 1e-12}
 K2_TOL = {"float32": 5e-3, "float64": 1e-9}   # K3 too, on its planes
 # K2's and K3's componentwise backward error max |LU - A| / (|L| |U|), in
 # units of N times the plane dtype's epsilon: catches a wrong L whose
@@ -64,11 +70,20 @@ K2_TOL = {"float32": 5e-3, "float64": 1e-9}   # K3 too, on its planes
 K2_BWD = 4.0
 
 # (matrix, expected K1, K2 and K3 launches per factorization); the counts
-# are the schedules' own, checked again here.  rajat12_ac is
+# are the schedules' own, checked again here: each matrix's K1 levels
+# (grid64 154, rajat12_like 10) are one run, one launch.  rajat12_ac is
 # ac_jacobian(1879, avg_degree=6.9, seed=0): rajat12_like's exact pattern
 # with complex values, so it plans into the same schedule
-MATRICES = [("grid64", 154, 1, 0), ("rajat12_like", 10, 1, 0),
-            ("rajat12_ac", 10, 0, 1)]
+MATRICES = [("grid64", 1, 1, 0), ("rajat12_like", 1, 1, 0),
+            ("rajat12_ac", 1, 0, 1)]
+# K1 runs of phase 3: (label, one (D, R, C) per level, all positions on
+# one slot)
+K1_RUNS = [("grid64 widest levels", [(905, 90, 297), (710, 135, 297),
+                                     (392, 199, 297), (56, 40, 150)], False),
+           ("rajat12_like maxima", [(801, 2355, 794), (723, 1200, 794)], False),
+           ("split rows (C > 1024)", [(3, 768, 2100), (4, 300, 1100)], False),
+           ("all-duplicate positions", [(64, 2355, 128)], True),
+           ("one level", [(1, 90, 270)], False)]
 N_REFACTOR = 5
 AC_OMEGAS = np.logspace(2.5, 3.5, N_REFACTOR)   # rad/s, around the plan's 1e3
 SEED = 1234
@@ -133,39 +148,40 @@ class Clock:
 
 def check_kernels_at_shapes(dev) -> None:
     """Phase 3: kernel against plain version on random inputs at the main
-    path's shapes (grid64: K1 (D, R, C) up to (905, 90, 297),
-    (710, 135, 297) and (392, 199, 297), K2 N=160; rajat12_like: K1 about
-    (728, 1280, 1024), K2 N=736; rajat12_ac: K1 on (2·728, 1280) planes,
-    K3 N=736; K3 also at N=96, K2 and K3 at one block, N=32, and at
-    N=1024; K2 at N=2048, more update blocks than resident CTAs).  K2 and
-    K3 are also held to their backward error, which a wrong L cannot
-    pass, and must leave ``a`` unchanged and repeat bit for bit."""
+    path's shapes: K1 on the runs of ``K1_RUNS`` in all four value dtypes,
+    bit for bit and repeated bit for bit; K2 at N=160 (grid64) and N=736
+    (rajat12_like), K3 at N=736 (rajat12_ac) and N=96, K2 and K3 at one
+    block, N=32, and at N=1024; K2 at N=2048, more update blocks than
+    resident CTAs.  K2 and K3 are also held to their backward error, which
+    a wrong L cannot pass, and must leave ``a`` unchanged and repeat bit
+    for bit."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
+    from repro_torch.kernels.level_update import random_level_run
 
     rng = np.random.default_rng(SEED)
+    for dtype in (torch.float64, torch.float32, torch.complex128,
+                  torch.complex64):
+        name = str(dtype).split(".")[-1]
+        for label, shapes, dups in K1_RUNS:
+            run, vals = random_level_run(rng, shapes, dtype, dev,
+                                         duplicates=dups)
+            got, again, want = vals.clone(), vals.clone(), vals.clone()
+            kernels.level_run(got, run)
+            kernels.level_run(again, run)
+            torch.cuda.synchronize(dev)
+            ref.level_run_ref(want, run)
+            torch.cuda.synchronize(dev)
+            assert not torch.equal(got, vals), (label, name, "unchanged")
+            assert torch.equal(got, want), (
+                label, name, (got - want).abs().max().item())
+            assert torch.equal(again, got), (label, name, "repeat")
+            log(f"check K1 {name} {label} ({len(shapes)} levels, max D "
+                f"{max(s[0] for s in shapes)}, R {max(s[1] for s in shapes)}, "
+                f"C {max(s[2] for s in shapes)}): bit-identical to the plain "
+                "version, repeat bit-identical ok")
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
-        for D, R, C in [(905, 90, 297), (710, 135, 297), (392, 199, 297),
-                        (17, 90, 288), (1, 90, 270), (728, 1280, 1024)]:
-            cv = torch.from_numpy(rng.normal(size=(D, C))).to(dev, dtype)
-            cb = torch.from_numpy(rng.normal(size=(D, R))).to(dev, dtype)
-            dl = torch.from_numpy(rng.integers(0, C + 64, size=(D, R))
-                                  .astype("int32")).to(dev)
-            got = kernels.segmented_accumulate(cv, cb, dl)
-            torch.cuda.synchronize(dev)
-            want = ref.segmented_accumulate_ref(cv, cb, dl)
-            torch.cuda.synchronize(dev)
-            err = compare(got, want, K1_TOL[name])
-            log(f"check K1 {name} D={D} R={R} C={C}: max_abs_err={err:.3e} "
-                f"tol={K1_TOL[name]:g} ok")
-        dup = kernels.segmented_accumulate(
-            torch.zeros((2, 128), dtype=dtype, device=dev),
-            torch.ones((2, 512), dtype=dtype, device=dev),
-            torch.zeros((2, 512), dtype=torch.int32, device=dev))
-        torch.cuda.synchronize(dev)
-        assert bool((dup[:, 0] == 512).all()) and bool((dup[:, 1:] == 0).all())
-        log(f"check K1 {name} all-duplicate positions: ok")
         for label, kernel, plain, sizes, planes in (
                 ("K2", kernels.dense_lu, ref.dense_lu_ref,
                  (32, 160, 736, 1024, 2048), ()),
@@ -227,14 +243,9 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
     """Phases 4-6 for one matrix.  Returns the matrix's report, the GLU and
     the kernels' inputs recorded from one factorization."""
     import repro_torch.core.factorize as factorize_mod
-    import repro_torch.kernels.ops as ops_mod
     from repro_torch import GLU
     from repro_torch.core import plan_factorization
-    from repro_torch.kernels import (
-        dense_lu,
-        dense_lu_planar,
-        segmented_accumulate,
-    )
+    from repro_torch.kernels import dense_lu, dense_lu_planar, level_run
 
     A = make_matrix(name)
     cplx = np.iscomplexobj(A.data)
@@ -253,7 +264,7 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
         b = b + 1j * rng.normal(size=A.n)
 
     # -- the path: counters at 0 just before, read just after ---------------
-    segmented_accumulate.launches = 0
+    level_run.launches = 0
     dense_lu.launches = 0
     dense_lu_planar.launches = 0
     t0 = time.perf_counter()
@@ -262,31 +273,27 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
     g.factorize()
     x = g.solve(b)
     torch.cuda.synchronize(dev)
-    k1, k2 = segmented_accumulate.launches, dense_lu.launches
+    k1, k2 = level_run.launches, dense_lu.launches
     k3 = dense_lu_planar.launches
-    kinds = g._factorizer.kinds
+    fz = g._factorizer
+    kinds, steps = fz.kinds, fz.step_kinds
     info = g.solve_info
-    # real work of the K1 and dense-tail steps, for the bounds: updates and
-    # destination slots that are not padding, and the tail's real size
-    nnz = g._factorizer.nnz
-    k1_groups = [gr.arrays for gr in g._factorizer._groups
-                 if gr.kind == "pallas"]
+    runs = [gr.arrays[0] for gr in fz._groups if gr.kind == "run"]
     work = dict(
         planes=2 if cplx else 1,
-        k1_real_updates=sum(int((a[2] < nnz).sum()) for a in k1_groups),
-        k1_real_slots=sum(int((a[5] < nnz).sum()) for a in k1_groups),
-        k1_padded_updates=sum(a[2].numel() for a in k1_groups),
-        k1_padded_slots=sum(a[5].numel() for a in k1_groups),
-        tail_sizes=[g._factorizer.dense_tail_info["size"]]
-        if g._factorizer.dense_tail_info else [])
-    n_dense = kinds.count("dense")
-    log(f"{name}: path K1 launches={k1} (K1 groups {kinds.count('pallas')}, "
-        f"expected {want_k1}), K2 launches={k2} (expected {want_k2}), K3 "
-        f"launches={k3} (expected {want_k3}; dense groups {n_dense}), "
-        f"groups={len(kinds)}, levels={g.num_levels}, "
-        f"nnz_filled={g.nnz_filled}, layout={info['layout']}, "
-        f"dense_tail={g._factorizer.dense_tail_info}")
-    assert k1 == kinds.count("pallas") == want_k1, (k1, want_k1)
+        k1_levels=kinds.count("pallas"), k1_runs=len(runs),
+        k1_updates=sum(r.n_updates for r in runs),
+        k1_rows=sum(len(r.host["rows"]) for r in runs),
+        tail_sizes=[fz.dense_tail_info["size"]] if fz.dense_tail_info else [])
+    n_dense = steps.count("dense")
+    log(f"{name}: path K1 launches={k1} ({work['k1_levels']} K1 levels in "
+        f"{len(runs)} run(s), expected {want_k1} launch(es)), K2 launches={k2} "
+        f"(expected {want_k2}), K3 launches={k3} (expected {want_k3}; dense "
+        f"groups {n_dense}), levels={g.num_levels}, host-issued steps "
+        f"{info['n_dispatches']} ({len(steps)} groups: {steps.count('flat')} "
+        f"flat), nnz_filled={g.nnz_filled}, layout={info['layout']}, "
+        f"dense_tail={fz.dense_tail_info}")
+    assert k1 == len(runs) == want_k1, (k1, want_k1)
     assert k2 == want_k2 and k3 == want_k3 and k2 + k3 == n_dense, (k2, k3)
     assert info["kernels_disabled_reason"] is None, info
     assert info["layout"] == ("planar" if cplx else "native"), info
@@ -320,13 +327,14 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
         "bit-identical")
 
     # -- record the kernels' inputs from one factorization ------------------
+    # (K1: the value array just before each run, with its run)
     rec = {"k1": [], "k2": [], "k3": []}
-    real = {"k1": ops_mod.segmented_accumulate, "k2": factorize_mod.dense_lu,
+    real = {"k1": fz._step["run"], "k2": factorize_mod.dense_lu,
             "k3": factorize_mod.dense_lu_planar}
 
-    def k1_recorder(cv, cb, dl):
-        rec["k1"].append((cv.clone(), cb.clone(), dl.clone()))
-        return real["k1"](cv, cb, dl)
+    def k1_recorder(vals, run):
+        rec["k1"].append((vals.clone(), run))
+        return real["k1"](vals, run)
 
     def tile_recorder(key):
         def record(a):
@@ -334,13 +342,13 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
             return real[key](a)
         return record
 
-    ops_mod.segmented_accumulate = k1_recorder
+    fz._step["run"] = k1_recorder
     factorize_mod.dense_lu = tile_recorder("k2")
     factorize_mod.dense_lu_planar = tile_recorder("k3")
     try:
         g.factorize(vals_set[0])
     finally:
-        ops_mod.segmented_accumulate = real["k1"]
+        fz._step["run"] = real["k1"]
         factorize_mod.dense_lu = real["k2"]
         factorize_mod.dense_lu_planar = real["k3"]
     torch.cuda.synchronize(dev)
@@ -360,7 +368,7 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
         k2_launches=k2, k3_launches=k3, refine2=dict(
             iters=rinfo["refine_iters"],
             backward_error=rinfo["backward_error"]),
-        factorize_steps=info["n_dispatches"],
+        factorize_steps=info["n_dispatches"], factorize_step_kinds=steps,
         solve_steps=g._solver.last_n_dispatches,
         factorize_ms=fact_ms, solve_ms=solve_ms,
         factorize_call_ms=fact_call_ms, solve_call_ms=solve_call_ms,
@@ -394,55 +402,113 @@ def kernel_entries(dev, clock, rec, report):
     return out
 
 
+def _k1_bound(run, esize: int, planes: int):
+    """Bytes and operations one run needs on its real data: each layout
+    index read once, each value it reads (operands, segments' touched slots,
+    normalized entries and their diagonals) read once, each slot it writes
+    written once; a real update is a divide, a multiply and an add, a
+    complex one 20 real operations (pdiv 12, pmul 6, the add 2), a
+    normalization one division (complex: 12)."""
+    h = run.host
+    written = run.written_slots()
+    read = np.unique(np.concatenate([h["upd"][:, :3].ravel(), written,
+                                     h["norm"].ravel()]))
+    n_written = len(np.unique(written)) + len(h["norm"])
+    n_index = sum(a.size for a in h.values())
+    n_bytes = 4 * n_index + planes * esize * (len(read) + n_written)
+    per_upd, per_norm = (20, 12) if planes == 2 else (3, 1)
+    return n_bytes, run.n_updates * per_upd + len(h["norm"]) * per_norm
+
+
 def _k1_entry(dev, clock, rec_k1, report):
-    from repro_torch.kernels import segmented_accumulate
-    from repro_torch.kernels.ref import segmented_accumulate_ref
+    """K1 on the recorded run(s) of one factorization: the kernel must
+    equal its plain version bit for bit, and repeat bit for bit.  Each
+    timed call starts from the recorded values (a copy whose own time is
+    measured and subtracted).  The yardstick is the library route: the
+    per-level eager steps of the plain route with one ``scatter_add_``
+    (atomics) a level in place of the fixed-order accumulation; it is
+    timed only."""
+    from repro_torch.kernels import level_run
+    from repro_torch.kernels.level_update import random_level_run
+    from repro_torch.kernels.ref import level_run_ref
+    from repro_torch.sparse import pdiv, pmul
 
-    # K1 over every K1 call of one factorization
-    err = 0.0
-    for cv, cb, dl in rec_k1:
-        err = max(err, compare(segmented_accumulate(cv, cb, dl),
-                               segmented_accumulate_ref(cv, cb, dl),
-                               K1_TOL[str(cv.dtype).split(".")[-1]]))
-    # each real slot read and written once, each real contribution and its
-    # int32 position read once; one add per real contribution; a complex
-    # path folds both planes into K1's rows, so each counts twice
-    esize = rec_k1[0][0].element_size()
-    planes = report["planes"]
-    k1_bytes = planes * (2 * report["k1_real_slots"] * esize
-                         + report["k1_real_updates"] * (esize + 4))
-    k1_ops = planes * report["k1_real_updates"]
-    # library yardstick: one scatter_add_ per call into a prepared (D, C+1)
-    # buffer whose last column collects the padding
-    lib_in = []
-    for cv, cb, dl in rec_k1:
-        D, C = cv.shape
-        buf = torch.zeros((D, C + 1), dtype=cv.dtype, device=dev)
-        buf[:, :C] = cv
-        idx = torch.where((dl >= 0) & (dl < C), dl, C).long()
-        lib_in.append((buf, idx, cb))
+    def div(a, b):
+        if a.is_complex():
+            return torch.view_as_complex(pdiv(torch.view_as_real(a),
+                                              torch.view_as_real(b)))
+        return a / b
 
-    def run_k1():
-        for cv, cb, dl in rec_k1:
-            segmented_accumulate(cv, cb, dl)
+    def library_route(vals, run, lib_idx):
+        target = torch.view_as_real(vals) if vals.is_complex() else vals
+        for (lidx, uidx, _, _, _, ni, nd), slots in zip(run.ref_levels(),
+                                                       lib_idx):
+            vals[ni] = div(vals[ni], vals[nd])
+            if vals.is_complex():
+                c = -pmul(torch.view_as_real(vals[lidx]),
+                          torch.view_as_real(vals[uidx]))
+            else:
+                c = -(vals[lidx] * vals[uidx])
+            target.scatter_add_(0, slots, c)
 
-    def run_k1_plain():
-        for cv, cb, dl in rec_k1:
-            segmented_accumulate_ref(cv, cb, dl)
+    bufs, n_bytes, n_ops = [], 0, 0
+    for v0, run in rec_k1:
+        got, again, want = v0.clone(), v0.clone(), v0.clone()
+        level_run(got, run)
+        level_run(again, run)
+        level_run_ref(want, run)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(got, want), \
+            ("K1 differs from its plain version on the path's run",
+             (got - want).abs().max().item())
+        assert torch.equal(again, got), "K1 repeat differs"
+        slots = [t[3] if not v0.is_complex() else
+                 t[3][:, None].expand(-1, 2).contiguous()
+                 for t in run.ref_levels()]
+        bufs.append((v0, run, v0.clone(), slots))
+        b, o = _k1_bound(run, v0.element_size() // report["planes"],
+                         report["planes"])
+        n_bytes, n_ops = n_bytes + b, n_ops + o
 
-    def run_k1_lib():
-        for buf, idx, cb in lib_in:
-            buf.scatter_add_(1, idx, cb)
+    def copies():
+        for v0, _, buf, _ in bufs:
+            buf.copy_(v0)
 
-    k1 = dict(name="segmented_accumulate", route="cuda",
-              source="src/repro_torch/kernels/csrc/segmented_accumulate.cu",
+    def timed(fn, reps):
+        def call():
+            for v0, run, buf, slots in bufs:
+                buf.copy_(v0)
+                fn(buf, run, slots)
+        return max(clock.ms(call, reps=reps) - copy_ms, 0.0)
+
+    copy_ms = clock.ms(copies, reps=20)
+    # the latency floor: as many levels, each one row of one update, on
+    # values of the same dtype (barriers and each level's dependent loads;
+    # the values drift from call to call, which the timing does not see)
+    floor_run, floor_vals = random_level_run(
+        np.random.default_rng(SEED), [(1, 1, 1)] * report["k1_levels"],
+        rec_k1[0][0].dtype, dev)
+    floor_ms = clock.ms(lambda: level_run(floor_vals, floor_run), reps=20)
+    k1 = dict(name="level_run", route="cuda",
+              source="src/repro_torch/kernels/csrc/level_run.cu",
               replaces="src/repro/kernels/level_update.py:60",
-              launches=report["k1_launches"], max_abs_err=err,
-              ms=clock.ms(run_k1), plain_ms=clock.ms(run_k1_plain, reps=3),
-              **_bound(k1_bytes, k1_ops),
-              library_ms=clock.ms(run_k1_lib))
-    k1["per_launch_us"] = k1["ms"] * 1e3 / max(1, len(rec_k1))
-    k1["calls_timed"] = len(rec_k1)
+              launches=report["k1_launches"], max_abs_err=0.0,
+              ms=timed(lambda v, r, s: level_run(v, r), 20),
+              plain_ms=timed(lambda v, r, s: level_run_ref(v, r), 3),
+              **_bound(n_bytes, n_ops),
+              library_ms=timed(library_route, 10))
+    k1.update(levels=report["k1_levels"], updates=report["k1_updates"],
+              rows=report["k1_rows"], bytes=n_bytes, operations=n_ops,
+              copy_ms=copy_ms, floor_ms=floor_ms,
+              ratio_to_library=k1["ms"] / k1["library_ms"],
+              library="per-level eager route, one scatter_add_ a level")
+    log(f"{report['matrix']}: level_run ({k1['levels']} levels, "
+        f"{k1['updates']} updates, one launch) {k1['ms']:.4f} ms, bit-identical "
+        f"to the plain version ({k1['plain_ms']:.3f} ms); library route "
+        f"{k1['library_ms']:.4f} ms, ms/library_ms={k1['ratio_to_library']:.3f}; "
+        f"bound {k1['bound_ms']:.5f} ms ({k1['bound_by']}); copy "
+        f"{copy_ms:.4f} ms subtracted; latency floor of {k1['levels']} "
+        f"one-update levels {floor_ms:.4f} ms")
     return k1
 
 
@@ -546,27 +612,28 @@ def _profile(dev, fn):
     return {"kernels": sum(r[2] for r in rows),
             "dense_lu_kernels": sum(r[2] for r in rows
                                     if "dense_lu_kernel" in r[1]),
+            "level_run_kernels": sum(r[2] for r in rows
+                                     if "level_run_kernel" in r[1]),
             "device_busy_ms": sum(r[0] for r in rows) / 1e3,
             "top": [{"name": k[:70], "device_ms": t / 1e3, "count": c}
                     for t, k, c in rows[:6]]}
 
 
-def _profile_until(dev, fn, dense_lu_kernels, tries=8):
-    """``_profile(dev, fn)`` until its window shows ``dense_lu_kernels``
-    dense-LU device kernels.  The profiler loses device records (see
-    ``_profile``) but never adds any: a window that shows more than the
-    expected kernels fails at once, and one that shows them exactly ends
-    the search.  Returns the profile and the number of windows taken."""
+def _profile_until(dev, fn, want, tries=8):
+    """``_profile(dev, fn)`` until its window shows the expected count of
+    each kernel in ``want`` (``{"dense_lu_kernels": n, ...}``).  The
+    profiler loses device records (see ``_profile``) but never adds any: a
+    window that shows more than the expected kernels fails at once, and
+    one that shows them exactly ends the search.  Returns the profile and
+    the number of windows taken."""
     for i in range(1, tries + 1):
         prof = _profile(dev, fn)
-        got = prof.get("dense_lu_kernels", 0)
-        assert got <= dense_lu_kernels, \
-            ("more dense-LU device kernels than expected", dense_lu_kernels,
-             prof)
-        if got == dense_lu_kernels and "kernels" in prof:
+        got = {k: prof.get(k, 0) for k in want}
+        assert all(got[k] <= want[k] for k in want), \
+            ("more device kernels than expected", want, prof)
+        if got == want and "kernels" in prof:
             return prof, i
-    raise AssertionError(("no complete profiler window", dense_lu_kernels,
-                          tries, prof))
+    raise AssertionError(("no complete profiler window", want, tries, prof))
 
 
 def profile_path(dev, clock, g):
@@ -574,24 +641,31 @@ def profile_path(dev, clock, g):
     and this host's cost of one small PyTorch op on the card (the unit the
     eager schedule pays per launch).  Busy share = device-busy time over
     the CUDA-event time of the same call.  A factorization must show
-    exactly one dense-LU device kernel per dense group."""
+    exactly one run-kernel device kernel per run and one dense-LU device
+    kernel per dense group."""
     b = torch.ones(g.n, dtype=g.dtype, device=dev)
     y = torch.zeros(8, dtype=g.dtype, device=dev)
     out = {"host_op_us": clock.ms(lambda: [y.add_(1.0) for _ in range(1000)],
                                   reps=3)}
-    n_dense = g._factorizer.kinds.count("dense")
+    steps = g._factorizer.step_kinds
+    n_dense, n_runs = steps.count("dense"), steps.count("run")
+    none = {"dense_lu_kernels": 0, "level_run_kernels": 0}
     for name, fn, want in (
-            ("factorize", lambda: g._factorizer.factorize(g._a_vals), n_dense),
-            ("solve", lambda: g._solver.solve(g._vals, b), 0)):
+            ("factorize", lambda: g._factorizer.factorize(g._a_vals),
+             {"dense_lu_kernels": n_dense, "level_run_kernels": n_runs}),
+            ("solve", lambda: g._solver.solve(g._vals, b), none)):
         prof, prof["profiler_tries"] = _profile_until(dev, fn, want)
         if "device_busy_ms" in prof:
             prof["event_ms"] = clock.ms(fn, reps=5)
             prof["device_busy_share"] = prof["device_busy_ms"] / prof["event_ms"]
         out[name] = prof
     fact = out["factorize"]
-    log(f"profile: {fact['dense_lu_kernels']} dense-LU device kernel(s) per "
-        f"factorization for {n_dense} dense group(s) ok "
-        f"(profiler windows: {fact['profiler_tries']})")
+    log(f"profile: {fact['level_run_kernels']} run-kernel device kernel(s) "
+        f"for {n_runs} run(s) and {fact['dense_lu_kernels']} dense-LU device "
+        f"kernel(s) for {n_dense} dense group(s) per factorization ok; "
+        f"{fact['kernels']} device kernels a factorization, "
+        f"{out['solve']['kernels']} a solve (profiler windows: "
+        f"{fact['profiler_tries']})")
     return out
 
 
@@ -643,19 +717,19 @@ def main() -> int:
         ents = kernel_entries(dev, clock, rec, report)
         report["kernels"] = ents
         report["profile"] = profile_path(dev, clock, g)
-        # K2 and K3 run once per dense group: the factorization's count of
-        # dense-LU device kernels over their launches is kernels per call
+        # K1 runs once per run, K2 and K3 once per dense group: the
+        # factorization's count of their device kernels over their launches
+        # is kernels per call
+        fact = report["profile"]["factorize"]
         for e in ents:
-            if e["name"] in ("dense_lu", "dense_lu_planar"):
-                e["device_kernels_per_call"] = (
-                    report["profile"]["factorize"]["dense_lu_kernels"]
-                    / e["launches"])
+            key = ("level_run_kernels" if e["name"] == "level_run"
+                   else "dense_lu_kernels")
+            e["device_kernels_per_call"] = fact[key] / e["launches"]
         entries += ents
         log(json.dumps({"matrix_report": report}))
         del rec, g
     names = {e["name"] for e in entries}
-    assert names == {"segmented_accumulate", "dense_lu", "dense_lu_planar"}, \
-        names
+    assert names == {"level_run", "dense_lu", "dense_lu_planar"}, names
     log(f"peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(f"card: {card}")

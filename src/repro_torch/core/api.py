@@ -269,7 +269,10 @@ class GLU:
         package's keys for this path (``pallas_disabled_reason`` is
         ``kernels_disabled_reason`` here: None when the kernels ran on the
         card).  ``n_dispatches``/``solve_dispatches`` count host-issued
-        steps."""
+        steps: for a factorization the entry scatter, one per flat level,
+        one per run of consecutive K1 levels (one kernel launch each) and
+        one for the dense tail (grid64 9, rajat12_like 6); ``n_groups``
+        counts the factorization's steps."""
         if self._info is None:
             return None
         if self._stats_pending:

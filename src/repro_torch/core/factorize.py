@@ -5,31 +5,36 @@ executor.
                              host oracle, verbatim loop structure.
 * ``factorize_numpy_fast`` — the same math with a CSR view of the pattern.
 * ``TorchFactorizer``      — the GLU3.0 executor: level-scheduled, three
-                             adaptive modes, one step per level,
-                             SEGMENTED/PANEL levels through kernel K1 and the
-                             dense trailing block through kernel K2 (real
-                             values) or K3 (complex values, on re/im planes).
+                             adaptive modes; each run of consecutive
+                             SEGMENTED/PANEL levels is one launch of kernel
+                             K1 ``level_run``, each flat level one eager
+                             step, and the dense trailing block one launch
+                             of K2 (real values) or K3 (complex values, on
+                             re/im planes).
 
 The executor is built once from a :class:`FactorizePlan` and reused for
 every refactorization with new values on the same pattern (the
 Newton-Raphson inner loop of circuit simulation).
 
-Padding: eager PyTorch needs no equal shapes, so every level is its own
-step.  A flat level keeps only its real entries, stored in fixed-order
-rounds of distinct destinations (``kernels.ops.round_order``), so its
-scatter-add is exact and the same bits on every run.  A K1 level is laid
-out as (D, R, C) with R and C the level's own largest row and segment: the
-value buffer has one trash slot past the real values (``vals[nnz]``), every
-padded index of that layout is ``nnz``, and padded reads feed only padded
-writes into the trash slot, whose value is never read into a real slot.
-The dense tail is padded to a multiple of K2's block; it gathers and
-scatters through explicit lists of its real positions, so its non-pattern
-entries read exact zeros.
+Padding: eager PyTorch needs no equal shapes, so no step is padded to
+another's.  A flat level keeps only its real entries, stored in
+fixed-order rounds of distinct destinations (``kernels.ops.round_order``),
+so its scatter-add is exact and the same bits on every run.  A run of K1
+levels is one packed int32 layout with no padding
+(:func:`_build_run_layout`, ``kernels.level_update.LevelRun``): each
+destination column is one contiguous slice of the value array.  The
+per-level (D, R, C) layout of the JAX package (:func:`_build_pallas_layout`,
+padded with ``nnz``, the trash slot ``vals[nnz]`` past the real values) is
+kept for the plain per-level route the tests hold the run against.  The
+dense tail is padded to a multiple of K2's block; it gathers and scatters
+through explicit lists of its real positions, so its non-pattern entries
+read exact zeros.
 
 Complex values (``layout="planar"``) are a complex64/complex128 value
-array: flat levels run in PyTorch's complex arithmetic, K1 levels on the
-re/im plane view (``kernels.ops.level_update_planar_body``), and the dense
-tail through K3 on a (2, Np, Np) plane tile.
+array: flat levels run in PyTorch's complex arithmetic, K1 runs read the
+complex array as interleaved re/im pairs with the planar arithmetic
+(``pdiv``/``pmul``), and the dense tail runs through K3 on a (2, Np, Np)
+plane tile.
 """
 from __future__ import annotations
 
@@ -40,12 +45,8 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.dense_lu import BLOCK, dense_lu, dense_lu_planar
-from ..kernels.ops import (
-    add_in_rounds_,
-    level_update_body,
-    level_update_planar_body,
-    round_order,
-)
+from ..kernels.level_update import LevelRun, level_run
+from ..kernels.ops import add_in_rounds_, round_order
 from ..sparse.csc import csc_transpose_pattern
 from ..sparse.layout import ValueLayout, resolve_layout
 from .plan import MODE_PANEL, MODE_SEGMENTED, FactorizePlan
@@ -207,6 +208,42 @@ def _build_pallas_layout(plan: FactorizePlan, seg, pad_key: int):
     )
 
 
+def _build_run_layout(plan: FactorizePlan, segs, device) -> LevelRun:
+    """The packed layout of one run of consecutive K1 levels ``segs`` (see
+    ``kernels.level_update.LevelRun``): per level its normalization and
+    destination-row ranges, per row (one destination column of the level)
+    its segment ``vals[col_start : col_start + col_len]`` and update range,
+    per update ``lidx, uidx, ldiag, dpos`` in the plan's order.  The
+    levels' updates and normalization entries are contiguous in the plan,
+    so the run slices them once.  ``LevelRun`` checks that every index fits
+    in int32 and the invariants that make one grid barrier a level safe,
+    and raises ``ValueError`` on a plan that breaks them."""
+    u0, u1 = segs[0].upd_slice.start, segs[-1].upd_slice.stop
+    n0, n1 = segs[0].norm_slice.start, segs[-1].norm_slice.stop
+    indptr = np.asarray(plan.indptr, dtype=np.int64)
+    lev = np.repeat(np.arange(len(segs)), [s.n_upd for s in segs])
+    dst = plan.dst_col[u0:u1]
+    # a new row wherever the level or the destination column changes
+    new_row = np.ones(len(dst), dtype=bool)
+    new_row[1:] = (dst[1:] != dst[:-1]) | (lev[1:] != lev[:-1])
+    first = np.flatnonzero(new_row)
+    row_of = np.cumsum(new_row) - 1
+    col = dst[first]
+    col_start = indptr[col]
+    rows = np.stack([col_start, indptr[col + 1] - col_start, first,
+                     np.append(first[1:], len(dst))], axis=1)
+    lidx = plan.lidx[u0:u1]
+    ldiag = plan.diag_idx[np.searchsorted(indptr, lidx, side="right") - 1]
+    upd = np.stack([lidx, plan.uidx[u0:u1], ldiag,
+                    plan.didx[u0:u1] - col_start[row_of]], axis=1)
+    row_ptr = np.searchsorted(lev[first], np.arange(len(segs) + 1))
+    levels = np.array([(s.norm_slice.start - n0, s.norm_slice.stop - n0,
+                        row_ptr[i], row_ptr[i + 1], 0, 0)
+                       for i, s in enumerate(segs)])
+    norm = np.stack([plan.norm_idx[n0:n1], plan.norm_diag[n0:n1]], axis=1)
+    return LevelRun(levels, rows, upd, norm, plan.nnz, device)
+
+
 def _find_dense_tail(plan: FactorizePlan, min_size: int = 64,
                      max_size: int = 1024, density: float = 0.25):
     """Beyond-paper switch-to-dense: find a level suffix whose columns form a
@@ -266,12 +303,12 @@ def _build_dense_tail(plan: FactorizePlan, c_star: int):
 
 @dataclasses.dataclass
 class _Group:
-    """One executor step: a single level ("flat"), a K1-segmented level
-    ("pallas", the JAX package's name for the kind) or the dense trailing
-    block ("dense")."""
+    """One executor step: a single level ("flat"), a run of consecutive
+    K1 levels ("run", one launch) or the dense trailing block ("dense")."""
 
-    kind: str      # "flat" | "pallas" | "dense"
-    arrays: tuple  # device tensors (flat: with the level's round bounds)
+    kind: str      # "flat" | "run" | "dense"
+    arrays: tuple  # flat: device tensors and the level's round bounds;
+                   # run: (LevelRun,); dense: the tail's positions
 
 
 # --------------------------------------------------------------------------
@@ -323,9 +360,9 @@ class TorchFactorizer:
     dtype: torch.float32, float64, complex64 or complex128 (numpy
         spellings accepted)
     device: ``None`` (the card; raises when there is none), ``"cuda"`` or
-        ``"cpu"``.  On the card SEGMENTED/PANEL levels launch K1 and the
-        dense tail K2 (K3 for complex values); on the CPU the same steps
-        run the plain versions.
+        ``"cpu"``.  On the card each run of SEGMENTED/PANEL levels is one
+        launch of K1 and the dense tail one of K2 (K3 for complex values);
+        on the CPU the same steps run the plain versions.
     layout: ``"auto"`` (planar for complex values, native for real ones)
         or ``"planar"``.  ``"native"`` with a complex dtype, the JAX
         package's route off the kernels, is not ported and raises
@@ -333,12 +370,15 @@ class TorchFactorizer:
     dense_tail / dense_tail_density: switch-to-dense for a dense-enough
         trailing column block, as in the JAX package.
 
-    Every level before the dense tail is one step, where the JAX package
-    fuses runs of equal padded shapes into scan groups: eager PyTorch issues
-    each level's operations separately either way.  ``kinds`` lists the
-    steps, ``n_groups`` counts them, and ``last_n_dispatches`` is the number
-    of host-issued steps of the latest factorization (the entry scatter plus
-    one per step).
+    The steps, in the JAX package's order: one per flat level, one per
+    maximal run of consecutive K1 levels (the counterpart of the JAX
+    package's ``lax.scan`` over levels), and the dense tail.  ``kinds``
+    lists one entry per level in the JAX package's vocabulary ("flat",
+    "pallas", then "dense" for the tail); ``step_kinds`` lists the
+    host-issued steps ("flat", "run", "dense") and ``n_groups`` counts
+    them; ``last_n_dispatches`` is the number of host-issued steps of the
+    latest factorization (the entry scatter plus one per step: grid64 9,
+    rajat12_like 6).
     """
 
     def __init__(
@@ -366,7 +406,6 @@ class TorchFactorizer:
         self._a_scatter = idx(plan.a_scatter)
         self._diag_idx = idx(plan.diag_idx)
 
-        pad_key = plan.nnz   # K1 padding index == nnz: the trash slot
         self.dense_tail_info = None
         level_cut = plan.num_levels
         if dense_tail:
@@ -379,37 +418,48 @@ class TorchFactorizer:
                 self._dense_tail = (idx(tv), idx(tf), idx(ef), Np)
 
         groups: list[_Group] = []
+        kinds: list[str] = []
+        run: list = []
+
+        def end_run():
+            if run:
+                groups.append(_Group("run", (_build_run_layout(plan, run, dev),)))
+                run.clear()
+
         for seg in plan.segments:
             if seg.level >= level_cut:
                 break  # replaced by the dense trailing block
             if seg.mode in (MODE_SEGMENTED, MODE_PANEL) and seg.n_upd:
-                ni, nd, li, ui, dl, cp = _build_pallas_layout(plan, seg, pad_key)
-                groups.append(_Group("pallas", (
-                    idx(ni), idx(nd), idx(li), idx(ui), idx(dl, torch.int32),
-                    idx(cp))))
+                run.append(seg)
+                kinds.append("pallas")
                 continue
+            end_run()
             ns, us = seg.norm_slice, seg.upd_slice
             perm, bounds = round_order(plan.didx[us])
             groups.append(_Group("flat", (
                 idx(plan.norm_idx[ns]), idx(plan.norm_diag[ns]),
                 idx(plan.lidx[us][perm]), idx(plan.uidx[us][perm]),
                 idx(plan.didx[us][perm]), bounds)))
+            kinds.append("flat")
+        end_run()
         if self.dense_tail_info is not None:
             groups.append(_Group(kind="dense", arrays=self._dense_tail))
+            kinds.append("dense")
         self._groups = groups
-        planar = self.layout.planar
         self._step = {
             "flat": _level_step,
-            "pallas": level_update_planar_body if planar else level_update_body,
-            "dense": _dense_tail_step_planar if planar else _dense_tail_step,
+            "run": level_run,
+            "dense": (_dense_tail_step_planar if self.layout.planar
+                      else _dense_tail_step),
         }
-        self._kinds = tuple(g.kind for g in groups)
+        self._kinds = tuple(kinds)
+        self.step_kinds = tuple(g.kind for g in groups)
         self.n_groups = len(groups)
         self.last_n_dispatches = 0
 
     @property
     def kinds(self) -> tuple:
-        """The schedule's group kinds in order."""
+        """The schedule's kinds, one per level (the dense tail once)."""
         return self._kinds
 
     def factorize(self, a_vals) -> torch.Tensor:

@@ -2,6 +2,7 @@
 # Nothing is compiled at import: the first launch builds csrc/ (see _build).
 from . import ops, ref
 from .dense_lu import dense_lu, dense_lu_planar
-from .level_update import segmented_accumulate
+from .level_update import LevelRun, level_run, segmented_accumulate
 
-__all__ = ["ops", "ref", "dense_lu", "dense_lu_planar", "segmented_accumulate"]
+__all__ = ["ops", "ref", "dense_lu", "dense_lu_planar", "LevelRun",
+           "level_run", "segmented_accumulate"]

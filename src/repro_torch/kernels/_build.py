@@ -32,8 +32,10 @@ _I = ctypes.c_int
 # C entry points and their argument types; every entry returns the
 # cudaError_t of its launches as an int (0 = success)
 _SIGNATURES = {
-    "glu_segmented_accumulate_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "glu_segmented_accumulate_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "glu_level_run_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "glu_level_run_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "glu_level_run_c64": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "glu_level_run_c128": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "glu_dense_lu_f32": [_P, _P, _I, _P],
     "glu_dense_lu_f64": [_P, _P, _I, _P],
     "glu_dense_lu_planar_f32": [_P, _P, _I, _P],

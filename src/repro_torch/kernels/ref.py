@@ -5,17 +5,26 @@ They run for CPU tensors (the wrappers in ``level_update.py`` and
 the card.  Each repeats its kernel's arithmetic in eager PyTorch and is no
 yardstick of speed.
 
-Scatter-adds go through ``scatter_add_``: PyTorch's sorted scatter-add
-under deterministic mode, so equal inputs give equal bits on the card too.
+Sums that must repeat the kernels' bits run in fixed-order rounds of
+distinct targets (``round_order`` / ``add_in_rounds_``, also the flat
+levels' and the sweeps' scatter-add): each target adds its entries one by
+one, in their order, starting from its current value, on any device.
+Other scatter-adds go through ``scatter_add_``: PyTorch's sorted
+scatter-add under deterministic mode, so equal inputs give equal bits on
+the card too (on the card it sums a target's duplicates before adding them
+to the target, so it is not the kernels' order).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import deterministic
+from ..sparse.layout import pdiv, pmul
 
-__all__ = ["segmented_accumulate_ref", "dense_lu_ref", "dense_lu_planar_ref",
-           "lu_backward_error", "spmv_ref", "scatter_add_"]
+__all__ = ["segmented_accumulate_ref", "level_run_ref", "dense_lu_ref",
+           "dense_lu_planar_ref", "lu_backward_error", "spmv_ref",
+           "scatter_add_", "round_order", "add_in_rounds_"]
 
 
 def scatter_add_(dst, idx, src):
@@ -24,6 +33,40 @@ def scatter_add_(dst, idx, src):
     padding (many duplicates of one slot) out of ``idx``."""
     with deterministic():
         dst.index_put_((idx,), src, accumulate=True)
+    return dst
+
+
+def round_order(idx: np.ndarray):
+    """Host-side order for a fixed-order scatter-add: ``(perm, bounds)`` such
+    that round ``r``, ``perm[bounds[r]:bounds[r + 1]]``, holds the r-th entry
+    of every target.  Within a round the targets are distinct, and each
+    target meets its entries in their original order."""
+    idx = np.asarray(idx)
+    n = len(idx)
+    if n == 0:
+        return np.zeros(0, dtype=np.int64), [0]
+    order = np.argsort(idx, kind="stable")
+    srt = idx[order]
+    first = np.concatenate([[True], srt[1:] != srt[:-1]])
+    start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n) - start
+    perm = np.argsort(rank, kind="stable")
+    bounds = np.searchsorted(rank[perm], np.arange(int(rank.max()) + 2))
+    return perm, [int(b) for b in bounds]
+
+
+def add_in_rounds_(dst, idx, src, bounds, alpha: float = 1.0):
+    """``dst[idx] += alpha * src`` for entries in :func:`round_order`: each
+    round's targets are distinct, so every ``index_add_`` is exact and the
+    sum order per target is the entries' original order, on any device and
+    in any run.  Complex tensors add on their re/im plane views: the same
+    sums, through the real ``index_add_``."""
+    target = torch.view_as_real(dst) if dst.is_complex() else dst
+    if src.is_complex():
+        src = torch.view_as_real(src)
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        target.index_add_(0, idx[s:e], src[s:e], alpha=alpha)
     return dst
 
 
@@ -44,6 +87,34 @@ def segmented_accumulate_ref(col_vals, contribs, didx_local):
     flat = dl + torch.arange(D, device=dl.device)[:, None] * C
     scatter_add_(out.view(-1), flat[keep], contribs[keep])
     return out
+
+
+def _level_div(a, b):
+    """``a / b`` as the level steps divide: IEEE division for real values,
+    :func:`pdiv` on the re/im planes for complex ones (returned as planes)."""
+    if a.is_complex():
+        return pdiv(torch.view_as_real(a), torch.view_as_real(b))
+    return a / b
+
+
+def level_run_ref(vals, run):
+    """Plain version of K1 ``level_run``: the run's levels in order, in
+    place on ``vals``.  Each level adds its contributions
+    ``-((v[lidx] / v[ldiag]) * v[uidx])`` (complex: ``-pmul(pdiv(l, d), u)``)
+    into their slots in ascending update order, then normalizes its L
+    entries, as the per-level route does; the invariants the run was
+    checked against make its bits the kernel's, which normalizes every
+    level's L entries after the last.  ``run`` is a
+    :class:`~repro_torch.kernels.level_update.LevelRun` on ``vals``'s
+    device."""
+    for lidx, uidx, ldiag, slots, bounds, ni, nd in run.ref_levels():
+        c = _level_div(vals[lidx], vals[ldiag])
+        u = vals[uidx]
+        c = -(pmul(c, torch.view_as_real(u)) if u.is_complex() else c * u)
+        add_in_rounds_(vals, slots, c, bounds)
+        norm = _level_div(vals[ni], vals[nd])
+        vals[ni] = torch.view_as_complex(norm) if vals.is_complex() else norm
+    return vals
 
 
 def dense_lu_ref(a):

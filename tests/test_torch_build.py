@@ -53,3 +53,12 @@ def test_dense_lu_entries_take_input_and_output():
                  "glu_dense_lu_planar_f32", "glu_dense_lu_planar_f64"):
         decls = _entries()[name]
         assert decls[0].startswith("const void*") and decls[1].startswith("void*")
+
+
+def test_level_run_entries_take_values_in_place():
+    # K1 updates the value array in place and reads five layout arrays
+    for name in ("glu_level_run_f32", "glu_level_run_f64",
+                 "glu_level_run_c64", "glu_level_run_c128"):
+        decls = _entries()[name]
+        assert decls[0] == "void* vals", (name, decls)
+        assert all(d.startswith("const void*") for d in decls[1:6]), decls

@@ -25,6 +25,7 @@ from repro.core.factorize import _build_pallas_layout as jax_pallas_layout
 from repro.kernels import dense_lu_planar as jax_dense_lu_planar
 from repro.kernels.ops import level_update_planar_body as jax_level_planar
 from repro_torch.core import TorchFactorizer
+from repro_torch.core.factorize import _build_pallas_layout
 from repro_torch.kernels import dense_lu_planar
 from repro_torch.kernels.ops import (
     add_in_rounds_,
@@ -156,17 +157,21 @@ def test_complex_backward_error_sees_a_wrong_l(dtype):
 
 def test_level_update_planar_matches_reference(ac_pair):
     """One recorded K1 level of the fixture: the same values before it,
-    the port's planar step against the JAX package's (Pallas interpret)."""
+    the port's planar per-level step on its padded layout against the JAX
+    package's (Pallas interpret)."""
     _, gj, gt, _ = ac_pair
     fz = gt._factorizer
-    gi = fz.kinds.index("pallas")
+    gi = fz.kinds.index("pallas")            # the first K1 level
     vals = torch.zeros(fz.nnz + 1, dtype=torch.complex128)
     vals[fz._a_scatter] = gt._a_vals
-    for g in fz._groups[:gi]:
+    for g in fz._groups[: fz.step_kinds.index("run")]:
         fz._step[g.kind](vals, *g.arrays)
     before = vals.clone()
-    got = level_update_planar_body(vals, *fz._groups[gi].arrays)[: fz.nnz]
     seg = gt.plan.segments[gi]
+    arrays = [torch.from_numpy(np.asarray(a)).long()
+              for a in _build_pallas_layout(gt.plan, seg, fz.nnz)]
+    arrays[4] = arrays[4].int()
+    got = level_update_planar_body(vals, *arrays)[: fz.nnz]
     layout = jax_pallas_layout(gj.plan, seg, fz.nnz)
     jvals = jnp.asarray(torch.view_as_real(before[: fz.nnz]).numpy())
     want = np.asarray(jlayout.unpack_planes(

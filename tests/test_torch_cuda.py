@@ -8,18 +8,23 @@ import pytest
 import torch
 
 from repro_torch import GLU
-from repro_torch.kernels import dense_lu, dense_lu_planar, segmented_accumulate
+from repro_torch.kernels import (
+    dense_lu,
+    dense_lu_planar,
+    level_run,
+    segmented_accumulate,
+)
+from repro_torch.kernels.level_update import random_level_run
 from repro_torch.kernels.ref import (
     dense_lu_planar_ref,
     dense_lu_ref,
+    level_run_ref,
     lu_backward_error,
-    segmented_accumulate_ref,
 )
 from repro_torch.sparse import ac_jacobian, circuit_jacobian
 
 pytestmark = pytest.mark.cuda
 
-K1_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 K2_TOL = {torch.float32: 5e-3, torch.float64: 1e-9}
 
 
@@ -31,43 +36,77 @@ def cuda():
     return torch.device("cuda")
 
 
-def _k1_inputs(D, R, C, dtype, device, seed=0):
-    rng = np.random.default_rng(seed)
-    cv = torch.from_numpy(rng.normal(size=(D, C))).to(device, dtype)
-    cb = torch.from_numpy(rng.normal(size=(D, R))).to(device, dtype)
-    dl = torch.from_numpy(rng.integers(0, C + 64, size=(D, R)).astype(np.int32))
-    return cv, cb, dl.to(device)
+# multi-level runs at the path's shapes (grid64's widest levels;
+# rajat12_like's D up to 801, R up to 2,355, C 794), a row of more than
+# 1,024 slots split over work items, and a one-level run
+K1_RUNS = {
+    "grid64": [(905, 90, 297), (710, 135, 297), (392, 199, 297), (56, 40, 150)],
+    "rajat12": [(801, 2355, 794), (723, 1200, 794)],
+    "split": [(3, 768, 2100), (4, 300, 1100)],
+    "one-level": [(1, 90, 270)],
+}
+K1_DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
 
 
-@pytest.mark.parametrize("D,R,C", [(905, 90, 297), (905, 256, 384), (4, 384, 256),
-                                   (3, 768, 1024), (2, 256, 2048),
-                                   (728, 1280, 1024)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k1_matches_plain(cuda, D, R, C, dtype):
-    cv, cb, dl = _k1_inputs(D, R, C, dtype, cuda)
-    before = segmented_accumulate.launches
-    got = segmented_accumulate(cv, cb, dl)
+def _check_run(run, vals):
+    """One launch on the counter, bit-identity with the plain version on
+    the same values, and a bit-identical repeat."""
+    got, again, want = vals.clone(), vals.clone(), vals.clone()
+    before = level_run.launches
+    level_run(got, run)
     torch.cuda.synchronize()
-    assert segmented_accumulate.launches == before + 1
-    want = segmented_accumulate_ref(cv, cb, dl)
-    tol = K1_TOL[dtype]
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-
-
-def test_k1_duplicates_and_determinism(cuda):
-    D, R, C = 64, 1024, 128
-    rng = np.random.default_rng(3)
-    cv = torch.zeros((D, C), dtype=torch.float64, device=cuda)
-    cb = torch.from_numpy(rng.normal(size=(D, R))).to(cuda)
-    dl = torch.from_numpy(rng.integers(0, 4, size=(D, R)).astype(np.int32)).to(cuda)
-    a = segmented_accumulate(cv, cb, dl)
-    b = segmented_accumulate(cv, cb, dl)
+    assert level_run.launches == before + 1
+    level_run(again, run)
+    level_run_ref(want, run)
     torch.cuda.synchronize()
-    assert torch.equal(a, b)
-    torch.testing.assert_close(a, segmented_accumulate_ref(cv, cb, dl),
-                               rtol=1e-12, atol=1e-12)
-    ones = segmented_accumulate(cv, torch.ones_like(cb), torch.zeros_like(dl))
-    assert torch.all(ones[:, 0] == R) and torch.all(ones[:, 1:] == 0)
+    assert not torch.equal(got, vals)
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+    return got
+
+
+@pytest.mark.parametrize("shapes", list(K1_RUNS), ids=list(K1_RUNS))
+@pytest.mark.parametrize("dtype", K1_DTYPES)
+def test_k1_matches_plain(cuda, shapes, dtype):
+    run, vals = random_level_run(np.random.default_rng(len(shapes)),
+                                 K1_RUNS[shapes], dtype, cuda)
+    _check_run(run, vals)
+
+
+@pytest.mark.parametrize("dtype", K1_DTYPES)
+def test_k1_duplicates_and_determinism(cuda, dtype):
+    """Every update of a row on the segment's first slot, R = 2,355 (three
+    tiles): one fixed-order sum a row, the same bits as the plain version
+    and on a repeat; ones into zeros count the updates exactly."""
+    run, vals = random_level_run(np.random.default_rng(3),
+                                 [(64, 2355, 128), (32, 700, 64)], dtype,
+                                 cuda, duplicates=True)
+    _check_run(run, vals)
+    ones, _ = random_level_run(np.random.default_rng(4), [(16, 2355, 8)],
+                               dtype, cuda, duplicates=True)
+    v = torch.ones(ones.n_vals, dtype=dtype, device=cuda)
+    seg = torch.from_numpy(ones.host["rows"][:, 0]).to(cuda)
+    v[seg] = 0
+    level_run(v, ones)
+    # each contribution is -(1 / 1) * 1
+    assert bool((v[seg] == -2355).all())
+
+
+def test_k1_refuses_other_devices_and_dtypes(cuda):
+    run, vals = random_level_run(np.random.default_rng(5), [(3, 4, 5)],
+                                 torch.float64, cuda)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        level_run(torch.empty_like(vals, device="meta"), run)
+    with pytest.raises(ValueError):
+        level_run(vals.cpu(), run)              # the run lies on the card
+    with pytest.raises(TypeError):
+        level_run(vals.to(torch.float16), run)
+    with pytest.raises(ValueError):
+        level_run(vals[: run.n_vals - 1], run)  # shorter than the run needs
+    with pytest.raises(NotImplementedError, match="level_run"):
+        segmented_accumulate(vals.view(1, -1), vals.view(1, -1),
+                             torch.zeros((1, vals.numel()), dtype=torch.int32,
+                                         device=cuda))
 
 
 def _check_dense_lu(kernel, plain, a, N):
@@ -111,13 +150,12 @@ def test_k3_matches_plain(cuda, N, dtype):
 
 
 def test_wrappers_check_their_inputs(cuda):
-    cv = torch.zeros((2, 128), dtype=torch.float64, device=cuda)
+    run, vals = random_level_run(np.random.default_rng(7), [(2, 8, 16)],
+                                 torch.float64, cuda)
     with pytest.raises(TypeError):
-        segmented_accumulate(cv, cv, torch.zeros((2, 128), dtype=torch.int64,
-                                                 device=cuda))
+        level_run(vals.to(torch.int64), run)
     with pytest.raises(ValueError):
-        segmented_accumulate(cv, cv.t().contiguous().t()[:, :64],
-                             torch.zeros((2, 64), dtype=torch.int32, device=cuda))
+        level_run(torch.stack([vals, vals], 1)[:, 0], run)   # not contiguous
     with pytest.raises(ValueError):
         dense_lu(torch.zeros((48, 48), dtype=torch.float64, device=cuda))
     planes = torch.zeros((2, 64, 64), dtype=torch.float64, device=cuda)
@@ -139,11 +177,11 @@ def test_glu_on_card_matches_cpu(cuda):
     b = np.random.default_rng(1).normal(size=A.n)
     g_cpu = GLU(A, device="cpu")
     x_cpu = g_cpu.factorize().solve(b, refine=2)
-    k1, k2 = segmented_accumulate.launches, dense_lu.launches
+    k1, k2 = level_run.launches, dense_lu.launches
     g = GLU(A)
     x = g.factorize().solve(b, refine=2)
-    kinds = g._factorizer.kinds
-    assert segmented_accumulate.launches - k1 == kinds.count("pallas") > 0
+    kinds = g._factorizer.step_kinds
+    assert level_run.launches - k1 == kinds.count("run") > 0
     assert dense_lu.launches - k2 == kinds.count("dense") == 1
     assert g.solve_info["kernels_disabled_reason"] is None
     np.testing.assert_allclose(x, x_cpu, rtol=1e-9, atol=1e-9)
@@ -159,12 +197,12 @@ def test_complex_glu_on_card_matches_cpu(cuda):
     b = rng.normal(size=A.n) + 1j * rng.normal(size=A.n)
     g_cpu = GLU(A, dtype=torch.complex128, device="cpu")
     x_cpu = g_cpu.factorize().solve(b, refine=2)
-    k1, k2, k3 = (segmented_accumulate.launches, dense_lu.launches,
+    k1, k2, k3 = (level_run.launches, dense_lu.launches,
                   dense_lu_planar.launches)
     g = GLU(A, dtype=torch.complex128)
     x = g.factorize().solve(b, refine=2)
-    kinds = g._factorizer.kinds
-    assert segmented_accumulate.launches - k1 == kinds.count("pallas") > 0
+    kinds = g._factorizer.step_kinds
+    assert level_run.launches - k1 == kinds.count("run") > 0
     assert dense_lu_planar.launches - k3 == kinds.count("dense") == 1
     assert dense_lu.launches == k2
     info = g.solve_info

@@ -25,6 +25,7 @@ from repro_torch.core import (
     split_lu,
 )
 from repro_torch.core import plan_factorization as torch_plan_factorization
+from repro_torch.core.factorize import _build_pallas_layout
 from repro_torch.core.symbolic import FilledPattern
 from repro_torch.sparse import make_suite_matrix as torch_make_suite_matrix
 
@@ -148,7 +149,10 @@ def test_refactorize_new_values_and_filled_entry(sparse_case):
     np.testing.assert_allclose(tf.factorize(a).numpy(), oracle, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(tf.factorize_filled(vals0).numpy(), oracle,
                                rtol=TOL, atol=TOL)
-    assert tf.last_n_dispatches == 1 + tf.n_groups == 1 + len(tf.kinds)
+    # one host-issued step per flat level, per run of K1 levels and for
+    # the dense tail, after the entry scatter
+    assert tf.last_n_dispatches == 1 + tf.n_groups == 1 + len(tf.step_kinds)
+    assert tf.step_kinds.count("run") == 1 and "pallas" in tf.kinds
 
 
 @pytest.mark.parametrize("opts", [dict(fuse_buckets=False), dict(fuse_levels=False),
@@ -180,29 +184,41 @@ def test_numpy_oracles_match_reference(sparse_case):
 
 
 def test_grid64_schedule_counts():
-    """The slice's matrix at scale 1.0, by construction only: 154 K1 groups
-    and one dense tail of 146 columns padded to 160 (K2's block is 32), the
-    reference's counts of pallas and dense groups on the same plan.  The K1
-    layouts are sized by each level's real maxima: 3,606,320 (D, R) slots
-    for 1,917,578 real updates."""
+    """The slice's matrix at scale 1.0, by construction only: 154 K1 levels
+    in one run (one launch), 6 flat levels and one dense tail of 146
+    columns padded to 160 (K2's block is 32), the reference's counts of
+    pallas and dense groups on the same plan: 9 host-issued steps.  The
+    padded per-level K1 layouts are sized by each level's real maxima:
+    3,606,320 (D, R) slots for 1,917,578 real updates; the run layout holds
+    exactly those updates, unpadded."""
     A = torch_make_suite_matrix("grid64", 1.0)
     plan, _, _ = torch_plan_factorization(A, cache=None)
     tf = TorchFactorizer(plan.fplan, device="cpu")
     kinds = collections.Counter(tf.kinds)
     assert kinds == collections.Counter(pallas=154, flat=6, dense=1)
+    assert collections.Counter(tf.step_kinds) == collections.Counter(
+        run=1, flat=6, dense=1)
+    assert tf.n_groups == 8      # last_n_dispatches 9 after a factorization
     assert tf.dense_tail_info == dict(level_cut=160, c_star=3950, size=146,
                                       padded=160)
-    k1 = [g.arrays for g in tf._groups if g.kind == "pallas"]
+    nnz = plan.fplan.nnz
+    k1_segs = [seg for seg, kind in zip(plan.fplan.segments, tf.kinds)
+               if kind == "pallas"]
+    k1 = [_build_pallas_layout(plan.fplan, seg, nnz) for seg in k1_segs]
     shapes = [a[2].shape + (a[5].shape[1],) for a in k1]
     assert max(shapes) == (905, 90, 297)
     assert max(s[1] for s in shapes) == 199 and max(s[2] for s in shapes) == 297
     assert sum(s[0] * s[1] for s in shapes) == 3_606_320
-    nnz = plan.fplan.nnz
     assert sum(int((a[2] < nnz).sum()) for a in k1) == 1_917_578
     # every row holds at least one real update and every real slot is read
     for a in k1:
         assert bool((a[2][:, 0] < nnz).all())
         assert int((a[4] < a[5].shape[1]).sum()) == int((a[2] < nnz).sum())
+    (run,) = [g.arrays[0] for g in tf._groups if g.kind == "run"]
+    assert run.n_levels == 154 and run.n_updates == 1_917_578
+    assert len(run.host["rows"]) == sum(s[0] for s in shapes)
+    assert run.max_items == 905
+    assert all(t.dtype == torch.int32 for t in run.tensors.values())
     jplan, _, _ = jcore.plan_factorization(make_suite_matrix("grid64", 1.0),
                                            cache=None)
     assert jplan.fplan.digest == plan.fplan.digest

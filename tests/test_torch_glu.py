@@ -79,8 +79,9 @@ def test_solve_info_keys_and_values(pair):
         assert info_t[key] == info_j[key], key
     for key in ("pivot_growth", "min_diag"):
         np.testing.assert_allclose(info_t[key], info_j[key], rtol=1e-10)
-    # the port's steps: one per level, K1 level or dense tail
-    assert info_t["n_groups"] == len(gt._factorizer.kinds)
+    # the port's host-issued steps: one per flat level, per run of K1
+    # levels and for the dense tail
+    assert info_t["n_groups"] == len(gt._factorizer.step_kinds)
     assert info_t["n_dispatches"] == 1 + info_t["n_groups"]
     assert info_t["solve_dispatches"] > 0
 
