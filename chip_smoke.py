@@ -11,35 +11,58 @@ Phases, in order; any failure exits non-zero before the result line:
     shapes: K1 ``level_run`` on synthetic runs in float64, float32,
     complex128 and complex64, bit for bit and repeated bit for bit (runs of
     grid64's widest levels, rajat12_like's maxima D 801, R 2,355, C 794, a
-    row of more than 1,024 slots, all-duplicate positions, one level); K2
-    and K3 in float64 and float32 (complex128 and complex64 planes for K3)
-    with the stated tolerances and against their componentwise backward
-    error, from a single block (N = 32) to more blocks than the card keeps
-    CTAs resident (K2 at N = 2048), with ``a`` left unchanged and a second
-    call bit-identical;
+    row of more than 1,024 slots, all-duplicate positions, one level); K1's
+    robust (static-pivot) instantiation in float64 and float32 on the same
+    runs with diagonals crushed below tau in every level, bit for bit and
+    bump for bump; K2 and K3 in float64 and float32 (complex128 and
+    complex64 planes for K3) with the stated tolerances and against their
+    componentwise backward error, from a single block (N = 32) to more
+    blocks than the card keeps CTAs resident (K2 at N = 2048), with ``a``
+    left unchanged and a second call bit-identical;
  4. for each matrix (grid64 and rajat12_like, real, at scale 1.0; then
     rajat12_ac, the complex AC matrix ``G + jwC`` on rajat12_like's
-    pattern): plan on the host, build ``GLU(A)`` on the card and drive the
+    pattern): plan on the host, build ``GLU(A)`` on the card (each
+    factorization and each solve one CUDA-graph replay; the first call of
+    each runs the steps eagerly while it warms up the graph) and drive the
     path (factorize + solve) with every launch counter set to 0 just before
     and read just after: one K1 launch per run of K1 levels (one run on
     each matrix), and the K2 and K3 counts equal to the dense groups;
  5. refactorizations with fresh values (real matrices: a Newton-like
     perturbation from a numpy seed; rajat12_ac: other frequencies in a
-    decade around 1e3 rad/s), each solved with ``residual < 1e-9``, a
-    refined solve that converges, and two factorizations and solves of the
-    same values that must be bit-identical;
- 6. timings with CUDA events after warm-up: factorization and solve, and
-    each kernel, its plain version and a library yardstick replayed on the
-    exact inputs the main path gave the kernel (K1: the value array just
-    before the run, which must come out of the kernel bit for bit as out of
-    its plain version; its yardstick is the library route, the per-level
-    eager steps with one ``scatter_add_`` a level); bounds from the bytes
-    and operations of those inputs; peak device memory; kernel launches and
-    device-busy share per factorization and per solve (torch.profiler),
-    beside this host's cost of one small op; each factorization must show
-    exactly one run-kernel device kernel per run and one dense-LU device
-    kernel per dense group (K1, K2 and K3 are one device kernel a call);
-    each kernel prints its time over the yardstick's.
+    decade around 1e3 rad/s), each one replay (``n_dispatches == 1``, one
+    K1 launch per run counted from the replay) solved by one replay with
+    ``residual < 1e-9``; the same values through ``GLU(A,
+    jit_schedule=False)`` (the steps one by one) give the same factors and
+    solutions bit for bit, refined solves too; two factorizations and
+    solves of the same values are bit-identical;
+ 6. timings with CUDA events after warm-up, values already on the card:
+    factorization (one replay, and the steps one by one) and solve (the
+    same two), and each kernel, its plain version and a library yardstick
+    replayed on the exact inputs the main path gave the kernel (K1: the
+    value array just before the run, which must come out of the kernel bit
+    for bit as out of its plain version; its yardstick is the library
+    route, the per-level eager steps with one ``scatter_add_`` a level);
+    bounds from the bytes and operations of those inputs; peak device
+    memory; device kernels and device-busy share per factorization and per
+    solve for both (torch.profiler), beside this host's cost of one small
+    op; the eager factorization must show exactly one run-kernel device
+    kernel per run and one dense-LU device kernel per dense group (K1, K2
+    and K3 are one device kernel a call); each kernel prints its time over
+    the yardstick's;
+ 7. static pivot: ``GLU(grid64, static_pivot=1e-10)`` driven with the
+    counters at 0 (K1's robust instantiation inside the graph), replays
+    against the steps one by one bit for bit over refactorizations (with
+    ``static_pivot=0.6`` too, where bumps fire: equal bump counts), and the
+    robust K1 timed on the path's recorded run against its plain version
+    and the library route;
+ 8. transient: ``transient(rc_grid_circuit(64, 64, with_diodes=True,
+    seed=0), t_end=0.1, dt=5e-3, refine=1)`` (n = 4,096, 20 time steps)
+    with the counters at 0: ``max_residual < 1e-8``, finite voltages,
+    ``n_factorizations == newton_iters.sum()``, one K1 and one K2 launch
+    per factorization, refactorize-only ladder counts, voltages bit for
+    bit those of the same run with ``jit_schedule=False``; then a
+    per-Newton-iterate breakdown: assembly, host preparation, host-to-device
+    copies, factorization replay, solve replays, device-to-host copy.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 and matrix, over all matrices; the last line is
@@ -85,6 +108,12 @@ K1_RUNS = [("grid64 widest levels", [(905, 90, 297), (710, 135, 297),
            ("all-duplicate positions", [(64, 2355, 128)], True),
            ("one level", [(1, 90, 270)], False)]
 N_REFACTOR = 5
+# static pivoting: the ladder's bump rung threshold, and one large enough
+# that bumps fire on grid64's scaled values
+PIVOT_EPS = 1e-10
+PIVOT_EPS_BUMPS = 0.6
+# the transient phase: the G3_circuit-like grid at grid64's width
+TRANSIENT = dict(nx=64, ny=64, t_end=0.1, dt=5e-3, refine=1)
 AC_OMEGAS = np.logspace(2.5, 3.5, N_REFACTOR)   # rad/s, around the plan's 1e3
 SEED = 1234
 
@@ -182,6 +211,29 @@ def check_kernels_at_shapes(dev) -> None:
                 "version, repeat bit-identical ok")
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
+        for label, shapes, dups in K1_RUNS:
+            run, vals = random_level_run(rng, shapes, dtype, dev,
+                                         duplicates=dups)
+            n_crushed = crush_diagonals(rng, run, vals)
+            tau = torch.tensor(1e-3, dtype=dtype, device=dev)
+            outs = []
+            for fn in (kernels.level_run, kernels.level_run,
+                       ref.level_run_ref):
+                v = vals.clone()
+                count = torch.zeros((), dtype=torch.int32, device=dev)
+                fn(v, run, tau, count)
+                torch.cuda.synchronize(dev)
+                outs.append((v, int(count)))
+            (got, n), (again, n2), (want, n_want) = outs
+            assert n == n2 == n_want == n_crushed, (label, name, n, n_want)
+            assert torch.equal(got, want), (
+                label, name, "robust", (got - want).abs().max().item())
+            assert torch.equal(again, got), (label, name, "robust repeat")
+            log(f"check K1 robust {name} {label}: {n} bumps in "
+                f"{len(shapes)} level(s) (tau 1e-3), bit-identical to the "
+                "plain version with equal counts, repeat bit-identical ok")
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
         for label, kernel, plain, sizes, planes in (
                 ("K2", kernels.dense_lu, ref.dense_lu_ref,
                  (32, 160, 736, 1024, 2048), ()),
@@ -208,6 +260,21 @@ def check_kernels_at_shapes(dev) -> None:
                     f" N={N}: max_abs_err={err:.3e} tol={K2_TOL[name]:g}; "
                     f"backward error {bwd:.3e} <= {bwd_tol:.3e}; a unchanged, "
                     "repeat bit-identical ok")
+
+
+def crush_diagonals(rng, run, vals) -> int:
+    """Set up to 5 of each level's column diagonals to values below 1e-6
+    in magnitude, so that static pivoting bumps them in every level;
+    returns how many."""
+    h = run.host
+    picks = []
+    for k in range(run.n_levels):
+        d = h["diag"][h["diag_ptr"][k]:h["diag_ptr"][k + 1]]
+        picks.append(rng.choice(d, size=min(5, len(d)), replace=False))
+    picks = np.concatenate(picks)
+    vals[torch.from_numpy(picks).to(vals.device)] = torch.from_numpy(
+        rng.uniform(-1e-6, 1e-6, size=len(picks))).to(vals.device, vals.dtype)
+    return len(picks)
 
 
 def make_matrix(name):
@@ -239,13 +306,64 @@ def newton_values(A, rng):
     return np.asarray(A.data) * scale
 
 
-def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
-    """Phases 4-6 for one matrix.  Returns the matrix's report, the GLU and
-    the kernels' inputs recorded from one factorization."""
+def reset_counts():
+    from repro_torch.kernels import COUNTED
+
+    for k in COUNTED:
+        k.launches = 0
+
+
+def launch_counts():
+    from repro_torch.kernels import dense_lu, dense_lu_planar, level_run
+
+    return level_run.launches, dense_lu.launches, dense_lu_planar.launches
+
+
+def record_kernel_inputs(g, a_data):
+    """Factorize ``a_data`` with ``g``'s steps one by one (``g`` has
+    ``jit_schedule=False``), recording each kernel's input: K1's value array
+    just before each run (with the run, and tau and the count buffer under
+    static pivoting), each dense tile for K2 and K3."""
     import repro_torch.core.factorize as factorize_mod
+
+    fz = g._factorizer
+    assert fz._graph is None
+    rec = {"k1": [], "k2": [], "k3": []}
+    real = {"k1": fz._step["run"], "k1_robust": factorize_mod.level_run,
+            "k2": factorize_mod.dense_lu, "k3": factorize_mod.dense_lu_planar}
+
+    def k1_recorder(vals, run, *robust):
+        rec["k1"].append((vals.clone(), run,
+                          tuple(t.clone() for t in robust)))
+        return real["k1"](vals, run, *robust)
+
+    def tile_recorder(key):
+        def record(a):
+            rec[key].append(a.clone())
+            return real[key](a)
+        return record
+
+    fz._step["run"] = k1_recorder
+    factorize_mod.level_run = k1_recorder
+    factorize_mod.dense_lu = tile_recorder("k2")
+    factorize_mod.dense_lu_planar = tile_recorder("k3")
+    try:
+        g.factorize(a_data)
+    finally:
+        fz._step["run"] = real["k1"]
+        factorize_mod.level_run = real["k1_robust"]
+        factorize_mod.dense_lu = real["k2"]
+        factorize_mod.dense_lu_planar = real["k3"]
+    torch.cuda.synchronize()
+    return rec
+
+
+def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
+    """Phases 4-6 for one matrix.  Returns the matrix's report, the kernels'
+    inputs recorded from one factorization, and the two GLUs (replays, and
+    the steps one by one)."""
     from repro_torch import GLU
     from repro_torch.core import plan_factorization
-    from repro_torch.kernels import dense_lu, dense_lu_planar, level_run
 
     A = make_matrix(name)
     cplx = np.iscomplexobj(A.data)
@@ -264,17 +382,18 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
         b = b + 1j * rng.normal(size=A.n)
 
     # -- the path: counters at 0 just before, read just after ---------------
-    level_run.launches = 0
-    dense_lu.launches = 0
-    dense_lu_planar.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     g = GLU(A, dtype=dtype)
     build_s = time.perf_counter() - t0
     g.factorize()
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
     x = g.solve(b)
     torch.cuda.synchronize(dev)
-    k1, k2 = level_run.launches, dense_lu.launches
-    k3 = dense_lu_planar.launches
+    t2 = time.perf_counter()
+    k1, k2, k3 = launch_counts()
+    first_s = dict(factorize=t1 - t0 - build_s, solve=t2 - t1)
     fz = g._factorizer
     kinds, steps = fz.kinds, fz.step_kinds
     info = g.solve_info
@@ -289,36 +408,57 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
     log(f"{name}: path K1 launches={k1} ({work['k1_levels']} K1 levels in "
         f"{len(runs)} run(s), expected {want_k1} launch(es)), K2 launches={k2} "
         f"(expected {want_k2}), K3 launches={k3} (expected {want_k3}; dense "
-        f"groups {n_dense}), levels={g.num_levels}, host-issued steps "
-        f"{info['n_dispatches']} ({len(steps)} groups: {steps.count('flat')} "
-        f"flat), nnz_filled={g.nnz_filled}, layout={info['layout']}, "
-        f"dense_tail={fz.dense_tail_info}")
+        f"groups {n_dense}), levels={g.num_levels}, steps of the first "
+        f"(warm-up) factorization {info['n_dispatches']} ({len(steps)} "
+        f"groups: {steps.count('flat')} flat), nnz_filled={g.nnz_filled}, "
+        f"layout={info['layout']}, dense_tail={fz.dense_tail_info}")
     assert k1 == len(runs) == want_k1, (k1, want_k1)
     assert k2 == want_k2 and k3 == want_k3 and k2 + k3 == n_dense, (k2, k3)
     assert info["kernels_disabled_reason"] is None, info
     assert info["layout"] == ("planar" if cplx else "native"), info
+    assert fz._graph is not None and fz._graph.graph is not None
     res0 = g.residual(b, x)
     assert np.isfinite(x).all() and x.shape == (A.n,) and res0 < 1e-9, res0
-    log(f"{name}: solve residual={res0:.3e}; GLU build {build_s:.3f} s")
+    log(f"{name}: solve residual={res0:.3e}; GLU build {build_s:.3f} s; "
+        f"first factorize {first_s['factorize']:.3f} s and first solve "
+        f"{first_s['solve']:.3f} s (steps one by one, then the capture)")
 
-    # -- refactorizations with fresh values ----------------------------------
+    # -- refactorizations: replays against the steps one by one -------------
+    ge = GLU(A, dtype=dtype, jit_schedule=False)
     S = A.to_scipy()
     vals_set = refactor_values(name, A, rng)
     for i, new in enumerate(vals_set):
+        before = launch_counts()
         x = g.factorize(new).solve(b)
+        after = launch_counts()
+        disp = (g.solve_info["n_dispatches"], g.solve_info["solve_dispatches"])
+        xe = ge.factorize(new).solve(b)
+        assert disp == (1, 1), disp
+        assert (after[0] - before[0], after[1] + after[2] - before[1]
+                - before[2]) == (len(runs), n_dense), (before, after)
+        assert torch.equal(g.factorized_values(), ge.factorized_values()), i
+        assert x.tobytes() == xe.tobytes(), i
         S.data = new
         res = float(np.abs(S @ x - b).max() / np.abs(b).max())
         assert np.isfinite(x).all() and res < 1e-9, (i, res)
-        log(f"{name}: refactorization {i}: residual={res:.3e} < 1e-9 ok")
+        log(f"{name}: refactorization {i}: one replay each for factorize "
+            f"and solve, bit-identical to the steps one by one "
+            f"({ge.solve_info['n_dispatches']} and "
+            f"{ge.solve_info['solve_dispatches']} steps); residual="
+            f"{res:.3e} < 1e-9 ok")
     x2 = g.solve(b, refine=2)
     rinfo = g.solve_info
     assert rinfo["converged"] and np.isfinite(x2).all(), rinfo
+    assert x2.tobytes() == ge.solve(b, refine=2).tobytes()
+    assert ge.solve_info["refine_iters"] == rinfo["refine_iters"]
     log(f"{name}: refine=2 backward_error={rinfo['backward_error']:.3e} "
         f"iters={rinfo['refine_iters']} residual="
-        f"{float(np.abs(S @ x2 - b).max() / np.abs(b).max()):.3e}")
+        f"{float(np.abs(S @ x2 - b).max() / np.abs(b).max()):.3e}, "
+        f"{rinfo['solve_dispatches']} dispatches (replays, reads and the "
+        f"|A| pass), bit-identical to the steps one by one")
 
     # -- bit-identical repeat ---------------------------------------------------
-    v1 = g.factorize(vals_set[0]).factorized_values().clone()
+    v1 = g.factorize(vals_set[0]).factorized_values()
     v2 = g.factorize(vals_set[0]).factorized_values()
     x1 = g.solve(b)
     x2 = g.solve(b)
@@ -327,56 +467,47 @@ def drive_matrix(dev, clock, name, want_k1, want_k2, want_k3):
         "bit-identical")
 
     # -- record the kernels' inputs from one factorization ------------------
-    # (K1: the value array just before each run, with its run)
-    rec = {"k1": [], "k2": [], "k3": []}
-    real = {"k1": fz._step["run"], "k2": factorize_mod.dense_lu,
-            "k3": factorize_mod.dense_lu_planar}
-
-    def k1_recorder(vals, run):
-        rec["k1"].append((vals.clone(), run))
-        return real["k1"](vals, run)
-
-    def tile_recorder(key):
-        def record(a):
-            rec[key].append(a.clone())
-            return real[key](a)
-        return record
-
-    fz._step["run"] = k1_recorder
-    factorize_mod.dense_lu = tile_recorder("k2")
-    factorize_mod.dense_lu_planar = tile_recorder("k3")
-    try:
-        g.factorize(vals_set[0])
-    finally:
-        fz._step["run"] = real["k1"]
-        factorize_mod.dense_lu = real["k2"]
-        factorize_mod.dense_lu_planar = real["k3"]
-    torch.cuda.synchronize(dev)
+    rec = record_kernel_inputs(ge, vals_set[0])
 
     # -- timings ----------------------------------------------------------------
-    a_dev = g._a_vals
     bp = torch.as_tensor((b * g.Dr)[g._inv_row], dtype=g.dtype, device=dev)
-    fact_ms = clock.ms(lambda: g._factorizer.factorize(a_dev), reps=10)
-    solve_ms = clock.ms(lambda: g._solver.solve(g._vals, bp), reps=10)
+    fze = ge._factorizer
+    fact_ms = clock.ms(fz.run, reps=20)
+    fact_eager_ms = clock.ms(fze.run, reps=10)
+    solve_ms = clock.ms(lambda: g._solver.solve(g._vals, bp), reps=20)
+    solve_eager_ms = clock.ms(lambda: ge._solver.solve(ge._vals, bp), reps=5)
     fact_call_ms = clock.median_ms(lambda: g.factorize(vals_set[1]))
     solve_call_ms = clock.median_ms(lambda: g.solve(b))
+    fact_call_eager_ms = clock.median_ms(lambda: ge.factorize(vals_set[1]))
+    solve_call_eager_ms = clock.median_ms(lambda: ge.solve(b), reps=3)
     report = dict(
         matrix=name, dtype=str(dtype), n=A.n, nnz=A.nnz,
         nnz_filled=g.nnz_filled, levels=g.num_levels, groups=len(kinds),
         planning_s=plan_s, plan_from_cache=from_cache, glu_build_s=build_s,
+        first_call_s=first_s,
         k1_launches=k1,
         k2_launches=k2, k3_launches=k3, refine2=dict(
             iters=rinfo["refine_iters"],
-            backward_error=rinfo["backward_error"]),
-        factorize_steps=info["n_dispatches"], factorize_step_kinds=steps,
-        solve_steps=g._solver.last_n_dispatches,
+            backward_error=rinfo["backward_error"],
+            dispatches=rinfo["solve_dispatches"]),
+        factorize_dispatches=1, solve_dispatches=1,
+        eager_factorize_steps=ge.solve_info["n_dispatches"],
+        eager_solve_steps=ge._solver.last_n_dispatches,
+        factorize_step_kinds=steps,
         factorize_ms=fact_ms, solve_ms=solve_ms,
+        eager_factorize_ms=fact_eager_ms, eager_solve_ms=solve_eager_ms,
         factorize_call_ms=fact_call_ms, solve_call_ms=solve_call_ms,
+        eager_factorize_call_ms=fact_call_eager_ms,
+        eager_solve_call_ms=solve_call_eager_ms,
         refactor_residual_max="< 1e-9", **work)
-    log(f"{name}: factorize {fact_ms:.3f} ms (device values, CUDA events), "
-        f"solve {solve_ms:.3f} ms; GLU.factorize call median {fact_call_ms:.3f} ms, "
-        f"GLU.solve call median {solve_call_ms:.3f} ms")
-    return report, rec, g
+    log(f"{name}: factorize {fact_ms:.4f} ms one replay, {fact_eager_ms:.4f} "
+        f"ms steps one by one; solve {solve_ms:.4f} ms one replay, "
+        f"{solve_eager_ms:.3f} ms steps one by one (CUDA events, values on "
+        f"the card); GLU.factorize call median {fact_call_ms:.3f} / "
+        f"{fact_call_eager_ms:.3f} ms, GLU.solve call median "
+        f"{solve_call_ms:.3f} / {solve_call_eager_ms:.3f} ms (replays / "
+        "steps one by one)")
+    return report, rec, g, ge
 
 
 def _bound(n_bytes, n_ops):
@@ -402,22 +533,29 @@ def kernel_entries(dev, clock, rec, report):
     return out
 
 
-def _k1_bound(run, esize: int, planes: int):
+def _k1_bound(run, esize: int, planes: int, n_bumped=None):
     """Bytes and operations one run needs on its real data: each layout
     index read once, each value it reads (operands, segments' touched slots,
     normalized entries and their diagonals) read once, each slot it writes
     written once; a real update is a divide, a multiply and an add, a
     complex one 20 real operations (pdiv 12, pmul 6, the add 2), a
-    normalization one division (complex: 12)."""
+    normalization one division (complex: 12).  With ``n_bumped`` (the
+    robust instantiation): the diagonal lists too, each diagonal read and
+    compared once, each bumped one written once."""
     h = run.host
+    layout = ("levels", "items", "rows", "upd", "norm")
+    diag = h["diag"] if n_bumped is not None else np.zeros(0, np.int64)
     written = run.written_slots()
     read = np.unique(np.concatenate([h["upd"][:, :3].ravel(), written,
-                                     h["norm"].ravel()]))
-    n_written = len(np.unique(written)) + len(h["norm"])
-    n_index = sum(a.size for a in h.values())
+                                     h["norm"].ravel(), diag]))
+    n_written = len(np.unique(written)) + len(h["norm"]) + (n_bumped or 0)
+    n_index = sum(h[k].size for k in layout)
+    if n_bumped is not None:
+        n_index += h["diag_ptr"].size + diag.size
     n_bytes = 4 * n_index + planes * esize * (len(read) + n_written)
     per_upd, per_norm = (20, 12) if planes == 2 else (3, 1)
-    return n_bytes, run.n_updates * per_upd + len(h["norm"]) * per_norm
+    return n_bytes, (run.n_updates * per_upd + len(h["norm"]) * per_norm
+                     + diag.size)
 
 
 def _k1_entry(dev, clock, rec_k1, report):
@@ -441,7 +579,7 @@ def _k1_entry(dev, clock, rec_k1, report):
 
     def library_route(vals, run, lib_idx):
         target = torch.view_as_real(vals) if vals.is_complex() else vals
-        for (lidx, uidx, _, _, _, ni, nd), slots in zip(run.ref_levels(),
+        for (lidx, uidx, _, _, _, ni, nd, _), slots in zip(run.ref_levels(),
                                                        lib_idx):
             vals[ni] = div(vals[ni], vals[nd])
             if vals.is_complex():
@@ -452,7 +590,7 @@ def _k1_entry(dev, clock, rec_k1, report):
             target.scatter_add_(0, slots, c)
 
     bufs, n_bytes, n_ops = [], 0, 0
-    for v0, run in rec_k1:
+    for v0, run, _ in rec_k1:
         got, again, want = v0.clone(), v0.clone(), v0.clone()
         level_run(got, run)
         level_run(again, run)
@@ -636,13 +774,15 @@ def _profile_until(dev, fn, want, tries=8):
     raise AssertionError(("no complete profiler window", want, tries, prof))
 
 
-def profile_path(dev, clock, g):
+def profile_path(dev, clock, g, ge):
     """Device kernels and device-busy time per factorization and per solve,
-    and this host's cost of one small PyTorch op on the card (the unit the
-    eager schedule pays per launch).  Busy share = device-busy time over
-    the CUDA-event time of the same call.  A factorization must show
+    for the replays (``g``) and the steps one by one (``ge``), and this
+    host's cost of one small PyTorch op on the card (the unit the eager
+    steps pay per launch).  Busy share = device-busy time over the
+    CUDA-event time of the same call.  The eager factorization must show
     exactly one run-kernel device kernel per run and one dense-LU device
-    kernel per dense group."""
+    kernel per dense group; a replay's window is recorded as it comes (the
+    profiler's view of kernels inside a graph is reported, not assumed)."""
     b = torch.ones(g.n, dtype=g.dtype, device=dev)
     y = torch.zeros(8, dtype=g.dtype, device=dev)
     out = {"host_op_us": clock.ms(lambda: [y.add_(1.0) for _ in range(1000)],
@@ -651,22 +791,264 @@ def profile_path(dev, clock, g):
     n_dense, n_runs = steps.count("dense"), steps.count("run")
     none = {"dense_lu_kernels": 0, "level_run_kernels": 0}
     for name, fn, want in (
-            ("factorize", lambda: g._factorizer.factorize(g._a_vals),
+            ("eager_factorize", ge._factorizer.run,
              {"dense_lu_kernels": n_dense, "level_run_kernels": n_runs}),
-            ("solve", lambda: g._solver.solve(g._vals, b), none)):
-        prof, prof["profiler_tries"] = _profile_until(dev, fn, want)
+            ("eager_solve", lambda: ge._solver.solve(ge._vals, b), none),
+            ("factorize", g._factorizer.run, None),
+            ("solve", lambda: g._solver.solve(g._vals, b), None)):
+        if want is None:
+            prof, prof["profiler_tries"] = _profile(dev, fn), 1
+        else:
+            prof, prof["profiler_tries"] = _profile_until(dev, fn, want)
         if "device_busy_ms" in prof:
             prof["event_ms"] = clock.ms(fn, reps=5)
             prof["device_busy_share"] = prof["device_busy_ms"] / prof["event_ms"]
         out[name] = prof
-    fact = out["factorize"]
-    log(f"profile: {fact['level_run_kernels']} run-kernel device kernel(s) "
-        f"for {n_runs} run(s) and {fact['dense_lu_kernels']} dense-LU device "
-        f"kernel(s) for {n_dense} dense group(s) per factorization ok; "
-        f"{fact['kernels']} device kernels a factorization, "
-        f"{out['solve']['kernels']} a solve (profiler windows: "
-        f"{fact['profiler_tries']})")
+    fact, eager = out["factorize"], out["eager_factorize"]
+    log(f"profile: steps one by one: {eager['level_run_kernels']} run-kernel "
+        f"device kernel(s) for {n_runs} run(s) and "
+        f"{eager['dense_lu_kernels']} dense-LU device kernel(s) for {n_dense} "
+        f"dense group(s) per factorization ok; {eager['kernels']} device "
+        f"kernels a factorization, {out['eager_solve'].get('kernels')} a "
+        f"solve; one replay: {fact.get('kernels')} device kernels a "
+        f"factorization ({fact.get('level_run_kernels')} run, "
+        f"{fact.get('dense_lu_kernels')} dense-LU), "
+        f"{out['solve'].get('kernels')} a solve; busy share factorize "
+        f"{fact.get('device_busy_share')}, solve "
+        f"{out['solve'].get('device_busy_share')}")
     return out
+
+
+def robust_k1_entry(dev, clock, rec_k1, report):
+    """K1's robust instantiation on the recorded run of grid64's
+    static-pivot factorization (its tau): kernel against plain version bit
+    for bit and bump for bump, times of kernel, plain version and the
+    library route (per level, ``perturb_diags`` and the per-level eager
+    steps with one ``scatter_add_``)."""
+    from repro_torch.kernels import level_run
+    from repro_torch.kernels.ops import perturb_diags
+    from repro_torch.kernels.ref import level_run_ref
+
+    (v0, run, (tau, _)), = rec_k1
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    got, want = v0.clone(), v0.clone()
+    c_got, c_want = count.clone(), count.clone()
+    level_run(got, run, tau, c_got)
+    level_run_ref(want, run, tau, c_want)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got, want) and int(c_got) == int(c_want), \
+        ("robust K1 differs from its plain version on the path's run",
+         (got - want).abs().max().item(), int(c_got), int(c_want))
+    buf = v0.clone()
+    copy_ms = clock.ms(lambda: buf.copy_(v0), reps=20)
+    levels = run.ref_levels()
+
+    def library_route(vals, c):
+        for lidx, uidx, _, slots, _, ni, nd, diag in levels:
+            c += perturb_diags(vals, diag, tau)[1]
+            vals[ni] = vals[ni] / vals[nd]
+            vals.scatter_add_(0, slots, -(vals[lidx] * vals[uidx]))
+
+    def timed(fn, reps):
+        def call():
+            buf.copy_(v0)
+            count.zero_()
+            fn(buf, count)
+        return max(clock.ms(call, reps=reps) - copy_ms, 0.0)
+
+    n_bytes, n_ops = _k1_bound(run, v0.element_size(), 1, int(c_got))
+    ent = dict(name="level_run_robust", route="cuda",
+               source="src/repro_torch/kernels/csrc/level_run.cu",
+               replaces="src/repro/kernels/level_update.py:60",
+               launches=report["k1_launches"], max_abs_err=0.0,
+               ms=timed(lambda v, c: level_run(v, run, tau, c), 20),
+               plain_ms=timed(lambda v, c: level_run_ref(v, run, tau, c), 3),
+               **_bound(n_bytes, n_ops),
+               library_ms=timed(library_route, 10))
+    ent.update(matrix=report["matrix"], levels=run.n_levels,
+               updates=run.n_updates, bumps=int(c_got), bytes=n_bytes,
+               operations=n_ops, copy_ms=copy_ms,
+               ratio_to_library=ent["ms"] / ent["library_ms"],
+               library="per level perturb_diags + the eager steps, one "
+                       "scatter_add_ a level",
+               also_replaces="src/repro/kernels/ops.py:220 "
+                             "(_perturb_diags_body, per level)")
+    log(f"{report['matrix']}: level_run robust ({run.n_levels} levels, "
+        f"{int(c_got)} bumps at tau={float(tau):.3e}) {ent['ms']:.4f} ms, "
+        f"bit-identical to the plain version ({ent['plain_ms']:.3f} ms); "
+        f"library route {ent['library_ms']:.4f} ms; bound "
+        f"{ent['bound_ms']:.5f} ms ({ent['bound_by']})")
+    return ent
+
+
+def drive_static_pivot(dev, clock):
+    """Phase 7: ``GLU(grid64, static_pivot=...)``, replays against the steps
+    one by one, and the robust K1 on the path's recorded run."""
+    from repro_torch import GLU
+
+    A = make_matrix("grid64")
+    rng = np.random.default_rng(SEED + 1)
+    b = rng.normal(size=A.n)
+    reset_counts()
+    g = GLU(A, static_pivot=PIVOT_EPS)
+    x = g.factorize().solve(b)
+    torch.cuda.synchronize(dev)
+    k1, k2, _ = launch_counts()
+    runs = g._factorizer.step_kinds.count("run")
+    assert k1 == runs == 1 and k2 == 1, (k1, k2)
+    assert g.residual(b, x) < 1e-9
+    log(f"static pivot: grid64 path K1 launches={k1} (robust instantiation), "
+        f"K2 launches={k2}, n_perturbed={g.solve_info['n_perturbed']}")
+    report = {"matrix": "grid64", "k1_launches": k1, "static_pivot": {}}
+    S = A.to_scipy()
+    for eps in (PIVOT_EPS, PIVOT_EPS_BUMPS):
+        g = GLU(A, static_pivot=eps)
+        ge = GLU(A, static_pivot=eps, jit_schedule=False)
+        counts = []
+        for i, new in enumerate([np.asarray(A.data)]
+                                + [newton_values(A, rng) for _ in range(3)]):
+            x, xe = g.factorize(new).solve(b), ge.factorize(new).solve(b)
+            info, einfo = g.solve_info, ge.solve_info
+            assert torch.equal(g.factorized_values(), ge.factorized_values())
+            assert x.tobytes() == xe.tobytes(), (eps, i)
+            assert info["n_perturbed"] == einfo["n_perturbed"], (eps, i)
+            if i:
+                assert info["n_dispatches"] == info["solve_dispatches"] == 1
+            S.data = new
+            res = float(np.abs(S @ x - b).max() / np.abs(b).max())
+            if eps == PIVOT_EPS:
+                assert res < 1e-9 and info["n_perturbed"] == 0, (res, info)
+            else:
+                assert info["n_perturbed"] > 0 and np.isfinite(x).all()
+            counts.append(info["n_perturbed"])
+        report["static_pivot"][str(eps)] = dict(n_perturbed=counts)
+        log(f"static pivot eps={eps:g}: 4 factorizations and solves, one "
+            f"replay each, bit-identical to the steps one by one, bumps "
+            f"{counts} (equal)")
+        if eps == PIVOT_EPS:
+            rec = record_kernel_inputs(ge, np.asarray(A.data))
+            t_fact = clock.ms(g._factorizer.run, reps=20)
+            t_eager = clock.ms(ge._factorizer.run, reps=10)
+            report.update(factorize_ms=t_fact, eager_factorize_ms=t_eager)
+            log(f"static pivot eps={eps:g}: grid64 factorize {t_fact:.4f} ms "
+                f"one replay, {t_eager:.4f} ms steps one by one")
+    return report, robust_k1_entry(dev, clock, rec["k1"], report)
+
+
+def newton_breakdown(dev, ckt, g, volts, dt):
+    """Per Newton iterate, the parts of ``GLU.factorize`` + ``GLU.solve``
+    as the transient loop calls them (refine=1), each timed alone: numpy
+    assembly, host preparation (scaling and permutation of values and
+    right-hand side), host-to-device copies, the factorization replay
+    (CUDA events), the |A| pass and the solve's replays with their one
+    device-to-host read of the stopping test (CUDA events), and the
+    solution's device-to-host copy.  Iterates: the run's own time points,
+    at their converged voltages."""
+    fz, sv = g._factorizer, g._solver
+    rows = []
+    for s in range(1, len(volts)):
+        t0 = time.perf_counter()
+        vals, rhs = ckt.assemble(volts[s], volts[s - 1], dt, s * dt)
+        t1 = time.perf_counter()
+        data = (vals * g._scale_data)[g._data_perm]
+        bp = (rhs * g.Dr)[g._inv_row]
+        t2 = time.perf_counter()
+        fz.load(data)
+        b_dev = torch.from_numpy(bp).to(dev)
+        torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        vals_dev = fz.run()
+        ev[1].record()
+        ev[2].record()
+        torch.abs(g._a_vals, out=g._a_abs)
+        x, _ = sv.solve_refined(vals_dev, b_dev, g._spmv_rows, g._spmv_cols,
+                                g._a_vals, g._a_abs, max_iter=1,
+                                tol=g.refine_tol)
+        ev[3].record()
+        torch.cuda.synchronize(dev)
+        t4 = time.perf_counter()
+        xh = x.cpu().numpy()[g.col_map] * g.Dc
+        t5 = time.perf_counter()
+        assert np.isfinite(xh).all()
+        rows.append(dict(assembly_ms=(t1 - t0) * 1e3,
+                         host_prep_ms=(t2 - t1) * 1e3,
+                         h2d_ms=(t3 - t2) * 1e3,
+                         factorize_replay_ms=ev[0].elapsed_time(ev[1]),
+                         solve_replays_ms=ev[2].elapsed_time(ev[3]),
+                         solve_host_ms=(t4 - t3) * 1e3,
+                         d2h_ms=(t5 - t4) * 1e3))
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def drive_transient(dev):
+    """Phase 8: the Newton transient on the card at grid64's width."""
+    from repro_torch import GLU
+    from repro_torch.circuit import rc_grid_circuit, transient
+    from repro_torch.sparse import CSC
+
+    c = TRANSIENT
+    ckt = rc_grid_circuit(c["nx"], c["ny"], with_diodes=True, seed=0)
+    kw = dict(t_end=c["t_end"], dt=c["dt"], refine=c["refine"])
+    reset_counts()
+    t0 = time.perf_counter()
+    res = transient(ckt, **kw)
+    wall_s = time.perf_counter() - t0
+    k1, k2, _ = launch_counts()
+    eager = transient(ckt, jit_schedule=False, **kw)
+    n_fact = res.n_factorizations
+    log(f"transient: n={ckt.n}, {len(res.times)} time steps, Newton iterates "
+        f"{res.newton_iters.tolist()}, {n_fact} factorizations, K1 launches "
+        f"{k1}, K2 launches {k2}, max_residual {res.max_residual:.3e}, "
+        f"ladder {res.ladder_counts}; setup {res.setup_seconds:.3f} s, loop "
+        f"{res.solve_seconds:.3f} s ({res.solve_seconds / n_fact * 1e3:.3f} "
+        f"ms an iterate; steps one by one: {eager.solve_seconds:.3f} s, "
+        f"{eager.solve_seconds / eager.n_factorizations * 1e3:.3f} ms)")
+    # the driver's GLU, built again with its options (a plan-cache hit):
+    # its steps, and the breakdown below
+    pat = ckt.pattern()
+    v0 = np.zeros(ckt.n)
+    g = GLU(CSC(pat.n, pat.indptr, pat.indices,
+                ckt.assemble(v0, v0, c["dt"], 0.0)[0]), refine=c["refine"])
+    steps = g._factorizer.step_kinds
+    assert res.max_residual < 1e-8, res.max_residual
+    assert np.isfinite(res.voltages).all()
+    assert res.voltages.shape == (len(res.times), ckt.n)
+    assert n_fact == res.newton_iters.sum()
+    assert steps.count("run") >= 1 and k1 == steps.count("run") * n_fact \
+        and k2 == steps.count("dense") * n_fact, (k1, k2, n_fact, steps)
+    assert res.ladder_counts == dict(refactorize=n_fact, rescale=0, bump=0,
+                                     replan=0), res.ladder_counts
+    assert res.voltages.tobytes() == eager.voltages.tobytes()
+    assert eager.n_factorizations == n_fact
+    log(f"transient: steps {steps}; voltages bit-identical to the run with "
+        "the steps one by one ok")
+    g.factorize()
+    g.solve(np.ones(ckt.n))            # captures the refined solve's graphs
+    volts = np.concatenate([v0[None], res.voltages])
+    breakdown = newton_breakdown(dev, ckt, g, volts, c["dt"])
+    log("transient: per Newton iterate (medians over the run's time points): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in breakdown.items()))
+    # the same run on the warmed GLU: the loop without the first calls'
+    # eager steps and captures
+    steady = transient(ckt, glu=g, **kw)
+    assert steady.voltages.tobytes() == res.voltages.tobytes()
+    steady_ms = steady.solve_seconds / steady.n_factorizations * 1e3
+    log(f"transient: on a GLU whose graphs are captured: loop "
+        f"{steady.solve_seconds:.3f} s, {steady_ms:.3f} ms an iterate, "
+        "voltages bit-identical")
+    return dict(n=ckt.n, steps=len(res.times),
+                newton_iters=res.newton_iters.tolist(),
+                n_factorizations=n_fact, k1_launches=k1, k2_launches=k2,
+                max_residual=res.max_residual, setup_s=res.setup_seconds,
+                loop_s=res.solve_seconds, wall_s=wall_s,
+                iterate_ms=res.solve_seconds / n_fact * 1e3,
+                eager_loop_s=eager.solve_seconds,
+                eager_iterate_ms=eager.solve_seconds
+                / eager.n_factorizations * 1e3,
+                steady_loop_s=steady.solve_seconds, steady_iterate_ms=steady_ms,
+                breakdown=breakdown)
 
 
 def main() -> int:
@@ -712,24 +1094,34 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     entries = []
     for name, want_k1, want_k2, want_k3 in MATRICES:
-        report, rec, g = drive_matrix(dev, clock, name, want_k1, want_k2,
-                                      want_k3)
+        report, rec, g, ge = drive_matrix(dev, clock, name, want_k1, want_k2,
+                                          want_k3)
         ents = kernel_entries(dev, clock, rec, report)
         report["kernels"] = ents
-        report["profile"] = profile_path(dev, clock, g)
-        # K1 runs once per run, K2 and K3 once per dense group: the
+        report["profile"] = profile_path(dev, clock, g, ge)
+        # K1 runs once per run, K2 and K3 once per dense group: the eager
         # factorization's count of their device kernels over their launches
         # is kernels per call
-        fact = report["profile"]["factorize"]
+        fact = report["profile"]["eager_factorize"]
         for e in ents:
             key = ("level_run_kernels" if e["name"] == "level_run"
                    else "dense_lu_kernels")
             e["device_kernels_per_call"] = fact[key] / e["launches"]
         entries += ents
         log(json.dumps({"matrix_report": report}))
-        del rec, g
+        del rec, g, ge
+
+    # 7. static pivoting
+    pivot_report, robust = drive_static_pivot(dev, clock)
+    entries.append(robust)
+    log(json.dumps({"static_pivot_report": pivot_report}))
+
+    # 8. the Newton transient
+    log(json.dumps({"transient_report": drive_transient(dev)}))
+
     names = {e["name"] for e in entries}
-    assert names == {"level_run", "dense_lu", "dense_lu_planar"}, names
+    assert names == {"level_run", "level_run_robust", "dense_lu",
+                     "dense_lu_planar"}, names
     log(f"peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(f"card: {card}")

@@ -1,0 +1,253 @@
+"""Transient circuit simulation driver: the paper's end-to-end application.
+
+Backward-Euler time stepping with Newton-Raphson at each step.  The GLU
+symbolic plan is built ONCE; every Newton iterate only refactorizes new
+values on the fixed pattern — the workload GLU3.0 accelerates ("the
+numeric factorization on GPU might be repeated many times when solving a
+nonlinear equation with Newton-Raphson method").  On the card each
+refactorization is one CUDA-graph replay, and so is each solve (a refined
+solve: one replay for the solve and one per chunk of refinement sweeps);
+per iterate the host assembles values and right-hand side in numpy, copies
+them to the card and reads the solution back.
+
+Degraded factorizations are handled by the adaptive refactorization ladder
+(:mod:`.ladder`): the driver escalates refactorize -> re-scale ->
+static-pivot bump -> full replan, climbing only as far as the diagnostics
+demand (``escalation="rescale"`` selects the single-rebuild behaviour,
+``"none"`` disables recovery).  Rebuilds construct a fresh ``GLU`` on the
+same pattern, so the re-scale and bump rungs are plan-cache hits
+(``plan_cache_hits``); only the replan rung bypasses the cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.api import GLU
+from ..sparse.csc import CSC
+from .ladder import RUNGS, LadderConfig, RefactorizationLadder
+from .mna import Circuit
+
+__all__ = ["TransientResult", "transient", "A_mul"]
+
+
+def _empty_ladder_counts() -> dict:
+    return {name: 0 for name in RUNGS}
+
+
+def _make_ladder(escalation, config: Optional[LadderConfig]):
+    if escalation == "ladder":
+        return RefactorizationLadder(config)
+    if escalation in ("rescale", "none"):
+        return None
+    raise ValueError(
+        f"escalation must be 'ladder', 'rescale' or 'none', got {escalation!r}")
+
+
+def _worst_index(glu) -> int:
+    """Representative copy of a batched factorization for a rebuild: worst
+    backward error when refinement ran, else worst pivot growth."""
+    info = glu.solve_info or {}
+    for key in ("backward_error", "pivot_growth"):
+        v = info.get(key)
+        if v is not None and np.ndim(v) > 0:
+            a = np.asarray(v, dtype=np.float64)
+            a = np.where(np.isfinite(a), a, np.inf)
+            return int(np.argmax(a))
+    return 0
+
+
+@dataclasses.dataclass
+class TransientResult:
+    times: np.ndarray           # (T,)
+    voltages: np.ndarray        # (T, n)
+    newton_iters: np.ndarray    # (T,)
+    n_factorizations: int
+    setup_seconds: float
+    solve_seconds: float
+    max_residual: float
+    n_rescalings: int = 0       # cache-served scaling rebuilds (rescale/bump rungs)
+    plan_cache_hits: int = 0    # GLU constructions served by the plan cache
+    n_full_rebuilds: int = 0    # ALL ladder-triggered rebuilds (rungs 1-3)
+    ladder_counts: Optional[dict] = None  # per-rung action counts
+
+
+def A_mul(pat, vals: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """y = A @ x for values on the circuit pattern (host-side check)."""
+    y = np.zeros(pat.n, dtype=np.result_type(vals.dtype, x.dtype, np.float64))
+    cols = np.repeat(np.arange(pat.n), np.diff(pat.indptr))
+    np.add.at(y, pat.indices, vals * x[cols])
+    return y
+
+
+def transient(
+    ckt: Circuit,
+    t_end: float,
+    dt: float,
+    newton_tol: float = 1e-9,
+    max_newton: int = 25,
+    ordering: str = "auto",
+    dtype=None,
+    glu: Optional[GLU] = None,
+    refine: Optional[int] = None,
+    refine_tol: Optional[float] = None,
+    static_pivot: Optional[float] = None,
+    mc64="scale",
+    escalation: str = "ladder",
+    ladder_config: Optional[LadderConfig] = None,
+    jit_schedule: bool = True,
+    device=None,
+) -> TransientResult:
+    """Backward-Euler + Newton transient.  ``refine=None`` (default) leaves
+    a prebuilt ``glu``'s own refinement default in charge; an explicit
+    integer — including 0 — overrides it per solve.
+
+    ``device``: ``None`` runs on the card (and raises when there is none),
+    ``"cpu"`` runs the kernels' plain PyTorch versions; ``jit_schedule``
+    is the ``GLU`` option (one CUDA-graph replay per factorization and per
+    solve on the card).  ``dtype`` defaults to ``torch.float64``.
+
+    ``escalation`` selects the recovery policy consulted after every linear
+    solve (only when this driver constructed the GLU itself — a
+    caller-supplied ``glu`` is never swapped out):
+
+    * ``"ladder"`` (default): the adaptive ladder of :mod:`.ladder` — on an
+      unhealthy diagnosis (stalled refinement, non-finite solution, or
+      excessive pivot growth when refinement is off) escalate re-scale ->
+      static-pivot bump -> full replan, one rung per retry; the rung is
+      sticky across the run and at most one top-rung retry fires per time
+      step.  Per-rung counts land in ``ladder_counts``; ``n_rescalings``
+      counts the cache-served scaling rebuilds and ``n_full_rebuilds`` all
+      ladder-triggered rebuilds.
+    * ``"rescale"``: one MC64 re-scaling rebuild per time step when
+      refinement reports non-convergence (requires ``refine > 0``).
+    * ``"none"``: never rebuild.
+    """
+    dtype = dtype or torch.float64
+    pat = ckt.pattern()
+    n = ckt.n
+
+    t0 = time.perf_counter()
+    v = np.zeros(n)
+    vals0, _ = ckt.assemble(v, v, dt, 0.0)
+
+    A0 = CSC(pat.n, pat.indptr, pat.indices, vals0)
+    glu_kwargs = dict(ordering=ordering, dtype=dtype, refine=refine or 0,
+                      refine_tol=refine_tol, static_pivot=static_pivot,
+                      mc64=mc64, jit_schedule=jit_schedule, device=device)
+    ladder = _make_ladder(escalation, ladder_config)
+    # re-scaling rebuilds only apply to a GLU this driver constructed: a
+    # caller-prebuilt solver may carry configuration (dense_tail, custom
+    # tolerances, ...) that glu_kwargs cannot reproduce, so it is never
+    # silently swapped out mid-run
+    owns_glu = glu is None
+    n_plan_hits = 0
+    if owns_glu:
+        glu = GLU(A0, **glu_kwargs)
+        n_plan_hits += int(glu.plan_from_cache)
+    setup_s = time.perf_counter() - t0
+
+    steps = int(round(t_end / dt))
+    times = np.arange(1, steps + 1) * dt
+    volts = np.zeros((steps, n))
+    iters = np.zeros(steps, dtype=np.int64)
+    n_fact = 0
+    n_rescale = 0
+    max_res = 0.0
+
+    t0 = time.perf_counter()
+    v_prev = v.copy()
+    for s, t in enumerate(times):
+        v_it = v_prev.copy()
+        rescaled_this_step = False
+        for it in range(max_newton):
+            vals, rhs = ckt.assemble(v_it, v_prev, dt, float(t))
+            glu.factorize(vals)
+            n_fact += 1
+            if ladder is not None:
+                ladder.note_refactorize()
+            # an explicit refine (including 0) wins over a prebuilt glu's
+            # own default; None defers to it
+            v_new = (glu.solve(rhs) if refine is None
+                     else glu.solve(rhs, refine=refine))
+            if ladder is not None and owns_glu:
+                # escalation ladder: climb one rung per retry while the
+                # diagnosis stays unhealthy.  The rung is sticky across the
+                # run; once at the top, at most one fresh-values retry per
+                # time step (the Newton dv test remains the step's arbiter).
+                # A numerically singular iterate (a device switched fully
+                # off) aborts the climb instead of crashing the run.
+                reason = ladder.diagnose(glu, v_new)
+                while reason is not None:
+                    if ladder.can_escalate():
+                        ladder.escalate(step=s, reason=reason)
+                    elif not rescaled_this_step:
+                        ladder.retry_at_current_rung(step=s, reason=reason)
+                    else:
+                        break
+                    rescaled_this_step = True
+                    try:
+                        glu = GLU(CSC(pat.n, pat.indptr, pat.indices, vals),
+                                  **ladder.glu_kwargs(glu_kwargs))
+                    except ValueError:
+                        break
+                    n_plan_hits += int(glu.plan_from_cache)
+                    glu.factorize(vals)
+                    n_fact += 1
+                    v_new = (glu.solve(rhs) if refine is None
+                             else glu.solve(rhs, refine=refine))
+                    reason = ladder.diagnose(glu, v_new)
+            elif (escalation == "rescale" and refine and owns_glu
+                    and not rescaled_this_step):
+                # a cheap flag read: it forces none of solve_info's
+                # deferred reductions.  Refinement stalled: the setup-time
+                # scaling no longer fits this operating point, so re-run
+                # MC64 on the current Jacobian and retry the solve, at most
+                # once per time step; a Jacobian that is numerically
+                # singular at this iterate skips the rebuild
+                if glu.refine_converged is False:
+                    rescaled_this_step = True
+                    try:
+                        glu = GLU(CSC(pat.n, pat.indptr, pat.indices, vals),
+                                  **glu_kwargs)
+                    except ValueError:
+                        pass
+                    else:
+                        n_rescale += 1
+                        n_plan_hits += int(glu.plan_from_cache)
+                        glu.factorize(vals)
+                        n_fact += 1
+                        v_new = glu.solve(rhs)
+            dv = np.abs(v_new - v_it).max()
+            v_it = v_new
+            if dv < newton_tol:
+                break
+        iters[s] = it + 1
+        # final residual check at the converged point
+        vals, rhs = ckt.assemble(v_it, v_prev, dt, float(t))
+        r = np.abs(A_mul(pat, vals, v_it) - rhs).max()
+        max_res = max(max_res, float(r))
+        volts[s] = v_it
+        v_prev = v_it
+    solve_s = time.perf_counter() - t0
+
+    counts = _empty_ladder_counts() if ladder is None else dict(ladder.counts)
+    if ladder is not None:
+        n_rescale = counts["rescale"] + counts["bump"]
+    return TransientResult(
+        times=times,
+        voltages=volts,
+        newton_iters=iters,
+        n_factorizations=n_fact,
+        setup_seconds=setup_s,
+        solve_seconds=solve_s,
+        max_residual=max_res,
+        n_rescalings=n_rescale,
+        plan_cache_hits=n_plan_hits,
+        n_full_rebuilds=0 if ladder is None else ladder.n_full_rebuilds,
+        ladder_counts=counts,
+    )

@@ -68,9 +68,19 @@ class GLU:
     ``"planar"``: K1 and K3 run on their re/im planes and callers see
     native complex.  ``layout="native"`` with a complex dtype, the JAX
     package's route off the kernels, is not ported and raises
-    ``NotImplementedError``, as do ``static_pivot``, ``mesh``,
-    ``jit_schedule=False``, ``verify`` other than ``"off"``,
-    ``rhs_pattern`` and the batched and many-right-hand-side methods.
+    ``NotImplementedError``, as do ``static_pivot`` with a complex dtype,
+    ``mesh``, ``verify`` other than ``"off"``, ``rhs_pattern`` and the
+    batched and many-right-hand-side methods.
+
+    ``jit_schedule`` (default True): on the card each factorization is one
+    CUDA-graph replay, and so is each unrefined solve (a refined one: one
+    replay for the solve, one per chunk of refinement sweeps, one
+    device-to-host read per chunk); ``False`` issues the steps one by one,
+    with the same bits.  ``executable_cache`` shares the built schedules
+    (device index tensors) between ``GLU`` objects on one plan; the graphs
+    and buffers are each object's own.  ``static_pivot``: the relative
+    threshold eps of the static pivot guard, ``|diag| < eps * max|A|``
+    bumped just before each level divides by it (real values).
 
     The JAX package's level-fusion options (``fuse_levels``,
     ``fuse_buckets``, ``bucket_waste``) have no counterpart: every level is
@@ -86,6 +96,7 @@ class GLU:
         dtype=torch.float64,
         mc64="scale",
         jit_schedule: bool = True,
+        executable_cache="default",
         panel_threshold: int = 16,
         static_pivot: Optional[float] = None,
         refine: int = 0,
@@ -98,14 +109,16 @@ class GLU:
         verify: str = "off",
         device=None,
     ):
-        _check_slice(dtype, jit_schedule, static_pivot, layout, mesh, verify)
+        _check_slice(dtype, static_pivot, layout, mesh, verify)
         plan, scaling, from_cache = plan_factorization(
             A, ordering=ordering, symbolic=symbolic, mc64=mc64,
             panel_threshold=panel_threshold, cache=plan_cache)
         self._setup(plan, scaling, A, from_cache=from_cache, dtype=dtype,
                     layout=layout, refine=refine,
                     refine_tol=refine_tol, dense_tail=dense_tail,
-                    dense_tail_density=dense_tail_density, device=device)
+                    dense_tail_density=dense_tail_density, device=device,
+                    static_pivot=static_pivot, jit_schedule=jit_schedule,
+                    executable_cache=executable_cache)
 
     @classmethod
     def from_plan(
@@ -115,6 +128,7 @@ class GLU:
         dtype=torch.float64,
         mc64="scale",
         jit_schedule: bool = True,
+        executable_cache="default",
         static_pivot: Optional[float] = None,
         refine: int = 0,
         refine_tol: Optional[float] = None,
@@ -129,7 +143,7 @@ class GLU:
         symbolic work.  ``A`` must carry the plan's pattern, and the MC64
         matching of its values must reproduce ``plan.row_perm``; raises
         ``ValueError`` otherwise."""
-        _check_slice(dtype, jit_schedule, static_pivot, layout, mesh, verify)
+        _check_slice(dtype, static_pivot, layout, mesh, verify)
         if not plan.matches_pattern(A):
             raise ValueError("matrix pattern differs from the plan's pattern")
         scaling = compute_scaling(A, mc64)
@@ -141,13 +155,17 @@ class GLU:
         self._setup(plan, scaling, A, from_cache=True, dtype=dtype,
                     layout=layout, refine=refine,
                     refine_tol=refine_tol, dense_tail=dense_tail,
-                    dense_tail_density=dense_tail_density, device=device)
+                    dense_tail_density=dense_tail_density, device=device,
+                    static_pivot=static_pivot, jit_schedule=jit_schedule,
+                    executable_cache=executable_cache)
         return self
 
     def _setup(self, plan: SymbolicPlan, scaling: MC64Scaling, A: CSC,
                from_cache: bool, dtype, layout: str, refine: int,
                refine_tol: Optional[float],
-               dense_tail: bool, dense_tail_density: float, device) -> None:
+               dense_tail: bool, dense_tail_density: float, device,
+               static_pivot: Optional[float], jit_schedule: bool,
+               executable_cache) -> None:
         self.device = resolve_device(device)
         self.dtype = resolve_value_dtype(dtype, self.device)
         self.n = A.n
@@ -176,14 +194,25 @@ class GLU:
         self.pattern = plan.pattern
         self.levelization = plan.levelization
         self.plan = plan.fplan
+        self.static_pivot = static_pivot
+        self.jit_schedule = bool(jit_schedule)
         self._factorizer = TorchFactorizer(
             self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail,
-            dense_tail_density=dense_tail_density, layout=layout)
+            dense_tail_density=dense_tail_density, layout=layout,
+            static_pivot=static_pivot, jit_schedule=jit_schedule,
+            executable_cache=executable_cache)
         self.layout = self._factorizer.layout
-        self._solver = TorchTriangularSolver(self.plan, device=dev)
+        self._solver = TorchTriangularSolver(
+            self.plan, device=dev, jit_schedule=jit_schedule,
+            executable_cache=executable_cache)
         self._vals: Optional[torch.Tensor] = None
-        self._a_vals: Optional[torch.Tensor] = None
-        self._a_abs: Optional[torch.Tensor] = None
+        # A's values on the device: the factorizer's static input buffer,
+        # and |A| for refinement, refreshed on the first refined solve
+        # after each factorization
+        self._a_vals = self._factorizer.a_values
+        self._a_abs = torch.empty_like(self._a_vals,
+                                       dtype=self._a_vals.real.dtype)
+        self._a_abs_stale = True
         self.refine_default = int(refine)
         # 4 ulp of the value dtype (of its plane dtype for complex values)
         self.refine_tol = (float(refine_tol) if refine_tol is not None
@@ -201,9 +230,9 @@ class GLU:
             data = np.asarray(a_data)[self._data_perm]
         else:
             data = (np.asarray(a_data) * self._scale_data)[self._data_perm]
-        self._a_vals = torch.as_tensor(data, dtype=self.dtype, device=self.device)
-        self._a_abs = None                     # built on the first refined solve
-        self._vals = self._factorizer.factorize(self._a_vals)
+        self._factorizer.load(data)
+        self._a_abs_stale = True
+        self._vals = self._factorizer.run()
         self._stats_pending = True
         self._info = self._base_info()
         self._info["n_dispatches"] = self._factorizer.last_n_dispatches
@@ -211,10 +240,11 @@ class GLU:
 
     def factorized_values(self) -> torch.Tensor:
         """Factored (nnz,) values in the plan's filled pattern, in the
-        native value dtype (complex values as a complex tensor)."""
+        native value dtype (complex values as a complex tensor): a copy,
+        which later factorizations leave as it is."""
         if self._vals is None:
             raise RuntimeError("call factorize() first")
-        return self._vals
+        return self._vals.clone()
 
     def solve(self, b, refine: Optional[int] = None,
               rhs_pattern=None) -> np.ndarray:
@@ -226,9 +256,12 @@ class GLU:
             self.factorize()
         k = self.refine_default if refine is None else int(refine)
         bp = (np.asarray(b) * self.Dr)[self._inv_row]
+        abs_steps = 0
         if k > 0:
-            if self._a_abs is None:
-                self._a_abs = self._a_vals.abs()
+            if self._a_abs_stale:
+                torch.abs(self._a_vals, out=self._a_abs)
+                self._a_abs_stale = False
+                abs_steps = 1
             xp, rinfo = self._solver.solve_refined(
                 self._vals, bp, self._spmv_rows, self._spmv_cols,
                 self._a_vals, self._a_abs, max_iter=k, tol=self.refine_tol)
@@ -239,8 +272,19 @@ class GLU:
         if self._info is None:
             self._info = self._base_info()
         self._info.update(rinfo)
-        self._info["solve_dispatches"] = self._solver.last_n_dispatches
+        self._info["solve_dispatches"] = (self._solver.last_n_dispatches
+                                          + abs_steps)
         return xp.cpu().numpy()[self.col_map] * self.Dc
+
+    @property
+    def refine_converged(self) -> Optional[bool]:
+        """Convergence flag (and nothing else) of the latest refined solve,
+        or None when the last solve ran unrefined.  Unlike ``solve_info``
+        it forces none of the deferred device reductions, so the Newton
+        loop can poll it every iterate."""
+        if self._info is None:
+            return None
+        return self._info.get("converged")
 
     def _base_info(self) -> dict:
         return {"batched": False, "pivot_growth": None, "min_diag": None,
@@ -272,7 +316,9 @@ class GLU:
         steps: for a factorization the entry scatter, one per flat level,
         one per run of consecutive K1 levels (one kernel launch each) and
         one for the dense tail (grid64 9, rajat12_like 6); ``n_groups``
-        counts the factorization's steps."""
+        counts the factorization's steps.  ``n_perturbed`` is the static
+        pivot guard's bump count (None when the guard is off), read from
+        the device here, like the growth and the smallest diagonal."""
         if self._info is None:
             return None
         if self._stats_pending:
@@ -281,8 +327,11 @@ class GLU:
             a_max = self._a_vals.abs().max()
             growth, min_diag = factor_stats(self._vals,
                                             self._factorizer._diag_idx, a_max)
+            n_pert = self._factorizer.last_n_perturbed
             self._info.update(pivot_growth=growth.item(),
-                              min_diag=min_diag.item())
+                              min_diag=min_diag.item(),
+                              n_perturbed=None if n_pert is None
+                              else int(n_pert.item()))
             self._stats_pending = False
         return dict(self._info)
 
@@ -300,10 +349,12 @@ class GLU:
         return float(np.abs(r).max() / (np.abs(b).max() + 1e-300))
 
 
-def _check_slice(dtype, jit_schedule, static_pivot, layout, mesh, verify):
+def _check_slice(dtype, static_pivot, layout, mesh, verify):
     """Refuse what this package does not run before any planning work."""
     ported_layout(layout, dtype)
-    _not_ported("jit_schedule", jit_schedule, True)
-    _not_ported("static_pivot", static_pivot, None)
+    if static_pivot is not None and value_dtype(dtype).is_complex:
+        raise NotImplementedError(
+            "static_pivot with complex values is not ported to the PyTorch "
+            "package yet")
     _not_ported("mesh", mesh, None)
     _not_ported("verify", verify, "off")

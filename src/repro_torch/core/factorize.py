@@ -39,6 +39,7 @@ plane tile.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,9 +47,10 @@ import torch
 from ..device import resolve_device
 from ..kernels.dense_lu import BLOCK, dense_lu, dense_lu_planar
 from ..kernels.level_update import LevelRun, level_run
-from ..kernels.ops import add_in_rounds_, round_order
+from ..kernels.ops import add_in_rounds_, perturb_diags, round_order
 from ..sparse.csc import csc_transpose_pattern
 from ..sparse.layout import ValueLayout, resolve_layout
+from .executor import CapturedSchedule, resolve_executable_cache
 from .plan import MODE_PANEL, MODE_SEGMENTED, FactorizePlan
 from .symbolic import FilledPattern
 
@@ -208,14 +210,17 @@ def _build_pallas_layout(plan: FactorizePlan, seg, pad_key: int):
     )
 
 
-def _build_run_layout(plan: FactorizePlan, segs, device) -> LevelRun:
+def _build_run_layout(plan: FactorizePlan, segs, device,
+                      diag=None) -> LevelRun:
     """The packed layout of one run of consecutive K1 levels ``segs`` (see
     ``kernels.level_update.LevelRun``): per level its normalization and
     destination-row ranges, per row (one destination column of the level)
     its segment ``vals[col_start : col_start + col_len]`` and update range,
     per update ``lidx, uidx, ldiag, dpos`` in the plan's order.  The
     levels' updates and normalization entries are contiguous in the plan,
-    so the run slices them once.  ``LevelRun`` checks that every index fits
+    so the run slices them once.  ``diag`` is ``(diag_ptr, diag_idx)``,
+    each level's column diagonals for static pivoting.  ``LevelRun``
+    checks that every index fits
     in int32 and the invariants that make one grid barrier a level safe,
     and raises ``ValueError`` on a plan that breaks them."""
     u0, u1 = segs[0].upd_slice.start, segs[-1].upd_slice.stop
@@ -241,7 +246,7 @@ def _build_run_layout(plan: FactorizePlan, segs, device) -> LevelRun:
                         row_ptr[i], row_ptr[i + 1], 0, 0)
                        for i, s in enumerate(segs)])
     norm = np.stack([plan.norm_idx[n0:n1], plan.norm_diag[n0:n1]], axis=1)
-    return LevelRun(levels, rows, upd, norm, plan.nnz, device)
+    return LevelRun(levels, rows, upd, norm, plan.nnz, device, diag=diag)
 
 
 def _find_dense_tail(plan: FactorizePlan, min_size: int = 64,
@@ -309,6 +314,8 @@ class _Group:
     kind: str      # "flat" | "run" | "dense"
     arrays: tuple  # flat: device tensors and the level's round bounds;
                    # run: (LevelRun,); dense: the tail's positions
+    diag: Optional[torch.Tensor] = None  # flat, dense: the column diagonals
+                   # static pivoting bumps first (a run carries its own)
 
 
 # --------------------------------------------------------------------------
@@ -331,7 +338,7 @@ def _dense_tail_step(vals, tail_vidx, tail_flat, eye_flat, Np: int):
     real positions back."""
     dense = torch.zeros(Np * Np, dtype=vals.dtype, device=vals.device)
     dense[tail_flat] = vals[tail_vidx]
-    dense[eye_flat] = 1.0
+    dense.index_fill_(0, eye_flat, 1.0)
     lu = dense_lu(dense.view(Np, Np))
     vals[tail_vidx] = lu.view(-1)[tail_flat]
     return vals
@@ -345,10 +352,103 @@ def _dense_tail_step_planar(vals, tail_vidx, tail_flat, eye_flat, Np: int):
     planes = torch.zeros((2, Np * Np), dtype=vals.real.dtype,
                          device=vals.device)
     planes[:, tail_flat] = torch.view_as_real(vals[tail_vidx]).T
-    planes[0, eye_flat] = 1.0
+    planes[0].index_fill_(0, eye_flat, 1.0)
     lu = dense_lu_planar(planes.view(2, Np, Np)).view(2, Np * Np)
     vals[tail_vidx] = torch.complex(lu[0, tail_flat], lu[1, tail_flat])
     return vals
+
+
+def _level_cut(plan: FactorizePlan, dense_tail: bool, density: float):
+    """``(level_cut, c_star)``: the first level the dense tail replaces and
+    its first column, or ``(num_levels, None)`` without a tail."""
+    found = _find_dense_tail(plan, density=density) if dense_tail else None
+    return found if found is not None else (plan.num_levels, None)
+
+
+def _schedule_kinds(plan: FactorizePlan, level_cut: int, has_tail: bool):
+    """One kind per level in the reference's vocabulary ("flat", "pallas"),
+    then "dense" for the tail."""
+    kinds = []
+    for seg in plan.segments:
+        if seg.level >= level_cut:
+            break  # replaced by the dense trailing block
+        kinds.append("pallas" if seg.mode in (MODE_SEGMENTED, MODE_PANEL)
+                     and seg.n_upd else "flat")
+    return tuple(kinds) + (("dense",) if has_tail else ())
+
+
+class _Schedule:
+    """The built steps of one plan on one device: every device index
+    tensor the factorization reads (the flat levels' triples in round
+    order, the K1 runs' ``LevelRun`` layouts, the dense tail's position
+    lists and each step's column diagonals).  Independent of the values
+    and of the executor instance, so the process-wide
+    :class:`~.executor.ExecutableCache` shares it between executors on one
+    plan."""
+
+    def __init__(self, plan: FactorizePlan, kinds, level_cut: int, c_star,
+                 planar: bool, device):
+        dev = device
+
+        def idx(a, dtype=torch.int64):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        self.a_scatter = idx(plan.a_scatter)
+        self.diag_idx = idx(plan.diag_idx)
+        self.dense_tail_info = None
+        groups: list[_Group] = []
+        run: list = []
+
+        def end_run():
+            if run:
+                ptr = np.cumsum([0] + [len(s.cols) for s in run])
+                diag = plan.diag_idx[np.concatenate([s.cols for s in run])]
+                groups.append(_Group("run", (_build_run_layout(
+                    plan, run, dev, diag=(ptr, diag)),)))
+                run.clear()
+
+        for seg, kind in zip(plan.segments, kinds):
+            if kind == "dense":
+                break
+            if kind == "pallas":
+                run.append(seg)
+                continue
+            end_run()
+            ns, us = seg.norm_slice, seg.upd_slice
+            perm, bounds = round_order(plan.didx[us])
+            groups.append(_Group("flat", (
+                idx(plan.norm_idx[ns]), idx(plan.norm_diag[ns]),
+                idx(plan.lidx[us][perm]), idx(plan.uidx[us][perm]),
+                idx(plan.didx[us][perm]), bounds),
+                diag=idx(plan.diag_idx[seg.cols])))
+        end_run()
+        if c_star is not None:
+            tv, tf, ef, Np = _build_dense_tail(plan, c_star)
+            self.dense_tail_info = dict(level_cut=level_cut, c_star=c_star,
+                                        size=plan.n - c_star, padded=Np)
+            groups.append(_Group("dense", (idx(tv), idx(tf), idx(ef), Np),
+                                 diag=idx(plan.diag_idx[c_star:])))
+        self.groups = groups
+        self.step = {
+            "flat": _level_step,
+            "run": level_run,
+            "dense": _dense_tail_step_planar if planar else _dense_tail_step,
+        }
+
+    def run(self, vals, tau=None, count=None) -> None:
+        """Every step in order, in place on the filled value array.  With
+        ``tau`` and ``count`` (static pivoting) each step first bumps its
+        column diagonals below ``tau`` and adds the bumps into ``count``:
+        a flat level and the dense tail through ``perturb_diags``, a K1 run
+        inside its kernel, once per level."""
+        for g in self.groups:
+            if tau is None:
+                self.step[g.kind](vals, *g.arrays)
+            elif g.kind == "run":
+                level_run(vals, *g.arrays, tau, count)
+            else:
+                count += perturb_diags(vals, g.diag, tau)[1]
+                self.step[g.kind](vals, *g.arrays)
 
 
 class TorchFactorizer:
@@ -369,16 +469,37 @@ class TorchFactorizer:
         ``NotImplementedError``.
     dense_tail / dense_tail_density: switch-to-dense for a dense-enough
         trailing column block, as in the JAX package.
+    static_pivot: relative threshold eps of the static pivot guard: after
+        the entry scatter ``tau = eps * max|A|`` is computed on the device,
+        and each step bumps its column diagonals below ``tau`` just before
+        it divides by them (a K1 run once per level, inside the kernel).
+        Real values only: complex ones raise ``NotImplementedError``.
+        ``last_n_perturbed`` is then the bump count, a 0-d int32 device
+        tensor.
+    jit_schedule: on the card, the whole factorization (entry scatter,
+        flat levels, K1 runs, dense tail) is one CUDA-graph replay
+        (:class:`~.executor.CapturedSchedule`); ``False`` issues its steps
+        one by one.  The two give the same bits.  On the CPU the steps
+        always run one by one.
+    executable_cache: where the built steps are cached: ``"default"`` (the
+        process-wide cache), an :class:`~.executor.ExecutableCache`, or
+        ``None`` (a private one).
 
     The steps, in the JAX package's order: one per flat level, one per
     maximal run of consecutive K1 levels (the counterpart of the JAX
     package's ``lax.scan`` over levels), and the dense tail.  ``kinds``
     lists one entry per level in the JAX package's vocabulary ("flat",
-    "pallas", then "dense" for the tail); ``step_kinds`` lists the
-    host-issued steps ("flat", "run", "dense") and ``n_groups`` counts
-    them; ``last_n_dispatches`` is the number of host-issued steps of the
-    latest factorization (the entry scatter plus one per step: grid64 9,
-    rajat12_like 6).
+    "pallas", then "dense" for the tail); ``step_kinds`` lists the steps
+    ("flat", "run", "dense") and ``n_groups`` counts them.
+    ``last_n_dispatches`` is the number of dispatches of the latest
+    factorization: 1 for a replay; when the steps run one by one (the CPU,
+    ``jit_schedule=False``, and the card's first factorization, which runs
+    them eagerly while it warms up the graph), the entry scatter plus one
+    per step (grid64 9, rajat12_like 6).
+
+    The factorizer owns static buffers: the A values (``a_values``) and
+    the filled values.  :meth:`factorize` returns a view of the latter,
+    which the next factorization overwrites.
     """
 
     def __init__(
@@ -389,98 +510,130 @@ class TorchFactorizer:
         dense_tail: bool = True,
         dense_tail_density: float = 0.25,
         layout: str = "auto",
+        static_pivot: Optional[float] = None,
+        jit_schedule: bool = True,
+        executable_cache="default",
     ):
         self.plan = plan
         self.device = resolve_device(device)
         self.dtype = value_dtype(dtype)
         self.layout = ported_layout(layout, self.dtype)
+        if static_pivot is not None and self.dtype.is_complex:
+            raise NotImplementedError(
+                "static_pivot with complex values is not ported to the "
+                "PyTorch package yet")
+        self.static_pivot = static_pivot
+        self.jit_schedule = bool(jit_schedule)
         self.kernels_disabled_reason = (
             None if self.device.type == "cuda" else
             "device='cpu' runs the plain PyTorch versions of the kernels")
         self.nnz = plan.nnz
-        dev = self.device
-
-        def idx(a, dtype=torch.int64):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
-        self._a_scatter = idx(plan.a_scatter)
-        self._diag_idx = idx(plan.diag_idx)
-
-        self.dense_tail_info = None
-        level_cut = plan.num_levels
-        if dense_tail:
-            found = _find_dense_tail(plan, density=dense_tail_density)
-            if found is not None:
-                level_cut, c_star = found
-                tv, tf, ef, Np = _build_dense_tail(plan, c_star)
-                self.dense_tail_info = dict(level_cut=level_cut, c_star=c_star,
-                                            size=plan.n - c_star, padded=Np)
-                self._dense_tail = (idx(tv), idx(tf), idx(ef), Np)
-
-        groups: list[_Group] = []
-        kinds: list[str] = []
-        run: list = []
-
-        def end_run():
-            if run:
-                groups.append(_Group("run", (_build_run_layout(plan, run, dev),)))
-                run.clear()
-
-        for seg in plan.segments:
-            if seg.level >= level_cut:
-                break  # replaced by the dense trailing block
-            if seg.mode in (MODE_SEGMENTED, MODE_PANEL) and seg.n_upd:
-                run.append(seg)
-                kinds.append("pallas")
-                continue
-            end_run()
-            ns, us = seg.norm_slice, seg.upd_slice
-            perm, bounds = round_order(plan.didx[us])
-            groups.append(_Group("flat", (
-                idx(plan.norm_idx[ns]), idx(plan.norm_diag[ns]),
-                idx(plan.lidx[us][perm]), idx(plan.uidx[us][perm]),
-                idx(plan.didx[us][perm]), bounds)))
-            kinds.append("flat")
-        end_run()
-        if self.dense_tail_info is not None:
-            groups.append(_Group(kind="dense", arrays=self._dense_tail))
-            kinds.append("dense")
-        self._groups = groups
-        self._step = {
-            "flat": _level_step,
-            "run": level_run,
-            "dense": (_dense_tail_step_planar if self.layout.planar
-                      else _dense_tail_step),
-        }
-        self._kinds = tuple(kinds)
-        self.step_kinds = tuple(g.kind for g in groups)
-        self.n_groups = len(groups)
+        level_cut, c_star = _level_cut(plan, dense_tail, dense_tail_density)
+        self._kinds = _schedule_kinds(plan, level_cut, c_star is not None)
+        self._exec_cache = resolve_executable_cache(executable_cache)
+        self._sched = self._exec_cache.get_or_build(
+            self._schedule_key(),
+            lambda: _Schedule(plan, self._kinds, level_cut, c_star,
+                              self.layout.planar, self.device))
+        self.dense_tail_info = self._sched.dense_tail_info
+        self.step_kinds = tuple(g.kind for g in self._sched.groups)
+        self.n_groups = len(self.step_kinds)
+        dev, dt = self.device, self.dtype
+        self.a_values = torch.zeros(len(plan.a_scatter), dtype=dt, device=dev)
+        self._buf = torch.zeros(self.nnz + 1, dtype=dt, device=dev)
+        if static_pivot is not None:
+            self._eps = torch.tensor(float(static_pivot), dtype=dt, device=dev)
+            self._count = torch.zeros((), dtype=torch.int32, device=dev)
+        self._graph = (CapturedSchedule(self._program, dev, 1 + self.n_groups)
+                       if dev.type == "cuda" and self.jit_schedule else None)
         self.last_n_dispatches = 0
+        self.last_n_perturbed = None
+
+    def _schedule_key(self):
+        """The cache key of the built steps, after the reference's runner
+        key (``core/factorize.py:945``): plan digest, group kinds, dtype,
+        value layout, and the device they live on."""
+        return ("factorize", self.plan.digest, self._kinds, str(self.dtype),
+                self.layout.name, self.nnz, str(self.device))
 
     @property
     def kinds(self) -> tuple:
         """The schedule's kinds, one per level (the dense tail once)."""
         return self._kinds
 
+    @property
+    def _groups(self):
+        return self._sched.groups
+
+    @property
+    def _step(self):
+        return self._sched.step
+
+    @property
+    def _a_scatter(self):
+        return self._sched.a_scatter
+
+    @property
+    def _diag_idx(self):
+        return self._sched.diag_idx
+
+    def _program(self) -> None:
+        """The whole factorization on the static buffers: the entry scatter
+        of ``a_values``, ``tau`` and a zeroed bump count under static
+        pivoting, then every step.  What the CUDA graph holds."""
+        vals = self._buf
+        vals.zero_()
+        vals[self._a_scatter] = self.a_values
+        if self.static_pivot is None:
+            self._sched.run(vals)
+            return
+        tau = self._eps * vals.abs().max()
+        self._count.zero_()
+        self._sched.run(vals, tau, self._count)
+
+    def load(self, a_vals) -> None:
+        """Copy A values (the plan's A entry order; host or device) into
+        the static input buffer."""
+        self.a_values.copy_(torch.as_tensor(a_vals, dtype=self.dtype))
+
+    def run(self) -> torch.Tensor:
+        """Factorize the loaded A values: one replay of the captured graph
+        on the card, the steps one by one otherwise.  Returns the (nnz,)
+        factored values, a view of the static buffer."""
+        if self._graph is not None:
+            self.last_n_dispatches = self._graph()
+        else:
+            self._program()
+            self.last_n_dispatches = 1 + self.n_groups
+        self.last_n_perturbed = (None if self.static_pivot is None
+                                 else self._count)
+        return self._buf[: self.nnz]
+
     def factorize(self, a_vals) -> torch.Tensor:
         """Scatter A values (the plan's A entry order) into the filled
-        pattern and factorize; returns the (nnz,) factored values."""
-        a = torch.as_tensor(a_vals, dtype=self.dtype, device=self.device)
-        vals = torch.zeros(self.nnz + 1, dtype=self.dtype, device=self.device)
-        vals[self._a_scatter] = a
-        return self._run(vals)
+        pattern and factorize: :meth:`load` then :meth:`run`."""
+        self.load(a_vals)
+        return self.run()
 
     def factorize_filled(self, vals) -> torch.Tensor:
-        """Factorize an already-filled (nnz,) value array (not modified)."""
+        """Factorize an already-filled (nnz,) value array (not modified),
+        with the steps one by one, into a new tensor."""
         buf = torch.zeros(self.nnz + 1, dtype=self.dtype, device=self.device)
         buf[: self.nnz] = torch.as_tensor(vals, dtype=self.dtype,
                                           device=self.device)
         return self._run(buf)
 
     def _run(self, vals) -> torch.Tensor:
-        for g in self._groups:
-            self._step[g.kind](vals, *g.arrays)
-        self.last_n_dispatches = 1 + len(self._groups)
+        """Every step, one by one, in place on a filled (nnz + 1,) value
+        array; returns its first nnz values."""
+        if self.static_pivot is None:
+            self._sched.run(vals)
+            self.last_n_perturbed = None
+        else:
+            count = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._sched.run(vals, self._eps * vals.abs().max(), count)
+            self.last_n_perturbed = count
+        self.last_n_dispatches = 1 + self.n_groups
         return vals[: self.nnz]
 
     __call__ = factorize

@@ -29,6 +29,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.ops import add_in_rounds_, masked_correction, round_order, spmv
+from .executor import CapturedSchedule, resolve_executable_cache
 from .plan import FactorizePlan
 
 __all__ = ["TorchTriangularSolver", "trisolve_numpy"]
@@ -79,35 +80,25 @@ def _residual_berr(rows, cols, a_vals, a_abs, x, b, n: int):
     return r, ratio.max()
 
 
-def _read_back(berr, iters):
-    """Both refinement counters in one device-to-host read."""
-    b, i = torch.stack([berr, iters.to(berr.dtype)]).tolist()
+def _read_back(stat):
+    """Both refinement counters, ``stat = [berr, iters]``, in one
+    device-to-host read."""
+    b, i = stat.tolist()
     return b, int(i)
 
 
-class TorchTriangularSolver:
-    """solve(vals, b): forward + backward substitution on factored values,
-    one step per level (eager PyTorch needs none of the JAX package's
-    padded level groups)."""
+class _Sweeps:
+    """The built forward and backward sweeps of one plan on one device:
+    per level its index tensors (device int64, entries in
+    :func:`round_order` of their target rows) and round bounds.  Shared
+    through the process-wide :class:`~.executor.ExecutableCache`."""
 
-    def __init__(self, plan: FactorizePlan, device=None):
-        self.plan = plan
-        self.device = resolve_device(device)
-        # host-issued level steps of the most recent solve* call
-        self.last_n_dispatches = 0
-        self.fwd_levels, self.bwd_levels = self._build_schedule()
-
-    def _build_schedule(self):
-        """Per-level index tuples (device int64 tensors, entries in
-        :func:`round_order` of their target rows, then the round bounds) for
-        the forward and the backward sweep."""
-        plan, dev = self.plan, self.device
-
+    def __init__(self, plan: FactorizePlan, device):
         def level(*head, rows, cols, vidx):
             perm, bounds = round_order(rows)
             arrs = (*head, rows[perm], cols[perm], vidx[perm])
             return tuple(torch.as_tensor(np.asarray(a, dtype=np.int64),
-                                         device=dev) for a in arrs) + (bounds,)
+                                         device=device) for a in arrs) + (bounds,)
 
         fwd = []
         for l in range(len(plan.fwd_ptr) - 1):
@@ -122,17 +113,114 @@ class TorchTriangularSolver:
             bwd.append(level(lcols, plan.diag_idx[lcols],
                              rows=plan.bwd_rows[s:e], cols=plan.bwd_cols[s:e],
                              vidx=plan.bwd_vidx[s:e]))
-        return fwd, bwd
+        self.fwd, self.bwd = fwd, bwd
+        self.n_steps = len(fwd) + len(bwd)
+
+    def run(self, vals, x) -> None:
+        """Forward then backward substitution, in place on ``x``."""
+        for lev in self.fwd:
+            _fwd_level(vals, x, *lev)
+        for lev in self.bwd:
+            _bwd_level(vals, x, *lev)
+
+
+class _Bound:
+    """Static buffers and captured schedules bound to one set of input
+    tensors (their addresses, dtypes and shapes): a graph reads its inputs
+    where they lay at capture."""
+
+    def __init__(self, tensors):
+        self.key = _bind_key(tensors)
+        self.inputs = tensors          # keeps the bound memory alive
+        self.bufs: dict = {}
+        self.graphs: dict = {}
+
+    def buf(self, name, make):
+        b = self.bufs.get(name)
+        if b is None:
+            b = self.bufs[name] = make()
+        return b
+
+
+def _bind_key(tensors):
+    return tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.device)
+                 for t in tensors)
+
+
+class TorchTriangularSolver:
+    """solve(vals, b): forward + backward substitution on factored values,
+    one step per level (eager PyTorch needs none of the JAX package's
+    padded level groups).
+
+    ``jit_schedule``: on the card an unrefined solve is one CUDA-graph
+    replay (:class:`~.executor.CapturedSchedule`), and a refined solve one
+    replay for the solve and its residual, then one replay per chunk of
+    ``sync_every`` refinement sweeps, each followed by one device-to-host
+    read of the stopping test; ``False`` issues the steps one by one.  The
+    two give the same bits.  A graph is bound to the tensors it was
+    captured on (the factors, and for refinement A's COO arrays), so a call
+    with other tensors captures anew; the solver owns the right-hand side,
+    solution and residual buffers.  On the CPU the steps always run one by
+    one.  ``executable_cache`` shares the built sweeps between solvers on
+    one plan, as in :class:`~.factorize.TorchFactorizer`.
+
+    ``last_n_dispatches`` counts the latest call's dispatches: replays plus
+    reads on the graph path, host-issued steps plus reads otherwise (and
+    for the card's first call of each kind, which runs the steps eagerly
+    while it warms up the graph).
+    """
+
+    def __init__(self, plan: FactorizePlan, device=None,
+                 jit_schedule: bool = True, executable_cache="default"):
+        self.plan = plan
+        self.device = resolve_device(device)
+        self.jit_schedule = bool(jit_schedule)
+        self._sweeps = resolve_executable_cache(executable_cache).get_or_build(
+            ("trisolve", plan.digest, plan.n, len(plan.fwd_ptr),
+             len(plan.bwd_ptr), str(self.device)),
+            lambda: _Sweeps(plan, self.device))
+        self._bound: dict = {}
+        self.last_n_dispatches = 0
+
+    @property
+    def fwd_levels(self):
+        return self._sweeps.fwd
+
+    @property
+    def bwd_levels(self):
+        return self._sweeps.bwd
+
+    def _bind(self, slot: str, tensors) -> _Bound:
+        """The buffers and graphs of ``slot`` ("solve" or "refine") for
+        these input tensors, new ones if they changed."""
+        bound = self._bound.get(slot)
+        if bound is None or bound.key != _bind_key(tensors):
+            bound = self._bound[slot] = _Bound(tensors)
+        return bound
+
+    def _dispatch(self, bound: _Bound, name, fn, eager_steps: int) -> int:
+        """Run ``fn``: one replay of its graph on the card, the steps one by
+        one otherwise; returns the dispatches issued."""
+        if self.device.type != "cuda" or not self.jit_schedule:
+            fn()
+            return eager_steps
+        graph = bound.graphs.get(name)
+        if graph is None:
+            graph = bound.graphs[name] = CapturedSchedule(fn, self.device,
+                                                          eager_steps)
+        return graph()
 
     def solve(self, vals: torch.Tensor, b) -> torch.Tensor:
         """Solve with factored (nnz,) values; returns an (n,) tensor in the
-        values' dtype on their device."""
-        x = torch.as_tensor(b, dtype=vals.dtype, device=vals.device).clone()
-        for lev in self.fwd_levels:
-            _fwd_level(vals, x, *lev)
-        for lev in self.bwd_levels:
-            _bwd_level(vals, x, *lev)
-        self.last_n_dispatches = len(self.fwd_levels) + len(self.bwd_levels)
+        values' dtype on their device: the solver's solution buffer, which
+        the next solve with these values overwrites."""
+        bound = self._bind("solve", (vals,))
+        x = bound.buf("x", lambda: torch.empty(self.plan.n, dtype=vals.dtype,
+                                               device=vals.device))
+        x.copy_(torch.as_tensor(b, dtype=vals.dtype))
+        self.last_n_dispatches = self._dispatch(
+            bound, "solve", lambda: self._sweeps.run(vals, x),
+            self._sweeps.n_steps)
         return x
 
     def solve_refined(self, vals, b, a_rows, a_cols, a_vals, a_abs,
@@ -142,32 +230,64 @@ class TorchTriangularSolver:
         componentwise backward error drops to ``tol``.  ``a_rows``/
         ``a_cols``/``a_vals`` describe A in COO entry order and ``a_abs`` is
         ``|a_vals|``.  Returns ``(x, info)`` with ``refine_iters``,
-        ``backward_error``, ``converged`` and ``host_syncs``."""
+        ``backward_error``, ``converged`` and ``host_syncs``; ``x`` is the
+        solver's buffer, as in :meth:`solve`."""
         n = self.plan.n
-        b = torch.as_tensor(b, dtype=vals.dtype, device=vals.device)
-        x = self.solve(vals, b)
-        n_disp = self.last_n_dispatches + 1      # + the residual pass
-        r, berr = _residual_berr(a_rows, a_cols, a_vals, a_abs, x, b, n)
-        iters = torch.zeros((), dtype=torch.int64, device=vals.device)
+        dev = vals.device
+        bound = self._bind("refine", (vals, a_rows, a_cols, a_vals, a_abs))
+
+        def vec(name):
+            return bound.buf(name, lambda: torch.empty(n, dtype=vals.dtype,
+                                                       device=dev))
+
+        b_buf, x, r, d = vec("b"), vec("x"), vec("r"), vec("d")
+        real = vals.real.dtype
+        berr = bound.buf("berr", lambda: torch.empty((), dtype=real,
+                                                     device=dev))
+        iters = bound.buf("iters", lambda: torch.empty((), dtype=torch.int64,
+                                                       device=dev))
+        stat = bound.buf("stat", lambda: torch.empty(2, dtype=real,
+                                                     device=dev))
+        b_buf.copy_(torch.as_tensor(b, dtype=vals.dtype))
+
+        def residual():
+            r_new, berr_new = _residual_berr(a_rows, a_cols, a_vals, a_abs,
+                                             x, b_buf, n)
+            r.copy_(r_new)
+            berr.copy_(berr_new)
+            torch.stack([berr, iters.to(real)], out=stat)
+
+        def head():                           # x = solve(b), r = b - A x
+            x.copy_(b_buf)
+            self._sweeps.run(vals, x)
+            iters.zero_()
+            residual()
+
+        def chunk(k):                         # k refinement sweeps
+            for _ in range(k):
+                d.copy_(r)
+                self._sweeps.run(vals, d)
+                x.copy_(masked_correction(x, d, berr, tol))
+                iters.add_(berr > tol)
+                residual()
+
+        steps = self._sweeps.n_steps
+        n_disp = self._dispatch(bound, "head", head, steps + 1)
         syncs = 0
         done = 0
         berr_h = iters_h = None
         while done < max_iter:
-            chunk = min(max(1, int(sync_every)), max_iter - done)
-            for _ in range(chunk):
-                d = self.solve(vals, r)
-                n_disp += self.last_n_dispatches + 2   # mask + residual
-                x = masked_correction(x, d, berr, tol)
-                iters = iters + (berr > tol)
-                r, berr = _residual_berr(a_rows, a_cols, a_vals, a_abs, x, b, n)
-            done += chunk
-            berr_h, iters_h = _read_back(berr, iters)
+            k = min(max(1, int(sync_every)), max_iter - done)
+            n_disp += self._dispatch(bound, ("chunk", k, float(tol)),
+                                     lambda: chunk(k), k * (steps + 2))
+            done += k
+            berr_h, iters_h = _read_back(stat)
             syncs += 1
             if berr_h <= tol:
                 break
         if berr_h is None:                      # max_iter == 0
-            berr_h, iters_h = _read_back(berr, iters)
+            berr_h, iters_h = _read_back(stat)
             syncs += 1
-        self.last_n_dispatches = n_disp
+        self.last_n_dispatches = n_disp + syncs
         return x, {"refine_iters": iters_h, "backward_error": berr_h,
                    "converged": berr_h <= tol, "host_syncs": syncs}

@@ -4,5 +4,8 @@ from . import ops, ref
 from .dense_lu import dense_lu, dense_lu_planar
 from .level_update import LevelRun, level_run, segmented_accumulate
 
+# every kernel wrapper that counts its launches (``launches``, ``captured``)
+COUNTED = (level_run, dense_lu, dense_lu_planar)
+
 __all__ = ["ops", "ref", "dense_lu", "dense_lu_planar", "LevelRun",
-           "level_run", "segmented_accumulate"]
+           "level_run", "segmented_accumulate", "COUNTED"]

@@ -20,7 +20,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_dir", "nvcc_path"]
+import torch
+
+__all__ = ["load_library", "build_dir", "nvcc_path", "check", "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 LIB_NAME = "libglu_kernels.so"
@@ -36,6 +38,10 @@ _SIGNATURES = {
     "glu_level_run_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "glu_level_run_c64": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "glu_level_run_c128": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "glu_level_run_robust_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _P],
+    "glu_level_run_robust_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _P],
     "glu_dense_lu_f32": [_P, _P, _I, _P],
     "glu_dense_lu_f64": [_P, _P, _I, _P],
     "glu_dense_lu_planar_f32": [_P, _P, _I, _P],
@@ -153,3 +159,15 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def count_launch(kernel) -> None:
+    """Count one launch of ``kernel``'s CUDA kernel, where its wrapper
+    launches it: in ``kernel.launches`` when it runs now, in
+    ``kernel.captured`` when the launch is being recorded into a CUDA graph
+    (each replay of that graph then adds it to ``launches``, see
+    ``core.executor.CapturedSchedule``)."""
+    if torch.cuda.is_current_stream_capturing():
+        kernel.captured += 1
+    else:
+        kernel.launches += 1

@@ -45,6 +45,19 @@
 // array is not declared const __restrict__, so nvcc never reads it through
 // the non-coherent path.
 //
+// Static pivoting (the robust instantiation, real values only): the
+// counterpart of the reference's per-level guard (core/factorize.py:567-571,
+// kernels/ops.py:220 _perturb_diags_body).  Each level's column diagonals
+// are final once the earlier levels of the run are done, so at the start of
+// each level, right after the grid barrier, the grid bumps them: any
+// |d| < tau becomes tau * d / |d| (+tau for an exact zero).  A second grid
+// barrier follows, so no normalize or product of the level reads a diagonal
+// before its bump.  tau is read from a device scalar (eps * max|A|, computed
+// on the card before the launch), and the bumps are added into a device
+// int32 counter with integer atomics, whose sum does not depend on their
+// order.  Layout: diag_ptr (L + 1) and diag (P) list each level's diagonal
+// positions; the plain instantiation never reads them.
+//
 // Bound: the latency of the run's dependent levels (154 on grid64, 10 on
 // rajat12_like), each a round trip for the packed indices, one for the
 // operand values and a grid barrier; in bytes, the updates' int32 indices
@@ -85,6 +98,13 @@ struct RealOps {
   __device__ static V div(V a, V b) { return div_rn(a, b); }
   __device__ static V contrib(V l, V d, V u) { return -mul_rn(div(l, d), u); }
   __device__ static V add(V a, V b) { return add_rn(a, b); }
+  // the static-pivot rule of the reference: |d| < tau -> tau * d / |d|,
+  // where d / |d| is exactly +-1, and an exact zero (either sign) -> +tau
+  __device__ static bool bump(V& d, V tau) {
+    if (!(fabs(d) < tau)) return false;
+    d = d < T(0) ? -tau : tau;
+    return true;
+  }
 };
 
 // Complex values, read as interleaved (re, im) pairs (the memory that
@@ -225,15 +245,41 @@ __device__ void row_block(typename Ops::V* vals, int4 row, int c0,
     if (touched & (1 << k)) Ops::store(vals, col_start + c0 + my0 + k, acc[k]);
 }
 
+// The grid's bumps of one level's diagonals diag[d0 : d1]; returns this
+// thread's count.
 template <typename Ops>
+__device__ int bump_diagonals(typename Ops::V* vals, const int* __restrict__ diag,
+                              int d0, int d1, typename Ops::V tau) {
+  const int stride = gridDim.x * kThreads;
+  int bumps = 0;
+  for (int i = d0 + blockIdx.x * kThreads + threadIdx.x; i < d1; i += stride) {
+    const int p = __ldg(diag + i);
+    typename Ops::V d = Ops::load(vals, p);
+    if (Ops::bump(d, tau)) {
+      Ops::store(vals, p, d);
+      ++bumps;
+    }
+  }
+  return bumps;
+}
+
+template <typename Ops, bool kRobust>
 __global__ void __launch_bounds__(kThreads)
 level_run_kernel(typename Ops::V* vals, const int* __restrict__ levels,
                  const int2* __restrict__ items, const int4* __restrict__ rows,
                  const int4* __restrict__ upd, const int2* __restrict__ norm,
-                 int n_levels) {
+                 int n_levels, const int* __restrict__ diag_ptr,
+                 const int* __restrict__ diag, const typename Ops::V* __restrict__ tau,
+                 int* count) {
   __shared__ Smem<typename Ops::V> sm;
   cg::grid_group grid = cg::this_grid();
+  int bumps = 0;
   for (int lev = 0; lev < n_levels; ++lev) {
+    if constexpr (kRobust) {
+      bumps += bump_diagonals<Ops>(vals, diag, __ldg(diag_ptr + lev),
+                                   __ldg(diag_ptr + lev + 1), __ldg(tau));
+      grid.sync();
+    }
     const int* meta = levels + lev * kLevelFields;
     const int i1 = __ldg(meta + 5);
     for (int it = __ldg(meta + 4) + blockIdx.x; it < i1; it += gridDim.x) {
@@ -241,6 +287,9 @@ level_run_kernel(typename Ops::V* vals, const int* __restrict__ levels,
       row_block<Ops>(vals, __ldg(rows + item.x), item.y, upd, sm);
     }
     grid.sync();
+  }
+  if constexpr (kRobust) {
+    if (bumps) atomicAdd(count, bumps);
   }
   // every level's L entries: no level of the run writes them or their
   // diagonals after it normalizes them, nor reads them after its own (I3)
@@ -250,13 +299,15 @@ level_run_kernel(typename Ops::V* vals, const int* __restrict__ levels,
 // One cooperative launch on `stream`; returns its error (the launch is
 // refused, not run, if the grid could not be resident at once).  The grid
 // is what the card keeps resident (occupancy x multiprocessors), capped by
-// the largest level's work items.
-template <typename Ops>
+// the largest level's work items.  The launch may be recorded into a CUDA
+// graph (stream capture takes cooperative launches as cooperative kernel
+// nodes); the occupancy queries run on the host at capture time.
+template <typename Ops, bool kRobust>
 int level_run(void* vals, const void* levels, const void* items, const void* rows,
-              const void* upd, const void* norm, int n_levels, int max_items,
-              void* stream) {
+              const void* upd, const void* norm, const void* diag_ptr, const void* diag,
+              const void* tau, void* count, int n_levels, int max_items, void* stream) {
   if (n_levels <= 0) return static_cast<int>(cudaSuccess);
-  auto kernel = level_run_kernel<Ops>;
+  auto kernel = level_run_kernel<Ops, kRobust>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -273,7 +324,11 @@ int level_run(void* vals, const void* levels, const void* items, const void* row
   const int4* rw = static_cast<const int4*>(rows);
   const int4* up = static_cast<const int4*>(upd);
   const int2* nm = static_cast<const int2*>(norm);
-  void* args[] = {&v, &lv, &it, &rw, &up, &nm, &n_levels};
+  const int* dp = static_cast<const int*>(diag_ptr);
+  const int* dg = static_cast<const int*>(diag);
+  const V* ta = static_cast<const V*>(tau);
+  int* ct = static_cast<int*>(count);
+  void* args[] = {&v, &lv, &it, &rw, &up, &nm, &n_levels, &dp, &dg, &ta, &ct};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                     dim3(kThreads), args, 0,
                                     static_cast<cudaStream_t>(stream));
@@ -285,27 +340,51 @@ int level_run(void* vals, const void* levels, const void* items, const void* row
 extern "C" int glu_level_run_f32(void* vals, const void* levels, const void* items,
                                  const void* rows, const void* upd, const void* norm,
                                  int n_levels, int max_items, void* stream) {
-  return level_run<RealOps<float>>(vals, levels, items, rows, upd, norm, n_levels,
-                                   max_items, stream);
+  return level_run<RealOps<float>, false>(vals, levels, items, rows, upd, norm, nullptr,
+                                          nullptr, nullptr, nullptr, n_levels, max_items,
+                                          stream);
 }
 
 extern "C" int glu_level_run_f64(void* vals, const void* levels, const void* items,
                                  const void* rows, const void* upd, const void* norm,
                                  int n_levels, int max_items, void* stream) {
-  return level_run<RealOps<double>>(vals, levels, items, rows, upd, norm, n_levels,
-                                    max_items, stream);
+  return level_run<RealOps<double>, false>(vals, levels, items, rows, upd, norm, nullptr,
+                                           nullptr, nullptr, nullptr, n_levels, max_items,
+                                           stream);
 }
 
 extern "C" int glu_level_run_c64(void* vals, const void* levels, const void* items,
                                  const void* rows, const void* upd, const void* norm,
                                  int n_levels, int max_items, void* stream) {
-  return level_run<ComplexOps<float, float2>>(vals, levels, items, rows, upd, norm,
-                                              n_levels, max_items, stream);
+  return level_run<ComplexOps<float, float2>, false>(vals, levels, items, rows, upd, norm,
+                                                     nullptr, nullptr, nullptr, nullptr,
+                                                     n_levels, max_items, stream);
 }
 
 extern "C" int glu_level_run_c128(void* vals, const void* levels, const void* items,
                                   const void* rows, const void* upd, const void* norm,
                                   int n_levels, int max_items, void* stream) {
-  return level_run<ComplexOps<double, double2>>(vals, levels, items, rows, upd, norm,
-                                                n_levels, max_items, stream);
+  return level_run<ComplexOps<double, double2>, false>(vals, levels, items, rows, upd, norm,
+                                                       nullptr, nullptr, nullptr, nullptr,
+                                                       n_levels, max_items, stream);
+}
+
+// The robust (static-pivot) instantiations: tau is a device scalar of the
+// value type, count a device int32 the bumps are added into.
+extern "C" int glu_level_run_robust_f32(void* vals, const void* levels, const void* items,
+                                        const void* rows, const void* upd, const void* norm,
+                                        const void* diag_ptr, const void* diag,
+                                        const void* tau, void* count, int n_levels,
+                                        int max_items, void* stream) {
+  return level_run<RealOps<float>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
+                                         diag, tau, count, n_levels, max_items, stream);
+}
+
+extern "C" int glu_level_run_robust_f64(void* vals, const void* levels, const void* items,
+                                        const void* rows, const void* upd, const void* norm,
+                                        const void* diag_ptr, const void* diag,
+                                        const void* tau, void* count, int n_levels,
+                                        int max_items, void* stream) {
+  return level_run<RealOps<double>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
+                                          diag, tau, count, n_levels, max_items, stream);
 }

@@ -51,11 +51,12 @@ def dense_lu(a: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dense_lu needs a square tile whose side is a "
                          f"multiple of {BLOCK}, got {tuple(a.shape)}")
     out = _launch(_ENTRY[a.dtype], a, a.shape[0], "dense_lu")
-    dense_lu.launches += 1
+    _build.count_launch(dense_lu)
     return out
 
 
 dense_lu.launches = 0
+dense_lu.captured = 0
 
 
 def dense_lu_planar(a: torch.Tensor) -> torch.Tensor:
@@ -74,8 +75,9 @@ def dense_lu_planar(a: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dense_lu_planar needs (2, N, N) planes with N a "
                          f"multiple of {BLOCK}, got {tuple(a.shape)}")
     out = _launch(_PLANAR_ENTRY[a.dtype], a, a.shape[1], "dense_lu_planar")
-    dense_lu_planar.launches += 1
+    _build.count_launch(dense_lu_planar)
     return out
 
 
 dense_lu_planar.launches = 0
+dense_lu_planar.captured = 0

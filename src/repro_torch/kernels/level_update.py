@@ -9,6 +9,10 @@ hand-written kernel in ``csrc/level_run.cu``: one cooperative launch for
 the whole run, one grid barrier a level, per-row counting sorts and sums in
 a fixed order (deterministic, and the plain version's bits).  A CPU tensor
 runs the plain version ``ref.level_run_ref``.  Any other device raises.
+With ``tau`` and ``count`` (real values only) it launches the robust
+instantiation: static pivoting, each level's column diagonals bumped at
+the start of that level (``ref.perturb_diags``'s rule) and the bumps added
+into ``count``.
 
 ``segmented_accumulate(col_vals, contribs, didx_local)`` is the TPU
 kernel's own function, ``col_vals (D, C) + scatter(contribs (D, R) at
@@ -32,6 +36,8 @@ _ENTRY = {torch.float32: "glu_level_run_f32",
           torch.float64: "glu_level_run_f64",
           torch.complex64: "glu_level_run_c64",
           torch.complex128: "glu_level_run_c128"}
+_ROBUST_ENTRY = {torch.float32: "glu_level_run_robust_f32",
+                 torch.float64: "glu_level_run_robust_f64"}
 _INT32_MAX = np.iinfo(np.int32).max
 
 
@@ -52,7 +58,7 @@ def segmented_accumulate(col_vals: torch.Tensor, contribs: torch.Tensor,
                      f"value arrays run through level_run), not {dev}")
 
 
-def check_run_invariants(levels, rows, upd, norm) -> None:
+def check_run_invariants(levels, rows, upd, norm, diag=None) -> None:
     """Check, on the host, the facts that make one grid barrier a level
     safe for a run's layout (see :class:`LevelRun` for the arrays), and
     raise ``ValueError`` naming the first that fails:
@@ -67,6 +73,10 @@ def check_run_invariants(levels, rows, upd, norm) -> None:
       not read by one, and the run normalizes each L entry once and no
       diagonal it divides by: the kernel normalizes every level's L
       entries at once, after the run's last level.
+
+    ``diag`` is ``(diag_ptr (L + 1,), diag_idx (P,))``, each level's column
+    diagonals (the slots static pivoting bumps at the level's start); they
+    count as slots the level reads, for I2 and I3.
     """
     L = len(levels)
     col_start, col_len = rows[:, 0].astype(np.int64), rows[:, 1].astype(np.int64)
@@ -84,8 +94,10 @@ def check_run_invariants(levels, rows, upd, norm) -> None:
     upd_lev = row_lev[upd_row]
     written = col_start[upd_row] + upd[:, 3]
     norm_lev = np.repeat(np.arange(L), levels[:, 1] - levels[:, 0])
+    d_ptr, d_idx = _diag_arrays(diag, L)
+    d_lev = np.repeat(np.arange(L), np.diff(d_ptr))
     size = int(max(written.max(initial=0), upd[:, :3].max(initial=0),
-                   norm.max(initial=0))) + 1
+                   norm.max(initial=0), d_idx.max(initial=0))) + 1
     # I2: per level, mark what it writes and look at what it reads
     mark = np.zeros(size, dtype=bool)
     u_ptr = np.searchsorted(upd_lev, np.arange(L + 1))
@@ -94,7 +106,8 @@ def check_run_invariants(levels, rows, upd, norm) -> None:
         w = written[u_ptr[k]:u_ptr[k + 1]]
         mark[w] = True
         reads = (upd[u_ptr[k]:u_ptr[k + 1], :3].ravel(),
-                 norm[n_ptr[k, 0]:n_ptr[k, 1]].ravel())
+                 norm[n_ptr[k, 0]:n_ptr[k, 1]].ravel(),
+                 d_idx[d_ptr[k]:d_ptr[k + 1]])
         if any(mark[r].any() for r in reads):
             raise ValueError(f"run layout breaks I2: level {k} reads a slot "
                              "that it writes")
@@ -105,6 +118,7 @@ def check_run_invariants(levels, rows, upd, norm) -> None:
     nlev[norm[:, 0]] = norm_lev
     dlev = np.full(size, -1, dtype=np.int64)
     np.maximum.at(dlev, norm[:, 1], norm_lev)
+    np.maximum.at(dlev, d_idx, d_lev)
     read_lev = np.concatenate([np.repeat(upd_lev, 3), norm_lev, norm_lev])
     read_slot = np.concatenate([upd[:, :3].ravel(), norm[:, 1], norm[:, 0]])
     ni = norm[:, 0]
@@ -119,6 +133,18 @@ def check_run_invariants(levels, rows, upd, norm) -> None:
         k = int(np.concatenate([read_lev[late_read], upd_lev[late_write]]).min())
         raise ValueError(f"run layout breaks I3: level {k} reads or writes a "
                          "slot that an earlier level of the run normalizes")
+
+
+def _diag_arrays(diag, n_levels: int):
+    """``(diag_ptr, diag_idx)`` as int64 arrays; ``None`` is no diagonals."""
+    if diag is None:
+        return np.zeros(n_levels + 1, dtype=np.int64), np.zeros(0, np.int64)
+    ptr, idx = (np.asarray(a, dtype=np.int64).ravel() for a in diag)
+    if len(ptr) != n_levels + 1 or ptr[0] != 0 or ptr[-1] != len(idx) \
+            or (np.diff(ptr) < 0).any():
+        raise ValueError("run layout diagonal ranges do not tile its "
+                         "diagonal array")
+    return ptr, idx
 
 
 def _check_structure(levels, rows, upd, norm, n_vals: int) -> None:
@@ -161,6 +187,11 @@ class LevelRun:
                    ``ldiag`` normalizes the L operand, ``dpos`` is the
                    position inside the segment
     norm   (P, 2): norm_idx, norm_diag
+    diag_ptr (L + 1,), diag (Q,): each level's column diagonals,
+                   ``diag[diag_ptr[k] : diag_ptr[k + 1]]`` for level k,
+                   from the ``diag`` argument ``(diag_ptr, diag)`` (none
+                   when it is omitted); only the robust (static-pivot)
+                   instantiation reads them
 
     The constructor checks the structure (ranges, bounds), that every
     index fits in int32, and :func:`check_run_invariants`; it raises
@@ -168,7 +199,8 @@ class LevelRun:
     least length of a value array the run indexes.
     """
 
-    def __init__(self, levels, rows, upd, norm, n_vals: int, device):
+    def __init__(self, levels, rows, upd, norm, n_vals: int, device,
+                 diag=None):
         arrays = [np.asarray(a) for a in (levels, rows, upd, norm)]
         for a, w in zip(arrays, (6, 4, 4, 2)):
             if a.ndim != 2 or a.shape[1] != w:
@@ -179,8 +211,11 @@ class LevelRun:
         levels, rows, upd, norm = (a.astype(np.int64) for a in arrays)
         if n_vals > _INT32_MAX:
             raise ValueError(f"{n_vals} values do not fit int32 indices")
+        diag_ptr, diag_idx = _diag_arrays(diag, len(levels))
         _check_structure(levels, rows, upd, norm, n_vals)
-        check_run_invariants(levels, rows, upd, norm)
+        if diag_idx.size and (diag_idx.min() < 0 or diag_idx.max() >= n_vals):
+            raise ValueError("run layout diagonal outside the value array")
+        check_run_invariants(levels, rows, upd, norm, (diag_ptr, diag_idx))
         # work items: each row in blocks of SLOTS slots
         nblk = -(-rows[:, 1] // SLOTS)
         first = np.repeat(np.cumsum(nblk) - nblk, nblk)
@@ -195,13 +230,15 @@ class LevelRun:
         self.n_updates = len(upd)
         self.max_items = int((levels[:, 5] - levels[:, 4]).max(initial=0))
         self.host = dict(levels=levels, items=items, rows=rows, upd=upd,
-                         norm=norm)
+                         norm=norm, diag_ptr=diag_ptr, diag=diag_idx)
         self.tensors = {k: torch.as_tensor(v, dtype=torch.int32,
                                            device=device).contiguous()
                         for k, v in self.host.items()}
         self.device = self.tensors["levels"].device   # with its index
         self.ptrs = tuple(self.tensors[k].data_ptr()
                           for k in ("levels", "items", "rows", "upd", "norm"))
+        self.diag_ptrs = tuple(self.tensors[k].data_ptr()
+                               for k in ("diag_ptr", "diag"))
         self._ref = None
 
     def written_slots(self) -> np.ndarray:
@@ -213,19 +250,22 @@ class LevelRun:
     def ref_levels(self):
         """Per level, the plain version's index tensors on the run's
         device: the updates' lidx, uidx, ldiag and slots in
-        :func:`round_order` of their slots, the round bounds, and the
-        level's norm_idx and norm_diag (built at the first call)."""
+        :func:`round_order` of their slots, the round bounds, the level's
+        norm_idx and norm_diag, and its column diagonals (built at the
+        first call)."""
         if self._ref is None:
             h = self.host
             slots = self.written_slots()
             out = []
-            for n0, n1, r0, r1, _, _ in h["levels"]:
+            for k, (n0, n1, r0, r1, _, _) in enumerate(h["levels"]):
                 u0, u1 = h["rows"][r0, 2], h["rows"][r1 - 1, 3]
                 perm, bounds = round_order(slots[u0:u1])
                 up = h["upd"][u0:u1][perm]
+                d0, d1 = h["diag_ptr"][k], h["diag_ptr"][k + 1]
                 t = [torch.as_tensor(a, dtype=torch.int64, device=self.device)
                      for a in (up[:, 0], up[:, 1], up[:, 2], slots[u0:u1][perm],
-                               h["norm"][n0:n1, 0], h["norm"][n0:n1, 1])]
+                               h["norm"][n0:n1, 0], h["norm"][n0:n1, 1],
+                               h["diag"][d0:d1])]
                 out.append((*t[:4], bounds, *t[4:]))
             self._ref = out
         return self._ref
@@ -234,42 +274,65 @@ class LevelRun:
 _fns: dict = {}
 
 
-def _entry(dtype):
+def _entry(dtype, robust: bool):
     """The library's C entry for ``dtype``, looked up once."""
-    fn = _fns.get(dtype)
+    fn = _fns.get((dtype, robust))
     if fn is None:
-        if dtype not in _ENTRY:
-            raise TypeError(f"level_run takes float32, float64, complex64 or "
-                            f"complex128 values, got {dtype}")
-        fn = _fns[dtype] = getattr(_build.load_library(), _ENTRY[dtype])
+        table = _ROBUST_ENTRY if robust else _ENTRY
+        if dtype not in table:
+            raise TypeError(
+                f"level_run takes float32 or float64 values with static "
+                f"pivoting, got {dtype}" if robust else
+                f"level_run takes float32, float64, complex64 or complex128 "
+                f"values, got {dtype}")
+        fn = _fns[(dtype, robust)] = getattr(_build.load_library(),
+                                             table[dtype])
     return fn
 
 
-def level_run(vals: torch.Tensor, run: LevelRun) -> torch.Tensor:
+def level_run(vals: torch.Tensor, run: LevelRun, tau=None,
+              count=None) -> torch.Tensor:
     """Run every level of ``run`` in place on the contiguous value array
-    ``vals``; returns ``vals``."""
+    ``vals``; returns ``vals``.  With ``tau`` (a 0-d tensor of the value
+    dtype: the static-pivot threshold) and ``count`` (a 0-d int32 tensor)
+    each level first bumps its column diagonals below ``tau`` and adds the
+    number it bumped into ``count``."""
     dev = vals.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"level_run runs on cuda or cpu, not {dev}")
     if run.device != dev:
         raise ValueError(f"the values lie on {dev}, the run on {run.device}")
+    robust = tau is not None
+    if robust != (count is not None):
+        raise ValueError("level_run takes tau and count together")
     if dev.type == "cpu":
-        return level_run_ref(vals, run)
-    fn = _entry(vals.dtype)
+        return level_run_ref(vals, run, tau, count)
+    fn = _entry(vals.dtype, robust)
     if not vals.is_contiguous() or vals.numel() < run.n_vals:
         raise ValueError(f"level_run needs a contiguous value array of at "
                          f"least {run.n_vals} values")
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return level_run(vals, run)
-    rc = fn(vals.data_ptr(), *run.ptrs, run.n_levels, run.max_items,
-            torch.cuda.current_stream(dev).cuda_stream)
+            return level_run(vals, run, tau, count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if robust:
+        if tau.dtype != vals.dtype or tau.numel() != 1 or tau.device != dev \
+                or count.dtype != torch.int32 or count.numel() != 1 \
+                or count.device != dev:
+            raise ValueError("level_run needs tau as one value of the values' "
+                             "dtype and count as one int32, on their device")
+        rc = fn(vals.data_ptr(), *run.ptrs, *run.diag_ptrs, tau.data_ptr(),
+                count.data_ptr(), run.n_levels, run.max_items, stream)
+    else:
+        rc = fn(vals.data_ptr(), *run.ptrs, run.n_levels, run.max_items,
+                stream)
     _build.check(rc, "level_run")
-    level_run.launches += 1
+    _build.count_launch(level_run)
     return vals
 
 
 level_run.launches = 0
+level_run.captured = 0
 
 
 def random_level_run(rng: np.random.Generator, shapes, dtype, device,
@@ -279,9 +342,10 @@ def random_level_run(rng: np.random.Generator, shapes, dtype, device,
     segments of C slots, positions drawn at random (``duplicates``: all on
     the segment's first slot).  The value array holds a region of U
     operands for the first level, then each level's L entries and
-    diagonals (read and normalized by that level only), then every level's
-    segments; level k > 0 takes its U operands from level k - 1's segments,
-    a real dependency across the barrier.  Values are drawn from [-1, 1],
+    diagonals (read and normalized by that level only, and the level's
+    column diagonals for static pivoting), then every level's segments;
+    level k > 0 takes its U operands from level k - 1's segments, a real
+    dependency across the barrier.  Values are drawn from [-1, 1],
     diagonals from [1, 2].  Returns ``(run, vals)``."""
     n_u0 = 4 * shapes[0][0]
     base, regions = n_u0, []
@@ -314,8 +378,9 @@ def random_level_run(rng: np.random.Generator, shapes, dtype, device,
                              axis=1))
         levels.append((n_norm, n_norm + n_l, n_rows, n_rows + D, 0, 0))
         n_rows, n_upd, n_norm = n_rows + D, n_upd + D * R, n_norm + n_l
+    diag_ptr = np.concatenate([[0], np.cumsum([D for D, _, _ in shapes])])
     run = LevelRun(np.array(levels), np.concatenate(rows), np.concatenate(upd),
-                   np.concatenate(norm), base, device)
+                   np.concatenate(norm), base, device, diag=(diag_ptr, diag))
     vals = rng.uniform(-1.0, 1.0, size=(2, base))
     vals[:, diag] = rng.uniform(1.0, 2.0, size=(2, len(diag)))
     vals = vals[0] + 1j * vals[1] if torch.empty(0, dtype=dtype).is_complex() \

@@ -15,6 +15,9 @@ The padded layout carries one trash slot past the real values
 writes stay inside the trash slot, and the accumulation drops padded
 positions itself.  Scatter-adds outside K1 run in fixed-order rounds of
 distinct targets (``round_order`` / ``add_in_rounds_``, in ``ref.py``).
+``perturb_diags`` (in ``ref.py``, the reference's ``_perturb_diags_body``)
+is the static pivot bump of the flat levels and the dense tail; a K1 run
+bumps its levels inside the kernel.
 """
 from __future__ import annotations
 
@@ -22,11 +25,11 @@ import torch
 
 from ..sparse.layout import pdiv, pmul
 from .level_update import segmented_accumulate
-from .ref import add_in_rounds_, round_order, spmv_ref
+from .ref import add_in_rounds_, perturb_diags, round_order, spmv_ref
 
 __all__ = ["level_update_body", "level_update_planar_body", "spmv",
            "factor_stats", "masked_correction", "round_order",
-           "add_in_rounds_"]
+           "add_in_rounds_", "perturb_diags"]
 
 
 def level_update_body(vals, norm_idx, norm_diag, lidx2d, uidx2d, didx_local,

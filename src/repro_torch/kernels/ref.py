@@ -24,7 +24,7 @@ from ..sparse.layout import pdiv, pmul
 
 __all__ = ["segmented_accumulate_ref", "level_run_ref", "dense_lu_ref",
            "dense_lu_planar_ref", "lu_backward_error", "spmv_ref",
-           "scatter_add_", "round_order", "add_in_rounds_"]
+           "scatter_add_", "round_order", "add_in_rounds_", "perturb_diags"]
 
 
 def scatter_add_(dst, idx, src):
@@ -97,9 +97,30 @@ def _level_div(a, b):
     return a / b
 
 
-def level_run_ref(vals, run):
+def perturb_diags(vals, diag_idx, tau):
+    """Static pivot perturbation (SuperLU_DIST-style), in place on the real
+    value array ``vals``: any diagonal ``vals[diag_idx]`` with
+    ``|d| < tau`` becomes ``tau * d / |d|`` (``sign(d) * tau``; an exact
+    zero becomes ``+tau``).  ``tau`` is a 0-d tensor of the values' dtype.
+    Returns ``(vals, n_bumped)`` with the count as a 0-d int32 tensor on the
+    device.  The reference's ``_perturb_diags_body`` (its ``diag_idx`` is
+    padded; here every index is real)."""
+    d = vals[diag_idx]
+    mag = d.abs()
+    tiny = mag < tau
+    pos = mag > 0
+    phase = torch.where(pos, d / torch.where(pos, mag, torch.ones_like(mag)),
+                        torch.ones_like(d))
+    vals[diag_idx] = torch.where(tiny, phase * tau, d)
+    return vals, tiny.sum(dtype=torch.int32)
+
+
+def level_run_ref(vals, run, tau=None, count=None):
     """Plain version of K1 ``level_run``: the run's levels in order, in
-    place on ``vals``.  Each level adds its contributions
+    place on ``vals``.  With ``tau`` and ``count`` (static pivoting, real
+    values) each level first bumps its column diagonals with
+    :func:`perturb_diags` and adds the bumps into ``count``, as the robust
+    kernel does after each level's grid barrier.  Each level adds its contributions
     ``-((v[lidx] / v[ldiag]) * v[uidx])`` (complex: ``-pmul(pdiv(l, d), u)``)
     into their slots in ascending update order, then normalizes its L
     entries, as the per-level route does; the invariants the run was
@@ -107,7 +128,9 @@ def level_run_ref(vals, run):
     level's L entries after the last.  ``run`` is a
     :class:`~repro_torch.kernels.level_update.LevelRun` on ``vals``'s
     device."""
-    for lidx, uidx, ldiag, slots, bounds, ni, nd in run.ref_levels():
+    for lidx, uidx, ldiag, slots, bounds, ni, nd, diag in run.ref_levels():
+        if tau is not None:
+            count += perturb_diags(vals, diag, tau)[1]
         c = _level_div(vals[lidx], vals[ldiag])
         u = vals[uidx]
         c = -(pmul(c, torch.view_as_real(u)) if u.is_complex() else c * u)

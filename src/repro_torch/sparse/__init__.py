@@ -14,6 +14,7 @@ from .gen import (
     asic_like,
     circuit_jacobian,
     grid_laplacian,
+    ill_conditioned_jacobian,
     make_suite_matrix,
     rc_ladder,
 )
@@ -30,6 +31,7 @@ __all__ = [
     "asic_like",
     "circuit_jacobian",
     "grid_laplacian",
+    "ill_conditioned_jacobian",
     "make_suite_matrix",
     "rc_ladder",
     "ValueLayout",

@@ -24,6 +24,7 @@ __all__ = [
     "rc_ladder",
     "circuit_jacobian",
     "asic_like",
+    "ill_conditioned_jacobian",
     "ac_jacobian",
     "SUITES",
     "make_suite_matrix",
@@ -144,6 +145,36 @@ def asic_like(n: int, seed: int = 0) -> CSC:
     cols = np.concatenate([c0, b, a, a, b])
     vals = np.concatenate([v0, -g, -g, g + 0.25, g + 0.25])
     return csc_from_coo(nn, rows, cols, vals)
+
+
+def ill_conditioned_jacobian(
+    n: int,
+    decades: float = 12.0,
+    avg_degree: float = 4.0,
+    tiny_pivots: int = 0,
+    seed: int = 0,
+) -> CSC:
+    """Badly row/column-scaled circuit Jacobian: condition number roughly
+    ``10**decades`` times the base matrix's (device models spanning
+    femtofarads to kilo-ohms produce exactly this).  Every diagonal stays
+    structurally present; unscaled no-pivot factorization loses up to
+    ``decades`` digits.  ``tiny_pivots`` additionally crushes that many
+    diagonals to ~1e-14 of their column max (numerically tiny pivots: the
+    case MC64 re-matching repairs and the static-pivot guard must survive
+    without it).
+    """
+    base = circuit_jacobian(n, avg_degree=avg_degree, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    r = 10.0 ** rng.uniform(-decades / 2, decades / 2, size=base.n)
+    c = 10.0 ** rng.uniform(-decades / 2, decades / 2, size=base.n)
+    rows, cols, vals = base.to_coo()
+    A = csc_from_coo(base.n, rows, cols, vals * r[rows] * c[cols.astype(np.int64)])
+    if tiny_pivots:
+        for j in rng.choice(base.n, size=min(tiny_pivots, base.n), replace=False):
+            k = A.value_index(int(j), int(j))
+            colmax = np.abs(A.col(int(j))[1]).max()
+            A.data[k] = np.sign(A.data[k]) * 1e-14 * colmax
+    return A
 
 
 # Named suite mirroring the paper's Table I matrix list (synthetic stand-ins).

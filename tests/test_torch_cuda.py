@@ -215,3 +215,159 @@ def test_complex_glu_on_card_matches_cpu(cuda):
     assert v1.dtype == torch.complex128 and torch.equal(v1, v2)
     torch.testing.assert_close(v1.cpu(), g_cpu.factorized_values(),
                                rtol=1e-10, atol=1e-10)
+
+
+# -- CUDA graphs and static pivoting ---------------------------------------
+
+def _graph_and_eager(A, dtype, b, **kw):
+    """The same matrix through ``jit_schedule`` True (one replay per
+    factorization and per solve) and False (the steps one by one)."""
+    rng = np.random.default_rng(11)
+    new = [np.asarray(A.data) * rng.uniform(0.95, 1.05, size=A.nnz)
+           for _ in range(3)]
+    out = {}
+    for jit in (True, False):
+        g = GLU(A, dtype=dtype, jit_schedule=jit, **kw)
+        rows = []
+        for vals in new:
+            g.factorize(vals)
+            disp = g.solve_info["n_dispatches"]
+            rows.append((g.factorized_values(), g.solve(b),
+                         g.solve_info["solve_dispatches"],
+                         g.solve(b, refine=3), g.solve_info, disp))
+        out[jit] = (g, rows)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_graph_replays_equal_eager_steps(cuda, dtype):
+    """Factors, solutions and refined solutions of the replays equal the
+    eager steps' bit for bit; after the first (warm-up) call each
+    factorization and each unrefined solve is one dispatch."""
+    A = (ac_jacobian(300, avg_degree=4.0, seed=0) if dtype.is_complex
+         else circuit_jacobian(300, avg_degree=4.0, seed=0))
+    rng = np.random.default_rng(1)
+    b = rng.normal(size=A.n) + (1j * rng.normal(size=A.n)
+                                if dtype.is_complex else 0.0)
+    out = _graph_and_eager(A, dtype, b)
+    (g, graph), (_, eager) = out[True], out[False]
+    for i, (got, want) in enumerate(zip(graph, eager)):
+        assert torch.equal(got[0], want[0])
+        assert got[1].tobytes() == want[1].tobytes()
+        assert got[3].tobytes() == want[3].tobytes()
+        assert got[4]["refine_iters"] == want[4]["refine_iters"]
+        if i:
+            assert got[5] == 1 and got[2] == 1
+        assert want[5] == 1 + g._factorizer.n_groups
+    # refined, after a factorization: the |A| pass, the solve's replay,
+    # then one replay and one read per chunk of sweeps
+    info = graph[-1][4]
+    assert info["solve_dispatches"] == 2 + 2 * info["host_syncs"]
+
+
+def test_replays_count_kernel_launches(cuda):
+    """Each replay adds the graph's launches to the kernels' counts: one
+    K1 launch per run and one K2 launch per factorization."""
+    A = circuit_jacobian(300, avg_degree=4.0, seed=0)
+    g = GLU(A)
+    g.factorize()
+    runs = g._factorizer.step_kinds.count("run")
+    k1, k2 = level_run.launches, dense_lu.launches
+    for _ in range(4):
+        g.factorize(A.data)
+    torch.cuda.synchronize()
+    assert level_run.launches - k1 == 4 * runs and dense_lu.launches - k2 == 4
+    assert g.solve_info["n_dispatches"] == 1
+
+
+def test_capture_of_both_cooperative_kernels(cuda):
+    """K1 and K2 (cooperative launches) record into one CUDA graph; its
+    replay gives the eager launches' bits."""
+    from repro_torch.core.executor import CapturedSchedule
+
+    run, vals = random_level_run(np.random.default_rng(2),
+                                 K1_RUNS["grid64"], torch.float64, cuda)
+    a = torch.from_numpy(np.random.default_rng(3).normal(size=(160, 160))
+                         + 160 * np.eye(160)).to(cuda)
+    v0, buf, out = vals.clone(), vals.clone(), {}
+
+    def program():
+        buf.copy_(v0)
+        level_run(buf, run)
+        out["lu"] = dense_lu(a)
+
+    want = level_run(vals.clone(), run)
+    want_lu = dense_lu(a)
+    cap = CapturedSchedule(program, cuda, eager_steps=3)
+    assert cap() == 3 and cap.graph is not None
+    assert cap.launches == {level_run: 1, dense_lu: 1}
+    buf.zero_()
+    assert cap() == 1
+    torch.cuda.synchronize()
+    assert torch.equal(buf, want) and torch.equal(out["lu"], want_lu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_robust_k1_matches_plain(cuda, dtype):
+    """The robust instantiation bumps each level's diagonals after the
+    level's barrier, bit for bit and bump for bump as its plain version,
+    with bumps in several levels; a repeat gives the same bits."""
+    run, vals = random_level_run(np.random.default_rng(6), K1_RUNS["grid64"],
+                                 dtype, cuda)
+    h = run.host
+    rng = np.random.default_rng(7)
+    crushed = []
+    for k in range(run.n_levels):
+        d = h["diag"][h["diag_ptr"][k]:h["diag_ptr"][k + 1]]
+        crushed.append(rng.choice(d, size=min(5, len(d)), replace=False))
+    crushed = torch.from_numpy(np.concatenate(crushed)).to(cuda)
+    vals[crushed] = torch.from_numpy(rng.uniform(-1e-6, 1e-6, len(crushed))
+                                     ).to(cuda, dtype)
+    tau = torch.tensor(1e-3, dtype=dtype, device=cuda)
+    outs = []
+    for fn in (level_run, level_run, level_run_ref):
+        v = vals.clone()
+        count = torch.zeros((), dtype=torch.int32, device=cuda)
+        fn(v, run, tau, count)
+        torch.cuda.synchronize()
+        outs.append((v, int(count)))
+    (got, n), (again, n2), (want, n_want) = outs
+    assert n == n2 == n_want == len(crushed)
+    assert torch.equal(got, want) and torch.equal(again, got)
+    plain = level_run(vals.clone(), run)
+    assert not torch.equal(plain, got)
+
+
+def test_static_pivot_graph_equals_eager(cuda):
+    """GLU(static_pivot) on an unscaled ill-conditioned matrix: the
+    replays' factors, solutions and bump counts equal the eager steps'."""
+    from repro_torch.sparse import ill_conditioned_jacobian
+
+    A = ill_conditioned_jacobian(150, decades=0.0, tiny_pivots=3, seed=5)
+    b = np.random.default_rng(4).normal(size=A.n)
+    out = _graph_and_eager(A, torch.float64, b, static_pivot=1e-10,
+                           mc64="none")
+    for got, want in zip(out[True][1], out[False][1]):
+        assert torch.equal(got[0], want[0])
+        assert got[1].tobytes() == want[1].tobytes()
+    assert out[True][0].solve_info["n_perturbed"] == \
+        out[False][0].solve_info["n_perturbed"] == 2
+
+
+def test_transient_graph_equals_eager(cuda):
+    """The Newton transient on the card: replays and eager steps give the
+    same voltages bit for bit, and the CPU run's to 1e-9."""
+    from repro_torch.circuit import rc_grid_circuit, transient
+
+    ckt = rc_grid_circuit(8, 8, with_diodes=True, seed=0)
+    kw = dict(t_end=0.02, dt=0.005, refine=1)
+    graph = transient(ckt, **kw)
+    eager = transient(ckt, jit_schedule=False, **kw)
+    cpu = transient(ckt, device="cpu", **kw)
+    assert graph.voltages.tobytes() == eager.voltages.tobytes()
+    np.testing.assert_allclose(graph.voltages, cpu.voltages, rtol=1e-9,
+                               atol=1e-9)
+    assert graph.max_residual < 1e-8
+    assert graph.n_factorizations == graph.newton_iters.sum()
+    assert graph.ladder_counts == dict(refactorize=graph.n_factorizations,
+                                       rescale=0, bump=0, replan=0)

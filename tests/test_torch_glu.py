@@ -122,22 +122,35 @@ def test_float32_solve():
 
 
 @pytest.mark.parametrize("option,exc", [
-    (dict(static_pivot=1e-10), NotImplementedError),
     # planar storage needs complex values; real ones are refused as in the
     # JAX package's resolve_layout
     (dict(layout="planar"), ValueError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(jit_schedule=False), NotImplementedError),
     (dict(verify="plan"), NotImplementedError),
     # complex values run on re/im planes; their native layout is not ported
     (dict(dtype=torch.complex128, layout="native"), NotImplementedError),
     (dict(dtype=np.complex64, layout="native"), NotImplementedError),
-], ids=["static_pivot", "planar", "mesh", "jit_schedule", "verify",
-        "complex128", "complex64"])
+], ids=["planar", "mesh", "verify", "complex128", "complex64"])
 def test_out_of_slice_options_raise(option, exc):
     A = torch_circuit_jacobian(40, seed=1)
     with pytest.raises(exc):
         repro_torch.GLU(A, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [dict(static_pivot=1e-10),
+                                    dict(jit_schedule=False)],
+                         ids=["static_pivot", "jit_schedule"])
+def test_ported_options_run(pair, option):
+    """``static_pivot`` and ``jit_schedule=False`` run and solve like the
+    reference's defaults on a healthy matrix (no diagonal is bumped)."""
+    A, gj, _, b = pair
+    g = repro_torch.GLU(torch_circuit_jacobian(300, avg_degree=4.0, seed=0),
+                        device="cpu", **option)
+    x = g.factorize().solve(b)
+    np.testing.assert_allclose(x, gj.solve(b), rtol=TOL, atol=TOL)
+    info = g.solve_info
+    assert info["n_perturbed"] == (0 if "static_pivot" in option else None)
+    assert info["n_dispatches"] == 1 + info["n_groups"]
 
 
 @pytest.mark.parametrize("method", ["factorize_batched", "solve_batched",
