@@ -62,10 +62,34 @@ Phases, in order; any failure exits non-zero before the result line:
     per factorization, refactorize-only ladder counts, voltages bit for
     bit those of the same run with ``jit_schedule=False``; then a
     per-Newton-iterate breakdown: assembly, host preparation, host-to-device
-    copies, factorization replay, solve replays, device-to-host copy.
+    copies, factorization replay, solve replays, device-to-host copy;
+ 9. the batched engine on grid64 and rajat12_like at B = 1 and 16 (each
+    entry times 1 + 0.1 U(-1, 1) from the seed), with the counters at 0:
+    one batched K1 launch per run and one batched K2 launch per batched
+    factorization, each matrix's refined residual < 1e-9; a refactorization
+    with fresh values is one replay for ``factorize_batched`` and one for
+    ``solve_batched``, bit for bit the batched steps one by one and one
+    ``GLU`` a matrix (factors, solutions, refined solutions); timings of
+    the batched replays against B single replays, device kernels and busy
+    share; at B = 16 the batched K1 and K2 on the recorded inputs against
+    their plain versions and the library yardsticks (the per-level eager
+    route on (B, n) values, ``lu_factor(pivot=False)`` on the (B, N, N)
+    batch);
+10. the same for rajat12_ac at B = 8 frequencies over 10^2.5-10^3.5 rad/s
+    (batched K1 on complex values, batched K3);
+11. static pivoting on a batch: ``GLU(grid64, static_pivot=...)`` at
+    B = 4, eps 1e-10 and 0.6, per-matrix bump counts equal between the
+    replays, the steps one by one and one ``GLU`` a matrix, and the batched
+    robust K1 against its plain version bump for bump;
+12. ``transient_sweep`` of 8 copies of the 64 × 64 grid (scales
+    0.8-1.2, t_end 0.05, dt 5e-3, refine=1) with the counters at 0:
+    ``max_residual < 1e-8``, one K1 and one K2 launch per batched
+    factorization, every copy within 1e-9 of ``transient`` on its own
+    circuit, and a per-iterate breakdown of the batch.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
-and matrix, over all matrices; the last line is
+and matrix, over all matrices (the batched ones with ``batch``); the last
+line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -115,6 +139,13 @@ PIVOT_EPS_BUMPS = 0.6
 # the transient phase: the G3_circuit-like grid at grid64's width
 TRANSIENT = dict(nx=64, ny=64, t_end=0.1, dt=5e-3, refine=1)
 AC_OMEGAS = np.logspace(2.5, 3.5, N_REFACTOR)   # rad/s, around the plan's 1e3
+# the batched engine: batch sizes per matrix, rajat12_ac's frequencies
+# (log10 rad/s), the static-pivot batch, and the lockstep transient sweep
+BATCHES = {"grid64": (1, 16), "rajat12_like": (1, 16), "rajat12_ac": (8,)}
+BATCH_AC_OMEGAS = (2.5, 3.5)
+PIVOT_BATCH = 4
+SWEEP = dict(nx=64, ny=64, t_end=0.05, dt=5e-3, refine=1,
+             scales=np.linspace(0.8, 1.2, 8))
 SEED = 1234
 
 
@@ -319,11 +350,12 @@ def launch_counts():
     return level_run.launches, dense_lu.launches, dense_lu_planar.launches
 
 
-def record_kernel_inputs(g, a_data):
-    """Factorize ``a_data`` with ``g``'s steps one by one (``g`` has
-    ``jit_schedule=False``), recording each kernel's input: K1's value array
-    just before each run (with the run, and tau and the count buffer under
-    static pivoting), each dense tile for K2 and K3."""
+def record_kernel_inputs(g, a_data, batched: bool = False):
+    """Factorize ``a_data`` ((B, nnz) with ``batched``) with ``g``'s steps
+    one by one (``g`` has ``jit_schedule=False``), recording each kernel's
+    input: K1's value array just before each run (with the run, and tau and
+    the count buffer under static pivoting), each dense tile (or batch of
+    tiles) for K2 and K3."""
     import repro_torch.core.factorize as factorize_mod
 
     fz = g._factorizer
@@ -348,7 +380,7 @@ def record_kernel_inputs(g, a_data):
     factorize_mod.dense_lu = tile_recorder("k2")
     factorize_mod.dense_lu_planar = tile_recorder("k3")
     try:
-        g.factorize(a_data)
+        (g.factorize_batched if batched else g.factorize)(a_data)
     finally:
         fz._step["run"] = real["k1"]
         factorize_mod.level_run = real["k1_robust"]
@@ -533,61 +565,91 @@ def kernel_entries(dev, clock, rec, report):
     return out
 
 
-def _k1_bound(run, esize: int, planes: int, n_bumped=None):
+# the JAX package's functions that reach K1's pallas_call, by value kind
+# and batch: (name of the entry, file:line of the function)
+K1_SITES = {(False, False): ("level_run", "src/repro/kernels/level_update.py:60"),
+            (True, False): ("level_run", "src/repro/kernels/level_update.py:60"),
+            (False, True): ("level_run_batched", "src/repro/kernels/ops.py:86"),
+            (True, True): ("level_run_batched", "src/repro/kernels/ops.py:173")}
+
+
+def _k1_bound(run, esize: int, planes: int, n_bumped=None, batch: int = 1):
     """Bytes and operations one run needs on its real data: each layout
-    index read once, each value it reads (operands, segments' touched slots,
-    normalized entries and their diagonals) read once, each slot it writes
-    written once; a real update is a divide, a multiply and an add, a
-    complex one 20 real operations (pdiv 12, pmul 6, the add 2), a
-    normalization one division (complex: 12).  With ``n_bumped`` (the
-    robust instantiation): the diagonal lists too, each diagonal read and
-    compared once, each bumped one written once."""
+    index read once (a batch shares them), each value it reads (operands,
+    segments' touched slots, normalized entries and their diagonals) read
+    once and each slot it writes written once, in every matrix; a real
+    update is a divide, a multiply and an add, a complex one 20 real
+    operations (pdiv 12, pmul 6, the add 2), a normalization one division
+    (complex: 12).  With ``n_bumped`` (the robust instantiation, bumps over
+    the batch): the diagonal lists too, each diagonal read and compared
+    once, each bumped one written once."""
     h = run.host
     layout = ("levels", "items", "rows", "upd", "norm")
     diag = h["diag"] if n_bumped is not None else np.zeros(0, np.int64)
     written = run.written_slots()
     read = np.unique(np.concatenate([h["upd"][:, :3].ravel(), written,
                                      h["norm"].ravel(), diag]))
-    n_written = len(np.unique(written)) + len(h["norm"]) + (n_bumped or 0)
+    n_written = len(np.unique(written)) + len(h["norm"])
     n_index = sum(h[k].size for k in layout)
     if n_bumped is not None:
         n_index += h["diag_ptr"].size + diag.size
-    n_bytes = 4 * n_index + planes * esize * (len(read) + n_written)
+    n_bytes = 4 * n_index + planes * esize * (
+        batch * (len(read) + n_written) + (n_bumped or 0))
     per_upd, per_norm = (20, 12) if planes == 2 else (3, 1)
-    return n_bytes, (run.n_updates * per_upd + len(h["norm"]) * per_norm
-                     + diag.size)
+    return n_bytes, batch * (run.n_updates * per_upd + len(h["norm"]) * per_norm
+                             + diag.size)
+
+
+def _library_level_route(vals, levels, lib_idx, tau=None, count=None):
+    """The library route of K1 on (n,) or (B, n) values: per level the eager
+    steps (``perturb_diags`` first under static pivoting, normalize, the
+    products) with one ``scatter_add_`` (atomics) in place of the
+    fixed-order accumulation.  ``lib_idx`` holds each level's slots shaped
+    for it (:func:`_library_index`)."""
+    from repro_torch.kernels.ops import perturb_diags
+    from repro_torch.sparse import pdiv, pmul
+
+    cplx = vals.is_complex()
+    target = torch.view_as_real(vals) if cplx else vals
+    dim = vals.dim() - 1
+    for (lidx, uidx, _, _, _, ni, nd, diag), slots in zip(levels, lib_idx):
+        if tau is not None:
+            count += perturb_diags(vals, diag, tau)[1]
+        if cplx:
+            vals[..., ni] = torch.view_as_complex(pdiv(
+                torch.view_as_real(vals[..., ni]),
+                torch.view_as_real(vals[..., nd])))
+            c = -pmul(torch.view_as_real(vals[..., lidx]),
+                      torch.view_as_real(vals[..., uidx]))
+        else:
+            vals[..., ni] = vals[..., ni] / vals[..., nd]
+            c = -(vals[..., lidx] * vals[..., uidx])
+        target.scatter_add_(dim, slots, c)
+
+
+def _library_index(levels, v0):
+    """Each level's slots expanded to the shape of its contributions on
+    values like ``v0``, for :func:`_library_level_route`."""
+    out = []
+    for t in levels:
+        slots = t[3]
+        shape = v0.shape[:-1] + slots.shape + ((2,) if v0.is_complex() else ())
+        view = (1,) * (v0.dim() - 1) + (-1,) + ((1,) if v0.is_complex() else ())
+        out.append(slots.view(view).expand(shape).contiguous())
+    return out
 
 
 def _k1_entry(dev, clock, rec_k1, report):
-    """K1 on the recorded run(s) of one factorization: the kernel must
-    equal its plain version bit for bit, and repeat bit for bit.  Each
-    timed call starts from the recorded values (a copy whose own time is
-    measured and subtracted).  The yardstick is the library route: the
-    per-level eager steps of the plain route with one ``scatter_add_``
-    (atomics) a level in place of the fixed-order accumulation; it is
-    timed only."""
+    """K1 on the recorded run(s) of one factorization (a batch's (B, n)
+    value array when the path was batched): the kernel must equal its plain
+    version bit for bit, and repeat bit for bit.  Each timed call starts
+    from the recorded values (a copy whose own time is measured and
+    subtracted).  The yardstick is the library route: the per-level eager
+    steps of the plain route with one ``scatter_add_`` (atomics) a level in
+    place of the fixed-order accumulation; it is timed only."""
     from repro_torch.kernels import level_run
     from repro_torch.kernels.level_update import random_level_run
     from repro_torch.kernels.ref import level_run_ref
-    from repro_torch.sparse import pdiv, pmul
-
-    def div(a, b):
-        if a.is_complex():
-            return torch.view_as_complex(pdiv(torch.view_as_real(a),
-                                              torch.view_as_real(b)))
-        return a / b
-
-    def library_route(vals, run, lib_idx):
-        target = torch.view_as_real(vals) if vals.is_complex() else vals
-        for (lidx, uidx, _, _, _, ni, nd, _), slots in zip(run.ref_levels(),
-                                                       lib_idx):
-            vals[ni] = div(vals[ni], vals[nd])
-            if vals.is_complex():
-                c = -pmul(torch.view_as_real(vals[lidx]),
-                          torch.view_as_real(vals[uidx]))
-            else:
-                c = -(vals[lidx] * vals[uidx])
-            target.scatter_add_(0, slots, c)
 
     bufs, n_bytes, n_ops = [], 0, 0
     for v0, run, _ in rec_k1:
@@ -600,12 +662,10 @@ def _k1_entry(dev, clock, rec_k1, report):
             ("K1 differs from its plain version on the path's run",
              (got - want).abs().max().item())
         assert torch.equal(again, got), "K1 repeat differs"
-        slots = [t[3] if not v0.is_complex() else
-                 t[3][:, None].expand(-1, 2).contiguous()
-                 for t in run.ref_levels()]
-        bufs.append((v0, run, v0.clone(), slots))
+        bufs.append((v0, run, v0.clone(), _library_index(run.ref_levels(), v0)))
+        batch = v0.shape[0] if v0.dim() == 2 else 1
         b, o = _k1_bound(run, v0.element_size() // report["planes"],
-                         report["planes"])
+                         report["planes"], batch=batch)
         n_bytes, n_ops = n_bytes + b, n_ops + o
 
     def copies():
@@ -620,39 +680,50 @@ def _k1_entry(dev, clock, rec_k1, report):
         return max(clock.ms(call, reps=reps) - copy_ms, 0.0)
 
     copy_ms = clock.ms(copies, reps=20)
-    # the latency floor: as many levels, each one row of one update, on
-    # values of the same dtype (barriers and each level's dependent loads;
-    # the values drift from call to call, which the timing does not see)
-    floor_run, floor_vals = random_level_run(
-        np.random.default_rng(SEED), [(1, 1, 1)] * report["k1_levels"],
-        rec_k1[0][0].dtype, dev)
-    floor_ms = clock.ms(lambda: level_run(floor_vals, floor_run), reps=20)
-    k1 = dict(name="level_run", route="cuda",
+    v0 = rec_k1[0][0]
+    batched = v0.dim() == 2
+    name, site = K1_SITES[(v0.is_complex(), batched)]
+    k1 = dict(name=name, route="cuda",
               source="src/repro_torch/kernels/csrc/level_run.cu",
-              replaces="src/repro/kernels/level_update.py:60",
-              launches=report["k1_launches"], max_abs_err=0.0,
+              replaces=site, launches=report["k1_launches"], max_abs_err=0.0,
               ms=timed(lambda v, r, s: level_run(v, r), 20),
               plain_ms=timed(lambda v, r, s: level_run_ref(v, r), 3),
               **_bound(n_bytes, n_ops),
-              library_ms=timed(library_route, 10))
+              library_ms=timed(lambda v, r, s: _library_level_route(
+                  v, r.ref_levels(), s), 10))
     k1.update(levels=report["k1_levels"], updates=report["k1_updates"],
               rows=report["k1_rows"], bytes=n_bytes, operations=n_ops,
-              copy_ms=copy_ms, floor_ms=floor_ms,
-              ratio_to_library=k1["ms"] / k1["library_ms"],
+              copy_ms=copy_ms, ratio_to_library=k1["ms"] / k1["library_ms"],
               library="per-level eager route, one scatter_add_ a level")
-    log(f"{report['matrix']}: level_run ({k1['levels']} levels, "
-        f"{k1['updates']} updates, one launch) {k1['ms']:.4f} ms, bit-identical "
-        f"to the plain version ({k1['plain_ms']:.3f} ms); library route "
-        f"{k1['library_ms']:.4f} ms, ms/library_ms={k1['ratio_to_library']:.3f}; "
-        f"bound {k1['bound_ms']:.5f} ms ({k1['bound_by']}); copy "
-        f"{copy_ms:.4f} ms subtracted; latency floor of {k1['levels']} "
-        f"one-update levels {floor_ms:.4f} ms")
+    extra = ""
+    if batched:
+        k1.update(batch=v0.shape[0], kernel_site=K1_SITES[(False, False)][1])
+        extra = f", batch {v0.shape[0]}"
+    else:
+        # the latency floor: as many levels, each one row of one update, on
+        # values of the same dtype (barriers and each level's dependent
+        # loads; the values drift from call to call, which the timing does
+        # not see)
+        floor_run, floor_vals = random_level_run(
+            np.random.default_rng(SEED), [(1, 1, 1)] * report["k1_levels"],
+            v0.dtype, dev)
+        k1["floor_ms"] = clock.ms(lambda: level_run(floor_vals, floor_run),
+                                  reps=20)
+        extra = (f"; latency floor of {k1['levels']} one-update levels "
+                 f"{k1['floor_ms']:.4f} ms")
+    log(f"{report['matrix']}: {name} ({k1['levels']} levels, "
+        f"{k1['updates']} updates a matrix, one launch{extra}) {k1['ms']:.4f} "
+        f"ms, bit-identical to the plain version ({k1['plain_ms']:.3f} ms); "
+        f"library route {k1['library_ms']:.4f} ms, ms/library_ms="
+        f"{k1['ratio_to_library']:.3f}; bound {k1['bound_ms']:.5f} ms "
+        f"({k1['bound_by']}); copy {copy_ms:.4f} ms subtracted")
     return k1
 
 
 def _tile_entry(clock, tiles, report, planar: bool):
     """K2 (real (N, N) tiles) or K3 ((2, N, N) complex planes) on the
-    recorded dense-tail tile(s)."""
+    recorded dense-tail tile(s), or on the recorded batch(es) of tiles
+    ((B, N, N), (B, 2, N, N)) of a batched path."""
     from repro_torch.kernels import dense_lu, dense_lu_planar
     from repro_torch.kernels.ref import (
         dense_lu_planar_ref,
@@ -662,24 +733,31 @@ def _tile_entry(clock, tiles, report, planar: bool):
 
     kernel = dense_lu_planar if planar else dense_lu
     plain = dense_lu_planar_ref if planar else dense_lu_ref
+    batched = tiles[0].dim() == (4 if planar else 3)
     err = 0.0
+    n_tiles = 0
     for a in tiles:
         got = kernel(a)
         err = max(err, compare(got, plain(a),
                                K2_TOL[str(a.dtype).split(".")[-1]]))
-        bwd = lu_backward_error(a, got)
-        bwd_tol = K2_BWD * a.shape[-1] * torch.finfo(a.dtype).eps
-        assert bwd <= bwd_tol, ("path tile", planar, bwd, bwd_tol)
+        for t, lu in zip(*((a, got) if batched else ([a], [got]))):
+            bwd = lu_backward_error(t, lu)
+            bwd_tol = K2_BWD * a.shape[-1] * torch.finfo(a.dtype).eps
+            assert bwd <= bwd_tol, ("path tile", planar, bwd, bwd_tol)
+            n_tiles += 1
     # the real tail, not its padding to the block: each value read and
     # written once; 2m^3/3 multiply-adds as operations, a complex one being
-    # 4 real multiplies and 4 adds (8m^3/3 real operations in all)
+    # 4 real multiplies and 4 adds (8m^3/3 real operations in all); a
+    # batch, every tile
     esize = tiles[0].element_size()
     per = 2 if planar else 1
-    n_bytes = sum(2 * per * m * m * esize for m in report["tail_sizes"])
-    n_ops = sum(per * per * 2 * m ** 3 / 3 for m in report["tail_sizes"])
-    # library yardstick: one unpivoted LU call on the same tile, complex
+    reps = n_tiles // len(report["tail_sizes"])
+    n_bytes = reps * sum(2 * per * m * m * esize for m in report["tail_sizes"])
+    n_ops = reps * sum(per * per * 2 * m ** 3 / 3 for m in report["tail_sizes"])
+    # library yardstick: one unpivoted LU call on the same tile(s), complex
     # for K3 (converted once, outside the timing)
-    lib_in = [torch.complex(a[0], a[1]) if planar else a for a in tiles]
+    lib_in = [torch.complex(a.select(-3, 0), a.select(-3, 1)) if planar else a
+              for a in tiles]
 
     def run():
         for a in tiles:
@@ -693,22 +771,29 @@ def _tile_entry(clock, tiles, report, planar: bool):
         for a in lib_in:
             torch.linalg.lu_factor(a, pivot=False)
 
+    suffix = "_batched" if batched else ""
     if planar:
-        ent = dict(name="dense_lu_planar", route="cuda",
+        ent = dict(name="dense_lu_planar" + suffix, route="cuda",
                    source="src/repro_torch/kernels/csrc/dense_lu_planar.cu",
                    replaces="src/repro/kernels/dense_lu.py:207",
                    launches=report["k3_launches"])
     else:
-        ent = dict(name="dense_lu", route="cuda",
+        ent = dict(name="dense_lu" + suffix, route="cuda",
                    source="src/repro_torch/kernels/csrc/dense_lu.cu",
                    replaces="src/repro/kernels/dense_lu.py:98",
                    launches=report["k2_launches"])
     ent.update(max_abs_err=err, ms=clock.ms(run),
-               plain_ms=clock.ms(run_plain, reps=3), **_bound(n_bytes, n_ops),
-               library_ms=clock.ms(run_lib))
+               plain_ms=clock.ms(run_plain, reps=1 if batched else 3),
+               **_bound(n_bytes, n_ops), library_ms=clock.ms(run_lib))
     ent["N"] = [int(a.shape[-1]) for a in tiles]
     ent["ratio_to_library"] = ent["ms"] / ent["library_ms"]
-    log(f"{report['matrix']}: {ent['name']} N={ent['N']} {ent['ms']:.4f} ms, "
+    if batched:
+        ent["batch"] = int(tiles[0].shape[0])
+        ent["also_replaces"] = ("src/repro/core/factorize.py:"
+                                + ("465" if planar else "424")
+                                + " (the batched tail: vmap of the XLA LU)")
+    log(f"{report['matrix']}: {ent['name']} N={ent['N']}"
+        f"{' B=' + str(ent['batch']) if batched else ''} {ent['ms']:.4f} ms, "
         f"library {ent['library_ms']:.4f} ms, ms/library_ms="
         f"{ent['ratio_to_library']:.3f}, bound {ent['bound_ms']:.5f} ms "
         f"({ent['bound_by']})")
@@ -821,33 +906,30 @@ def profile_path(dev, clock, g, ge):
 
 def robust_k1_entry(dev, clock, rec_k1, report):
     """K1's robust instantiation on the recorded run of grid64's
-    static-pivot factorization (its tau): kernel against plain version bit
-    for bit and bump for bump, times of kernel, plain version and the
+    static-pivot factorization (its tau; a batch's (B, n) values with (B,)
+    tau and counts when the path was batched): kernel against plain version
+    bit for bit and bump for bump, times of kernel, plain version and the
     library route (per level, ``perturb_diags`` and the per-level eager
     steps with one ``scatter_add_``)."""
     from repro_torch.kernels import level_run
-    from repro_torch.kernels.ops import perturb_diags
     from repro_torch.kernels.ref import level_run_ref
 
     (v0, run, (tau, _)), = rec_k1
-    count = torch.zeros((), dtype=torch.int32, device=dev)
+    batched = v0.dim() == 2
+    count = torch.zeros(v0.shape[:-1], dtype=torch.int32, device=dev)
     got, want = v0.clone(), v0.clone()
     c_got, c_want = count.clone(), count.clone()
     level_run(got, run, tau, c_got)
     level_run_ref(want, run, tau, c_want)
     torch.cuda.synchronize(dev)
-    assert torch.equal(got, want) and int(c_got) == int(c_want), \
+    bumps = c_got.tolist()
+    assert torch.equal(got, want) and bumps == c_want.tolist(), \
         ("robust K1 differs from its plain version on the path's run",
-         (got - want).abs().max().item(), int(c_got), int(c_want))
+         (got - want).abs().max().item(), bumps, c_want.tolist())
     buf = v0.clone()
     copy_ms = clock.ms(lambda: buf.copy_(v0), reps=20)
     levels = run.ref_levels()
-
-    def library_route(vals, c):
-        for lidx, uidx, _, slots, _, ni, nd, diag in levels:
-            c += perturb_diags(vals, diag, tau)[1]
-            vals[ni] = vals[ni] / vals[nd]
-            vals.scatter_add_(0, slots, -(vals[lidx] * vals[uidx]))
+    lib_idx = _library_index(levels, v0)
 
     def timed(fn, reps):
         def call():
@@ -856,27 +938,33 @@ def robust_k1_entry(dev, clock, rec_k1, report):
             fn(buf, count)
         return max(clock.ms(call, reps=reps) - copy_ms, 0.0)
 
-    n_bytes, n_ops = _k1_bound(run, v0.element_size(), 1, int(c_got))
-    ent = dict(name="level_run_robust", route="cuda",
-               source="src/repro_torch/kernels/csrc/level_run.cu",
-               replaces="src/repro/kernels/level_update.py:60",
+    n_bytes, n_ops = _k1_bound(run, v0.element_size(), 1,
+                               int(c_got.sum()), batch=v0.numel() // v0.shape[-1])
+    ent = dict(name="level_run_robust" + ("_batched" if batched else ""),
+               route="cuda", source="src/repro_torch/kernels/csrc/level_run.cu",
+               replaces=("src/repro/kernels/ops.py:86" if batched
+                         else "src/repro/kernels/level_update.py:60"),
                launches=report["k1_launches"], max_abs_err=0.0,
                ms=timed(lambda v, c: level_run(v, run, tau, c), 20),
                plain_ms=timed(lambda v, c: level_run_ref(v, run, tau, c), 3),
                **_bound(n_bytes, n_ops),
-               library_ms=timed(library_route, 10))
+               library_ms=timed(lambda v, c: _library_level_route(
+                   v, levels, lib_idx, tau, c), 10))
     ent.update(matrix=report["matrix"], levels=run.n_levels,
-               updates=run.n_updates, bumps=int(c_got), bytes=n_bytes,
+               updates=run.n_updates, bumps=bumps, bytes=n_bytes,
                operations=n_ops, copy_ms=copy_ms,
                ratio_to_library=ent["ms"] / ent["library_ms"],
                library="per level perturb_diags + the eager steps, one "
                        "scatter_add_ a level",
                also_replaces="src/repro/kernels/ops.py:220 "
                              "(_perturb_diags_body, per level)")
-    log(f"{report['matrix']}: level_run robust ({run.n_levels} levels, "
-        f"{int(c_got)} bumps at tau={float(tau):.3e}) {ent['ms']:.4f} ms, "
-        f"bit-identical to the plain version ({ent['plain_ms']:.3f} ms); "
-        f"library route {ent['library_ms']:.4f} ms; bound "
+    if batched:
+        ent.update(batch=v0.shape[0],
+                   kernel_site="src/repro/kernels/level_update.py:60")
+    log(f"{report['matrix']}: {ent['name']} ({run.n_levels} levels, "
+        f"{bumps} bumps at tau={tau.tolist()}) {ent['ms']:.4f} ms, "
+        f"bit-identical to the plain version ({ent['plain_ms']:.3f} ms), "
+        f"bump for bump; library route {ent['library_ms']:.4f} ms; bound "
         f"{ent['bound_ms']:.5f} ms ({ent['bound_by']})")
     return ent
 
@@ -1051,6 +1139,369 @@ def drive_transient(dev):
                 breakdown=breakdown)
 
 
+def batch_values(name, A, B, rng):
+    """B value vectors on A's pattern: for the real matrices the entries
+    times 1 + 0.1 U(-1, 1) (as ``benchmarks/bench_batched.py`` perturbs
+    them), for rajat12_ac B frequencies over ``BATCH_AC_OMEGAS``."""
+    from repro_torch.sparse import ac_jacobian
+
+    if name == "rajat12_ac":
+        return np.stack([ac_jacobian(1879, omega=w, avg_degree=6.9,
+                                     seed=0).data
+                         for w in np.logspace(*BATCH_AC_OMEGAS, B)])
+    return np.asarray(A.data)[None] * (
+        1.0 + 0.1 * rng.uniform(-1.0, 1.0, size=(B, A.nnz)))
+
+
+def _residuals(A, batch, x, bs):
+    """Each matrix's ``||A_b x_b - b_b|| / ||b_b||`` (inf norms)."""
+    S = A.to_scipy()
+    out = []
+    for vals, xb, bb in zip(batch, x, bs):
+        S.data = vals
+        out.append(float(np.abs(S @ xb - bb).max() / np.abs(bb).max()))
+    return out
+
+
+def drive_batched(dev, clock, name, want_k1, want_k2, want_k3):
+    """Phases 9-10 for one matrix: the batched engine at each batch size of
+    ``BATCHES``, the counters at 0 just before the first batched
+    factorization and solve and read just after.  Returns the reports, the
+    kernels' inputs recorded from a factorization at the largest batch, and
+    that batch's report for the kernel entries."""
+    from repro_torch import GLU
+
+    A = make_matrix(name)
+    cplx = np.iscomplexobj(A.data)
+    dtype = torch.complex128 if cplx else torch.float64
+    rng = np.random.default_rng(SEED + 2)
+    g1 = GLU(A, dtype=dtype)            # one matrix at a time, the yardstick
+    reports, rec, ent_report = [], None, None
+    for B in BATCHES[name]:
+        batch = batch_values(name, A, B, rng)
+        bs = rng.normal(size=(B, A.n)) + (1j * rng.normal(size=(B, A.n))
+                                          if cplx else 0.0)
+        # -- the path: counters at 0 just before, read just after -----------
+        reset_counts()
+        t0 = time.perf_counter()
+        g = GLU(A, dtype=dtype)
+        g.factorize_batched(batch)
+        x = g.solve_batched(bs)
+        torch.cuda.synchronize(dev)
+        first_s = time.perf_counter() - t0
+        k1, k2, k3 = launch_counts()
+        fz = g._factorizer
+        steps = fz.step_kinds
+        runs = [gr.arrays[0] for gr in fz._groups if gr.kind == "run"]
+        info = g.solve_info
+        assert k1 == len(runs) == want_k1, (name, B, k1, want_k1)
+        assert (k2, k3) == (want_k2, want_k3), (name, B, k2, k3)
+        assert info["batched"] and info["kernels_disabled_reason"] is None
+        # the batch's values keep the plan's MC64 scaling of A's own: an
+        # unrefined solve's residual is the values' conditioning, and the
+        # bar of 1e-9 holds each matrix's refined solve to it
+        res0 = _residuals(A, batch, x, bs)
+        res = _residuals(A, batch, g.solve_batched(bs, refine=2), bs)
+        assert x.shape == (B, A.n) and np.isfinite(x).all() \
+            and max(res) < 1e-9, (name, B, max(res))
+        log(f"{name} batched B={B}: path K1 launches={k1}, K2={k2}, K3={k3} "
+            f"(one batched launch each for the whole batch), residuals max "
+            f"{max(res0):.3e} unrefined, {max(res):.3e} < 1e-9 with refine=2; "
+            f"GLU build + first batched factorize and solve {first_s:.3f} s "
+            f"(steps one by one, then the captures)")
+
+        # -- refactorization: one replay each, against the steps one by one
+        #    and against one matrix at a time ---------------------------------
+        ge = GLU(A, dtype=dtype, jit_schedule=False)
+        new = batch_values(name, A, B, rng) if name != "rajat12_ac" else \
+            batch * (1.0 + 0.01 * rng.uniform(-1.0, 1.0, size=batch.shape))
+        before = launch_counts()
+        x = g.factorize_batched(new).solve_batched(bs)
+        torch.cuda.synchronize(dev)
+        after = launch_counts()
+        disp = (g.solve_info["n_dispatches"], g.solve_info["solve_dispatches"])
+        assert disp == (1, 1), (name, B, disp)
+        assert tuple(a - b for a, b in zip(after, before)) == (k1, k2, k3)
+        xe = ge.factorize_batched(new).solve_batched(bs)
+        vals = g.factorized_values_batched()
+        assert torch.equal(vals, ge.factorized_values_batched()), (name, B)
+        assert x.tobytes() == xe.tobytes(), (name, B)
+        for b in range(B):
+            xs = g1.factorize(new[b]).solve(bs[b])
+            assert torch.equal(g1.factorized_values(), vals[b]), (name, B, b)
+            assert xs.tobytes() == x[b].tobytes(), (name, B, b)
+        res0 = _residuals(A, new, x, bs)
+        xr = g.solve_batched(bs, refine=2)
+        rinfo = g.solve_info
+        xre = ge.solve_batched(bs, refine=2)
+        res = _residuals(A, new, xr, bs)
+        assert max(res) < 1e-9, (name, B, max(res))
+        assert rinfo["converged"].all() and xr.tobytes() == xre.tobytes()
+        assert rinfo["refine_iters"].tolist() == \
+            ge.solve_info["refine_iters"].tolist()
+        log(f"{name} batched B={B}: refactorization one replay each for "
+            f"factorize_batched and solve_batched, bit-identical to the steps "
+            f"one by one ({ge.solve_info['n_dispatches']} steps) and to one "
+            f"GLU a matrix (factors and solutions); refine=2 bit-identical, "
+            f"iters {rinfo['refine_iters'].tolist()}; residuals max "
+            f"{max(res0):.3e} unrefined, {max(res):.3e} < 1e-9 refined")
+
+        # -- timings: values on the card ---------------------------------------
+        bp = torch.as_tensor((bs * g.Dr[None, :])[:, g._inv_row], dtype=dtype,
+                             device=dev)
+        fact_ms = clock.ms(fz.run_batched, reps=20)
+        fact_eager_ms = clock.ms(ge._factorizer.run_batched, reps=5)
+        solve_ms = clock.ms(lambda: g._solver.solve_batched(g._vals_batch, bp),
+                            reps=5)
+        g1.factorize(new[0])
+        one_fact_ms = clock.ms(lambda: [g1._factorizer.run()
+                                        for _ in range(B)], reps=5)
+        one_solve_ms = clock.ms(lambda: [g1._solver.solve(g1._vals, bp[0])
+                                         for _ in range(B)], reps=2)
+        prof = {"eager_factorize": _profile_until(
+            dev, ge._factorizer.run_batched,
+            {"level_run_kernels": len(runs),
+             "dense_lu_kernels": steps.count("dense")})[0],
+            "factorize": _profile(dev, fz.run_batched),
+            "solve": _profile(dev, lambda: g._solver.solve_batched(
+                g._vals_batch, bp))}
+        for key, fn in (("factorize", fz.run_batched),
+                        ("solve", lambda: g._solver.solve_batched(
+                            g._vals_batch, bp))):
+            if "device_busy_ms" in prof[key]:
+                prof[key]["event_ms"] = clock.ms(fn, reps=5)
+                prof[key]["device_busy_share"] = (prof[key]["device_busy_ms"]
+                                                  / prof[key]["event_ms"])
+        rep = dict(matrix=name, batch=B, dtype=str(dtype), k1_launches=k1,
+                   k2_launches=k2, k3_launches=k3, first_call_s=first_s,
+                   factorize_dispatches=1, solve_dispatches=1,
+                   eager_factorize_steps=ge.solve_info["n_dispatches"],
+                   residual_max=max(res), unrefined_residual_max=max(res0),
+                   refine2_iters=rinfo["refine_iters"].tolist(),
+                   factorize_ms=fact_ms, factorize_ms_per_matrix=fact_ms / B,
+                   eager_factorize_ms=fact_eager_ms,
+                   single_factorizes_ms=one_fact_ms,
+                   solve_ms=solve_ms, solve_ms_per_matrix=solve_ms / B,
+                   single_solves_ms=one_solve_ms, profile=prof)
+        reports.append(rep)
+        log(f"{name} batched B={B}: factorize_batched {fact_ms:.4f} ms one "
+            f"replay ({fact_ms / B:.4f} ms a matrix; {B} single replays "
+            f"{one_fact_ms:.4f} ms; steps one by one {fact_eager_ms:.4f} ms); "
+            f"solve_batched {solve_ms:.4f} ms one replay ({solve_ms / B:.4f} "
+            f"ms a matrix; {B} single replays {one_solve_ms:.4f} ms); device "
+            f"kernels a factorization {prof['factorize'].get('kernels')} "
+            f"(busy {prof['factorize'].get('device_busy_share')}), a solve "
+            f"{prof['solve'].get('kernels')} (busy "
+            f"{prof['solve'].get('device_busy_share')})")
+        if B == max(BATCHES[name]):
+            rec = record_kernel_inputs(ge, new, batched=True)
+            ent_report = dict(
+                matrix=name, planes=2 if cplx else 1,
+                k1_levels=fz.kinds.count("pallas"), k1_launches=k1,
+                k2_launches=k2, k3_launches=k3,
+                k1_updates=sum(r.n_updates for r in runs),
+                k1_rows=sum(len(r.host["rows"]) for r in runs),
+                tail_sizes=([fz.dense_tail_info["size"]]
+                            if fz.dense_tail_info else []),
+                eager_profile=prof["eager_factorize"])
+        del g, ge
+    return reports, rec, ent_report
+
+
+def drive_batched_static_pivot(dev, clock):
+    """Phase 11: ``GLU(grid64, static_pivot=...)`` on a batch of
+    ``PIVOT_BATCH`` matrices: the batched robust K1 inside the replay,
+    per-matrix bump counts equal between the replay, the steps one by one,
+    one GLU a matrix and (at the path's recorded run) K1's batched plain
+    version."""
+    from repro_torch import GLU
+
+    A = make_matrix("grid64")
+    rng = np.random.default_rng(SEED + 3)
+    B = PIVOT_BATCH
+    bs = rng.normal(size=(B, A.n))
+    sets = [batch_values("grid64", A, B, rng)] + [
+        np.stack([newton_values(A, rng) for _ in range(B)]) for _ in range(2)]
+    reset_counts()
+    g = GLU(A, static_pivot=PIVOT_EPS)
+    x = g.factorize_batched(sets[0]).solve_batched(bs)
+    torch.cuda.synchronize(dev)
+    k1, k2, _ = launch_counts()
+    assert k1 == g._factorizer.step_kinds.count("run") == 1 and k2 == 1
+    assert np.isfinite(x).all() and max(_residuals(
+        A, sets[0], g.solve_batched(bs, refine=2), bs)) < 1e-9
+    report = {"matrix": "grid64", "batch": B, "k1_launches": k1,
+              "static_pivot": {}}
+    log(f"batched static pivot: grid64 B={B} path K1 launches={k1} (robust "
+        f"batched instantiation), K2 launches={k2}, n_perturbed="
+        f"{g.solve_info['n_perturbed'].tolist()}")
+    rec = None
+    for eps in (PIVOT_EPS, PIVOT_EPS_BUMPS):
+        g = GLU(A, static_pivot=eps)
+        ge = GLU(A, static_pivot=eps, jit_schedule=False)
+        g1 = GLU(A, static_pivot=eps)
+        counts = []
+        for i, vals in enumerate(sets):
+            x = g.factorize_batched(vals).solve_batched(bs)
+            xe = ge.factorize_batched(vals).solve_batched(bs)
+            info = g.solve_info
+            n = info["n_perturbed"].tolist()
+            assert n == ge.solve_info["n_perturbed"].tolist(), (eps, i)
+            f = g.factorized_values_batched()
+            assert torch.equal(f, ge.factorized_values_batched())
+            assert x.tobytes() == xe.tobytes(), (eps, i)
+            if i:
+                assert (info["n_dispatches"], info["solve_dispatches"]) == (1, 1)
+            for b in range(B):
+                g1.factorize(vals[b])
+                assert g1.solve_info["n_perturbed"] == n[b], (eps, i, b)
+                assert torch.equal(g1.factorized_values(), f[b]), (eps, i, b)
+            if eps == PIVOT_EPS:
+                assert not any(n) and max(_residuals(
+                    A, vals, g.solve_batched(bs, refine=2), bs)) < 1e-9
+            else:
+                assert sum(n) > 0 and np.isfinite(x).all(), n
+            counts.append(n)
+        report["static_pivot"][str(eps)] = dict(n_perturbed=counts)
+        log(f"batched static pivot eps={eps:g}: 3 batched factorizations and "
+            f"solves, one replay each, bit-identical to the steps one by one "
+            f"and to one GLU a matrix, bumps a matrix {counts} (equal)")
+        if eps == PIVOT_EPS_BUMPS:
+            rec = record_kernel_inputs(ge, sets[0], batched=True)
+            report.update(factorize_ms=clock.ms(g._factorizer.run_batched,
+                                                reps=20),
+                          eager_factorize_ms=clock.ms(
+                              ge._factorizer.run_batched, reps=5))
+    return report, robust_k1_entry(dev, clock, rec["k1"], report)
+
+
+def sweep_breakdown(dev, ckts, g, volts, dt):
+    """Per Newton iterate of the sweep, its parts as ``refactorize_solve``
+    runs them (refine=1), each timed alone: numpy assembly of the B
+    circuits, host preparation, host-to-device copies, the batched
+    factorization replay (CUDA events), the |A| pass and the batched
+    refined solve's replays with their device-to-host read (CUDA events),
+    and the solutions' device-to-host copy.  Iterates: the run's own time
+    points, at their converged voltages."""
+    fz, sv = g._factorizer, g._solver
+    B, n = len(ckts), volts.shape[-1]
+    rows = []
+    for s in range(1, volts.shape[1]):
+        t0 = time.perf_counter()
+        vals = np.empty((B, ckts[0].pattern().nnz))
+        rhs = np.empty((B, n))
+        for k, c in enumerate(ckts):
+            vals[k], rhs[k] = c.assemble(volts[k, s], volts[k, s - 1], dt,
+                                         s * dt)
+        t1 = time.perf_counter()
+        data = g._scaled(vals)
+        bp = (rhs * g.Dr[None, :])[:, g._inv_row]
+        t2 = time.perf_counter()
+        fz.load_batched(data)
+        b_dev = torch.from_numpy(bp).to(dev)
+        torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        vals_dev = fz.run_batched()
+        ev[1].record()
+        ev[2].record()
+        torch.abs(g._a_vals_batch, out=g._a_abs_batch)
+        x, _ = sv.solve_refined_batched(vals_dev, b_dev, g._spmv_rows,
+                                        g._spmv_cols, g._a_vals_batch,
+                                        g._a_abs_batch, max_iter=1,
+                                        tol=g.refine_tol)
+        ev[3].record()
+        torch.cuda.synchronize(dev)
+        t4 = time.perf_counter()
+        xh = x.cpu().numpy()[:, g.col_map] * g.Dc[None, :]
+        t5 = time.perf_counter()
+        assert np.isfinite(xh).all()
+        rows.append(dict(assembly_ms=(t1 - t0) * 1e3,
+                         host_prep_ms=(t2 - t1) * 1e3,
+                         h2d_ms=(t3 - t2) * 1e3,
+                         factorize_replay_ms=ev[0].elapsed_time(ev[1]),
+                         solve_replays_ms=ev[2].elapsed_time(ev[3]),
+                         solve_host_ms=(t4 - t3) * 1e3,
+                         d2h_ms=(t5 - t4) * 1e3))
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def drive_sweep(dev):
+    """Phase 12: the lockstep transient sweep of ``SWEEP["scales"]``
+    copies of the 64 x 64 grid, each copy held against ``transient`` of
+    its own circuit."""
+    from repro_torch import GLU
+    from repro_torch.circuit import (
+        perturbed_copies,
+        rc_grid_circuit,
+        transient,
+        transient_sweep,
+    )
+    from repro_torch.sparse import CSC
+
+    c = SWEEP
+    ckt = rc_grid_circuit(c["nx"], c["ny"], with_diodes=True, seed=0)
+    kw = dict(t_end=c["t_end"], dt=c["dt"], refine=c["refine"])
+    scales = np.asarray(c["scales"])
+    B = len(scales)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = transient_sweep(ckt, scales=scales, **kw)
+    wall_s = time.perf_counter() - t0
+    k1, k2, _ = launch_counts()
+    n_fact = res.n_batched_factorizations
+    ckts = perturbed_copies(ckt, scales)
+    pat = ckt.pattern()
+    v0 = np.zeros(ckt.n)
+    g = GLU(CSC(pat.n, pat.indptr, pat.indices,
+                ckts[0].assemble(v0, v0, c["dt"], 0.0)[0]), refine=c["refine"])
+    steps = g._factorizer.step_kinds
+    log(f"transient sweep: n={ckt.n}, B={B} copies (scales "
+        f"{np.round(scales, 4).tolist()}), {len(res.times)} time steps, Newton "
+        f"iterates {res.newton_iters.tolist()}, {n_fact} batched "
+        f"factorizations, K1 launches {k1}, K2 launches {k2}, max_residual "
+        f"{res.max_residual:.3e}, ladder {res.ladder_counts}; setup "
+        f"{res.setup_seconds:.3f} s, loop {res.solve_seconds:.3f} s "
+        f"({res.solve_seconds / n_fact * 1e3:.3f} ms an iterate, "
+        f"{res.solve_seconds / n_fact / B * 1e3:.3f} ms a copy and iterate)")
+    assert res.max_residual < 1e-8, res.max_residual
+    assert np.isfinite(res.voltages).all()
+    assert res.voltages.shape == (B, len(res.times), ckt.n)
+    assert n_fact == res.newton_iters.sum()
+    assert k1 == steps.count("run") * n_fact and \
+        k2 == steps.count("dense") * n_fact, (k1, k2, n_fact, steps)
+    assert res.ladder_counts == dict(refactorize=n_fact, rescale=0, bump=0,
+                                     replan=0), res.ladder_counts
+    # each copy alone through the single-matrix transient
+    diffs, single_s = [], 0.0
+    for k, ck in enumerate(ckts):
+        one = transient(ck, **kw)
+        single_s += one.solve_seconds
+        diffs.append(float(np.abs(res.voltages[k] - one.voltages).max()))
+    assert max(diffs) < 1e-9, diffs
+    log(f"transient sweep: every copy within {max(diffs):.3e} (< 1e-9) of "
+        f"transient on its own circuit; the {B} single runs' loops "
+        f"{single_s:.3f} s together against the sweep's {res.solve_seconds:.3f}"
+        " s")
+    g.factorize_batched(np.stack([ck.assemble(v0, v0, c["dt"], 0.0)[0]
+                                  for ck in ckts]))
+    g.solve_batched(np.ones((B, ckt.n)))     # captures the refined graphs
+    volts = np.concatenate([np.zeros((B, 1, ckt.n)), res.voltages], axis=1)
+    breakdown = sweep_breakdown(dev, ckts, g, volts, c["dt"])
+    log("transient sweep: per Newton iterate of the batch (medians over the "
+        "run's time points): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in breakdown.items()))
+    return dict(n=ckt.n, batch=B, scales=scales.tolist(),
+                steps=len(res.times), newton_iters=res.newton_iters.tolist(),
+                n_batched_factorizations=n_fact, k1_launches=k1,
+                k2_launches=k2, max_residual=res.max_residual,
+                max_diff_to_single=max(diffs), setup_s=res.setup_seconds,
+                loop_s=res.solve_seconds, wall_s=wall_s,
+                iterate_ms=res.solve_seconds / n_fact * 1e3,
+                single_loops_s=single_s, breakdown=breakdown)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -1119,9 +1570,34 @@ def main() -> int:
     # 8. the Newton transient
     log(json.dumps({"transient_report": drive_transient(dev)}))
 
+    # 9-10. the batched engine: grid64 and rajat12_like at B = 1 and 16,
+    # rajat12_ac at B = 8 frequencies
+    for name, want_k1, want_k2, want_k3 in MATRICES:
+        reports, rec, ent_report = drive_batched(dev, clock, name, want_k1,
+                                                 want_k2, want_k3)
+        ents = kernel_entries(dev, clock, rec, ent_report)
+        for e in ents:       # device kernels per launch, as in phase 6
+            key = ("level_run_kernels" if e["name"].startswith("level_run")
+                   else "dense_lu_kernels")
+            e["device_kernels_per_call"] = (ent_report["eager_profile"][key]
+                                            / e["launches"])
+        entries += ents
+        log(json.dumps({"batched_report": reports}))
+        del rec
+
+    # 11. static pivoting on a batch
+    pivot_report, robust = drive_batched_static_pivot(dev, clock)
+    entries.append(robust)
+    log(json.dumps({"batched_static_pivot_report": pivot_report}))
+
+    # 12. the lockstep transient sweep
+    log(json.dumps({"sweep_report": drive_sweep(dev)}))
+
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",
-                     "dense_lu_planar"}, names
+                     "dense_lu_planar", "level_run_batched",
+                     "level_run_robust_batched", "dense_lu_batched",
+                     "dense_lu_planar_batched"}, names
     log(f"peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(f"card: {card}")

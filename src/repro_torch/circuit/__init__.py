@@ -1,8 +1,16 @@
 # Circuit simulation on the port: MNA assembly and the escalation ladder
-# (numpy, the JAX package's copied), and the Newton transient driver.
+# (numpy, the JAX package's copied), the Newton transient driver and its
+# batched sweep over perturbed copies.
 from .ladder import RUNGS, LadderConfig, RefactorizationLadder
 from .mna import Circuit, rc_grid_circuit
-from .simulate import A_mul, TransientResult, transient
+from .simulate import (
+    A_mul,
+    TransientResult,
+    TransientSweepResult,
+    perturbed_copies,
+    transient,
+    transient_sweep,
+)
 
 __all__ = [
     "Circuit",
@@ -11,6 +19,9 @@ __all__ = [
     "LadderConfig",
     "RefactorizationLadder",
     "TransientResult",
+    "TransientSweepResult",
     "A_mul",
     "transient",
+    "transient_sweep",
+    "perturbed_copies",
 ]

@@ -17,6 +17,12 @@ demand (``escalation="rescale"`` selects the single-rebuild behaviour,
 ``"none"`` disables recovery).  Rebuilds construct a fresh ``GLU`` on the
 same pattern, so the re-scale and bump rungs are plan-cache hits
 (``plan_cache_hits``); only the replan rung bypasses the cache.
+
+``transient_sweep`` steps B perturbed copies of one circuit in lockstep on
+one plan (the Monte-Carlo / process-corner workload): per Newton iterate
+the host assembles the B systems, and one ``GLU.refactorize_solve``
+factorizes and solves them together (on the card one replay each for the
+batched factorization and solve).
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from ..sparse.csc import CSC
 from .ladder import RUNGS, LadderConfig, RefactorizationLadder
 from .mna import Circuit
 
-__all__ = ["TransientResult", "transient", "A_mul"]
+__all__ = ["TransientResult", "TransientSweepResult", "transient",
+           "transient_sweep", "perturbed_copies", "A_mul"]
 
 
 def _empty_ladder_counts() -> dict:
@@ -243,6 +250,208 @@ def transient(
         voltages=volts,
         newton_iters=iters,
         n_factorizations=n_fact,
+        setup_seconds=setup_s,
+        solve_seconds=solve_s,
+        max_residual=max_res,
+        n_rescalings=n_rescale,
+        plan_cache_hits=n_plan_hits,
+        n_full_rebuilds=0 if ladder is None else ladder.n_full_rebuilds,
+        ladder_counts=counts,
+    )
+
+
+@dataclasses.dataclass
+class TransientSweepResult:
+    scales: np.ndarray          # (B,) parameter perturbation factors
+    times: np.ndarray           # (T,)
+    voltages: np.ndarray        # (B, T, n)
+    newton_iters: np.ndarray    # (T,) lockstep iterations per time step
+    n_batched_factorizations: int
+    setup_seconds: float
+    solve_seconds: float
+    max_residual: float         # worst over sweep copies and time steps
+    n_rescalings: int = 0       # cache-served scaling rebuilds (rescale/bump rungs)
+    plan_cache_hits: int = 0    # GLU constructions served by the plan cache
+    n_full_rebuilds: int = 0    # ALL ladder-triggered rebuilds (rungs 1-3)
+    ladder_counts: Optional[dict] = None  # per-rung action counts
+    n_devices: int = 1          # devices the batch ran on
+
+
+def perturbed_copies(ckt: Circuit, scales) -> list:
+    """One circuit per scale factor: all conductances and capacitances
+    multiplied by ``s`` (a global process-corner perturbation).  Topology is
+    unchanged, so every copy shares the same sparsity pattern, and hence
+    one GLU symbolic plan."""
+    out = []
+    for s in np.asarray(scales, dtype=np.float64):
+        c = Circuit(ckt.n_nodes)
+        c.resistors = [(a, b, g * s) for a, b, g in ckt.resistors]
+        c.capacitors = [(a, b, cap * s) for a, b, cap in ckt.capacitors]
+        c.isources = list(ckt.isources)
+        c.ac_isources = list(ckt.ac_isources)
+        c.diodes = list(ckt.diodes)
+        out.append(c)
+    return out
+
+
+def transient_sweep(
+    ckt: Circuit,
+    t_end: float,
+    dt: float,
+    scales,
+    newton_tol: float = 1e-9,
+    max_newton: int = 25,
+    ordering: str = "auto",
+    dtype=None,
+    refine: Optional[int] = None,
+    refine_tol: Optional[float] = None,
+    static_pivot: Optional[float] = None,
+    mc64="scale",
+    escalation: str = "ladder",
+    ladder_config: Optional[LadderConfig] = None,
+    mesh=None,
+    jit_schedule: bool = True,
+    device=None,
+) -> TransientSweepResult:
+    """Run B parameter-perturbed copies of ``ckt`` through backward-Euler +
+    Newton in lockstep on one symbolic plan (the Monte-Carlo / corner-sweep
+    workload: same pattern, many value vectors per Newton iterate).
+
+    Each iterate assembles the B Jacobians on the host, then one
+    ``GLU.refactorize_solve`` factorizes and solves the whole batch on the
+    device.  A per-scenario convergence mask freezes each copy once its
+    Newton update drops below ``newton_tol``: its Jacobian is no longer
+    assembled and its iterate no longer changes, while the batch still
+    solves as one call until every copy has converged.
+
+    ``escalation`` follows :func:`transient`: the default ``"ladder"``
+    climbs re-scale -> bump -> replan on unhealthy diagnostics, with the
+    worst copy of the batch as the rebuild's scaling representative (one
+    shared plan, so one representative picks the scaling).  ``device`` and
+    ``jit_schedule`` are as in :func:`transient`.  ``mesh`` (sharding the
+    batch over several devices) is not ported and raises
+    ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "transient_sweep(mesh=...) (the batch sharded over several "
+            "devices) is not ported to the PyTorch package yet")
+    dtype = dtype or torch.float64
+    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    ckts = perturbed_copies(ckt, scales)
+    B = len(ckts)
+    pat = ckts[0].pattern()
+    n = ckt.n
+
+    t0 = time.perf_counter()
+    v0 = np.zeros(n)
+    vals0, _ = ckts[0].assemble(v0, v0, dt, 0.0)
+    glu_kwargs = dict(ordering=ordering, dtype=dtype, refine=refine or 0,
+                      refine_tol=refine_tol, static_pivot=static_pivot,
+                      mc64=mc64, jit_schedule=jit_schedule, device=device)
+    ladder = _make_ladder(escalation, ladder_config)
+    glu = GLU(CSC(pat.n, pat.indptr, pat.indices, vals0), **glu_kwargs)
+    n_plan_hits = int(glu.plan_from_cache)
+    setup_s = time.perf_counter() - t0
+
+    steps = int(round(t_end / dt))
+    times = np.arange(1, steps + 1) * dt
+    volts = np.zeros((B, steps, n))
+    iters = np.zeros(steps, dtype=np.int64)
+    n_fact = 0
+    n_rescale = 0
+    max_res = 0.0
+
+    def assemble_all(v_it, v_prev, t):
+        vals = np.empty((B, pat.nnz))
+        rhs = np.empty((B, n))
+        for k, c in enumerate(ckts):
+            vals[k], rhs[k] = c.assemble(v_it[k], v_prev[k], dt, t)
+        return vals, rhs
+
+    t0 = time.perf_counter()
+    v_prev = np.zeros((B, n))
+    for s, t in enumerate(times):
+        v_it = v_prev.copy()
+        rescaled_this_step = False
+        active = np.ones(B, dtype=bool)
+        for it in range(max_newton):
+            if it == 0:
+                vals, rhs = assemble_all(v_it, v_prev, float(t))
+            else:
+                for k in np.flatnonzero(active):
+                    vals[k], rhs[k] = ckts[k].assemble(
+                        v_it[k], v_prev[k], dt, float(t))
+            v_new = glu.refactorize_solve(vals, rhs)
+            n_fact += 1
+            if ladder is not None:
+                ladder.note_refactorize()
+                # the climb of ``transient``; the rebuild's scaling
+                # representative is the worst copy of the batch
+                reason = ladder.diagnose(glu, v_new)
+                while reason is not None:
+                    if ladder.can_escalate():
+                        ladder.escalate(step=s, reason=reason)
+                    elif not rescaled_this_step:
+                        ladder.retry_at_current_rung(step=s, reason=reason)
+                    else:
+                        break
+                    rescaled_this_step = True
+                    worst = _worst_index(glu)
+                    try:
+                        glu = GLU(CSC(pat.n, pat.indptr, pat.indices,
+                                      vals[worst]),
+                                  **ladder.glu_kwargs(glu_kwargs))
+                    except ValueError:
+                        break
+                    n_plan_hits += int(glu.plan_from_cache)
+                    v_new = glu.refactorize_solve(vals, rhs)
+                    n_fact += 1
+                    reason = ladder.diagnose(glu, v_new)
+            elif escalation == "rescale" and refine and not rescaled_this_step:
+                # a cheap flag read per iterate; the full solve_info (with
+                # its deferred device reductions) only on the rebuild path:
+                # re-scale on the worst copy's Jacobian, at most once per
+                # time step, as ``transient`` does
+                conv = glu.refine_converged
+                if conv is not None and not np.asarray(conv).all():
+                    info = glu.solve_info
+                    worst = int(np.argmax(np.asarray(info["backward_error"])))
+                    rescaled_this_step = True
+                    try:
+                        glu = GLU(CSC(pat.n, pat.indptr, pat.indices,
+                                      vals[worst]), **glu_kwargs)
+                    except ValueError:
+                        pass
+                    else:
+                        n_rescale += 1
+                        n_plan_hits += int(glu.plan_from_cache)
+                        v_new = glu.refactorize_solve(vals, rhs)
+                        n_fact += 1
+            v_new = np.where(active[:, None], v_new, v_it)
+            dv_rows = np.abs(v_new - v_it).max(axis=1)
+            v_it = v_new
+            active &= dv_rows >= newton_tol
+            if not active.any():
+                break
+        iters[s] = it + 1
+        vals, rhs = assemble_all(v_it, v_prev, float(t))
+        for k in range(B):
+            r = np.abs(A_mul(pat, vals[k], v_it[k]) - rhs[k]).max()
+            max_res = max(max_res, float(r))
+        volts[:, s] = v_it
+        v_prev = v_it
+    solve_s = time.perf_counter() - t0
+
+    counts = _empty_ladder_counts() if ladder is None else dict(ladder.counts)
+    if ladder is not None:
+        n_rescale = counts["rescale"] + counts["bump"]
+    return TransientSweepResult(
+        scales=scales,
+        times=times,
+        voltages=volts,
+        newton_iters=iters,
+        n_batched_factorizations=n_fact,
         setup_seconds=setup_s,
         solve_seconds=solve_s,
         max_residual=max_res,

@@ -69,8 +69,10 @@ class GLU:
     native complex.  ``layout="native"`` with a complex dtype, the JAX
     package's route off the kernels, is not ported and raises
     ``NotImplementedError``, as do ``static_pivot`` with a complex dtype,
-    ``mesh``, ``verify`` other than ``"off"``, ``rhs_pattern`` and the
-    batched and many-right-hand-side methods.
+    ``mesh``, ``verify`` other than ``"off"``, ``rhs_pattern`` and
+    ``solve_multi`` (many right-hand sides).  The batched methods
+    (``factorize_batched``, ``solve_batched``, ``refactorize_solve``)
+    factor and solve B matrices on the pattern in lockstep.
 
     ``jit_schedule`` (default True): on the card each factorization is one
     CUDA-graph replay, and so is each unrefined solve (a refined one: one
@@ -206,13 +208,20 @@ class GLU:
             self.plan, device=dev, jit_schedule=jit_schedule,
             executable_cache=executable_cache)
         self._vals: Optional[torch.Tensor] = None
-        # A's values on the device: the factorizer's static input buffer,
-        # and |A| for refinement, refreshed on the first refined solve
-        # after each factorization
-        self._a_vals = self._factorizer.a_values
-        self._a_abs = torch.empty_like(self._a_vals,
-                                       dtype=self._a_vals.real.dtype)
+        self._vals_batch: Optional[torch.Tensor] = None
+        self._batch_size: Optional[int] = None
+        # A's values on the device for refinement: the factorizer's static
+        # input buffer, and |A|, refreshed on the first refined solve after
+        # each factorization; a batched factorization has its own pair
+        self._a_abs_single = torch.empty_like(
+            self._factorizer.a_values,
+            dtype=self._factorizer.a_values.real.dtype)
+        self._a_vals, self._a_abs = (self._factorizer.a_values,
+                                     self._a_abs_single)
         self._a_abs_stale = True
+        self._a_vals_batch = self._a_abs_batch = None
+        self._a_abs_batch_stale = True
+        self._n_pert = None
         self.refine_default = int(refine)
         # 4 ulp of the value dtype (of its plane dtype for complex values)
         self.refine_tol = (float(refine_tol) if refine_tol is not None
@@ -221,18 +230,28 @@ class GLU:
         self._stats_pending = False
 
     # -- numeric phase (repeatable) -----------------------------------------
+    def _scaled(self, data: np.ndarray) -> np.ndarray:
+        """Values in A's original CSC entry order (the last axis), scaled
+        and permuted into the plan's entry order."""
+        if not self._scale_identity:
+            data = data * self._scale_data
+        return data[..., self._data_perm]
+
     def factorize(self, a_data=None) -> "GLU":
         """(Re)factorize; ``a_data`` are new values in A's original CSC entry
-        order (same pattern: the SPICE refactorization contract)."""
+        order (same pattern: the SPICE refactorization contract).  A batched
+        factorization held before is dropped."""
         if a_data is None:
             data = np.asarray(self._A_perm.data)
-        elif self._scale_identity:
-            data = np.asarray(a_data)[self._data_perm]
         else:
-            data = (np.asarray(a_data) * self._scale_data)[self._data_perm]
+            data = self._scaled(np.asarray(a_data))
         self._factorizer.load(data)
+        self._a_vals, self._a_abs = (self._factorizer.a_values,
+                                     self._a_abs_single)
         self._a_abs_stale = True
         self._vals = self._factorizer.run()
+        self._vals_batch = self._batch_size = None
+        self._n_pert = self._factorizer.last_n_perturbed
         self._stats_pending = True
         self._info = self._base_info()
         self._info["n_dispatches"] = self._factorizer.last_n_dispatches
@@ -253,6 +272,11 @@ class GLU:
         constructor's ``refine``)."""
         _not_ported("rhs_pattern", rhs_pattern, None)
         if self._vals is None:
+            if self._vals_batch is not None:
+                raise RuntimeError(
+                    "the active factorization is batched: use "
+                    "solve_batched(), or call factorize() to refactorize "
+                    "one matrix first")
             self.factorize()
         k = self.refine_default if refine is None else int(refine)
         bp = (np.asarray(b) * self.Dr)[self._inv_row]
@@ -269,25 +293,134 @@ class GLU:
             xp = self._solver.solve(self._vals, bp)
             rinfo = {"refine_iters": 0, "backward_error": None,
                      "converged": None, "host_syncs": 0}
+        self._set_solve_info(rinfo, abs_steps)
+        return xp.cpu().numpy()[self.col_map] * self.Dc
+
+    def _set_solve_info(self, rinfo: dict, abs_steps: int) -> None:
         if self._info is None:
             self._info = self._base_info()
         self._info.update(rinfo)
         self._info["solve_dispatches"] = (self._solver.last_n_dispatches
                                           + abs_steps)
-        return xp.cpu().numpy()[self.col_map] * self.Dc
+
+    # -- batched numeric phase (one plan, many matrices) ----------------------
+    def factorize_batched(self, a_data_batch) -> "GLU":
+        """Factorize B matrices on this pattern in lockstep.
+
+        ``a_data_batch``: (B, nnz) values, one matrix a row, each in A's
+        original CSC entry order (the Monte-Carlo / parameter-sweep
+        refactorization contract: one symbolic plan, many value vectors).
+        On the card it is one graph replay: one K1 launch per run and one
+        batched K2/K3 launch for the B dense tails.  Matrix b's factors are
+        those of :meth:`factorize` on its values, bit for bit.  The
+        single-matrix factorization held before is dropped."""
+        data = np.asarray(a_data_batch)
+        if data.ndim != 2 or data.shape[1] != len(self._data_perm):
+            raise ValueError(f"expected (B, {len(self._data_perm)}) values, "
+                             f"got shape {data.shape}")
+        a_vals = self._factorizer.load_batched(self._scaled(data))
+        if self._a_vals_batch is not a_vals:
+            self._a_vals_batch = a_vals
+            self._a_abs_batch = torch.empty_like(a_vals,
+                                                 dtype=a_vals.real.dtype)
+        self._a_abs_batch_stale = True
+        self._vals_batch = self._factorizer.run_batched()
+        self._batch_size = data.shape[0]
+        self._vals = None
+        self._n_pert = self._factorizer.last_n_perturbed
+        self._stats_pending = True
+        self._info = self._base_info(batched=True)
+        self._info["n_dispatches"] = self._factorizer.last_n_dispatches
+        return self
+
+    def factorized_values_batched(self) -> torch.Tensor:
+        """Factored (B, nnz) values of the batched factorization, native
+        dtype: a copy."""
+        if self._vals_batch is None:
+            raise RuntimeError("call factorize_batched() first")
+        return self._vals_batch.clone()
+
+    def solve_batched(self, b_batch, refine: Optional[int] = None,
+                      rhs_pattern=None) -> np.ndarray:
+        """Solve A_i x_i = b_i for every matrix of the current batched
+        factorization; ``b_batch`` is (B, n), returns (B, n).  With
+        ``refine`` the corrections are masked onto the matrices still above
+        tolerance; ``solve_info`` then holds (B,) arrays.  An unrefined
+        solve is one graph replay on the card."""
+        _not_ported("rhs_pattern", rhs_pattern, None)
+        if self._vals_batch is None:
+            raise RuntimeError("call factorize_batched() first")
+        b = np.asarray(b_batch)
+        if b.ndim != 2 or b.shape[1] != self.n:
+            raise ValueError(f"expected (B, {self.n}) rhs, got shape {b.shape}")
+        B = b.shape[0]
+        if B != self._batch_size:
+            raise ValueError(f"rhs batch of {B} does not match the factorized "
+                             f"batch of {self._batch_size}")
+        k = self.refine_default if refine is None else int(refine)
+        bp = (b * self.Dr[None, :])[:, self._inv_row]
+        abs_steps = 0
+        if k > 0:
+            if self._a_abs_batch_stale:
+                torch.abs(self._a_vals_batch, out=self._a_abs_batch)
+                self._a_abs_batch_stale = False
+                abs_steps = 1
+            xp, rinfo = self._solver.solve_refined_batched(
+                self._vals_batch, bp, self._spmv_rows, self._spmv_cols,
+                self._a_vals_batch, self._a_abs_batch, max_iter=k,
+                tol=self.refine_tol)
+        else:
+            xp = self._solver.solve_batched(self._vals_batch, bp)
+            rinfo = {"refine_iters": np.zeros(B, dtype=np.int64),
+                     "backward_error": None, "converged": None,
+                     "host_syncs": 0}
+        self._set_solve_info(rinfo, abs_steps)
+        return xp.cpu().numpy()[:, self.col_map] * self.Dc[None, :]
+
+    def refactorize_solve(self, a_data_batch, b_batch,
+                          refine: Optional[int] = None,
+                          rhs_pattern=None) -> np.ndarray:
+        """Batched refactorize + solve in one call (the Newton inner step
+        of a parameter sweep).  Accepts (B, nnz) + (B, n) or a single
+        (nnz,) + (n,) pair; the factored values stay on the device between
+        the two phases and are kept for later ``solve_batched`` calls.  A
+        single pair returns (n,) and leaves the single-matrix contract
+        behind: ``solve`` works on its factors and ``solve_info`` holds
+        scalars with ``batched=False``."""
+        data = np.asarray(a_data_batch)
+        b = np.asarray(b_batch)
+        single = data.ndim == 1
+        if single:
+            data, b = data[None], b[None]
+        self.factorize_batched(data)
+        x = self.solve_batched(b, refine=refine, rhs_pattern=rhs_pattern)
+        if not single:
+            return x
+        self._vals = self._vals_batch[0]
+        self._a_vals, self._a_abs = self._a_vals_batch[0], self._a_abs_batch[0]
+        self._a_abs_stale = self._a_abs_batch_stale
+        if self._n_pert is not None:
+            self._n_pert = self._n_pert[0]
+        self._info["batched"] = False
+        for key in ("refine_iters", "backward_error", "converged"):
+            v = self._info.get(key)
+            if isinstance(v, np.ndarray):
+                self._info[key] = v[0].item()
+        return x[0]
 
     @property
-    def refine_converged(self) -> Optional[bool]:
-        """Convergence flag (and nothing else) of the latest refined solve,
-        or None when the last solve ran unrefined.  Unlike ``solve_info``
-        it forces none of the deferred device reductions, so the Newton
-        loop can poll it every iterate."""
+    def refine_converged(self):
+        """Convergence flag (and nothing else) of the latest refined solve:
+        a bool, a (B,) bool array after a batched one, or None when the
+        last solve ran unrefined.  Unlike ``solve_info`` it forces none of
+        the deferred device reductions, so the Newton loop can poll it
+        every iterate."""
         if self._info is None:
             return None
         return self._info.get("converged")
 
-    def _base_info(self) -> dict:
-        return {"batched": False, "pivot_growth": None, "min_diag": None,
+    def _base_info(self, batched: bool = False) -> dict:
+        return {"batched": batched, "pivot_growth": None, "min_diag": None,
                 "n_perturbed": None, "refine_iters": None,
                 "backward_error": None, "converged": None,
                 "n_groups": self._factorizer.n_groups, "n_dispatches": None,
@@ -298,13 +431,10 @@ class GLU:
                 "n_perturbed_global": None, "verify_report": None}
 
     # -- out of this slice -----------------------------------------------------
-    def _batched_not_ported(self, *args, **kwargs):
+    def solve_multi(self, *args, **kwargs):
         raise NotImplementedError(
-            "the batched and many-right-hand-side methods are not ported to "
-            "the PyTorch package yet")
-
-    factorize_batched = solve_batched = solve_multi = _batched_not_ported
-    refactorize_solve = factorized_values_batched = _batched_not_ported
+            "solve_multi (many right-hand sides against one factorization) "
+            "is not ported to the PyTorch package yet")
 
     # -- diagnostics ----------------------------------------------------------
     @property
@@ -312,26 +442,33 @@ class GLU:
         """Robustness report of the latest factorize/solve, with the JAX
         package's keys for this path (``pallas_disabled_reason`` is
         ``kernels_disabled_reason`` here: None when the kernels ran on the
-        card).  ``n_dispatches``/``solve_dispatches`` count host-issued
-        steps: for a factorization the entry scatter, one per flat level,
-        one per run of consecutive K1 levels (one kernel launch each) and
-        one for the dense tail (grid64 9, rajat12_like 6); ``n_groups``
-        counts the factorization's steps.  ``n_perturbed`` is the static
-        pivot guard's bump count (None when the guard is off), read from
-        the device here, like the growth and the smallest diagonal."""
+        card).  ``n_dispatches``/``solve_dispatches`` count dispatches: 1
+        for a factorization or an unrefined solve replayed as one CUDA
+        graph on the card; on the card's first call of each kind (which
+        runs the steps eagerly while it warms up the graph), with
+        ``jit_schedule=False`` and on the CPU they count host-issued steps:
+        for a factorization the entry scatter, one per flat level, one per
+        run of consecutive K1 levels (one kernel launch each) and one for
+        the dense tail (grid64 9, rajat12_like 6).  ``n_groups`` counts the
+        factorization's steps.  ``n_perturbed`` is the static pivot
+        guard's bump count (None when the guard is off), read from the
+        device here, like the growth and the smallest diagonal.  After a
+        batched factorization (``batched`` True) ``pivot_growth``,
+        ``min_diag``, ``n_perturbed`` and the refinement fields are (B,)
+        arrays."""
         if self._info is None:
             return None
         if self._stats_pending:
             from ..kernels.ops import factor_stats
 
-            a_max = self._a_vals.abs().max()
-            growth, min_diag = factor_stats(self._vals,
-                                            self._factorizer._diag_idx, a_max)
-            n_pert = self._factorizer.last_n_perturbed
-            self._info.update(pivot_growth=growth.item(),
-                              min_diag=min_diag.item(),
-                              n_perturbed=None if n_pert is None
-                              else int(n_pert.item()))
+            vals, a_vals = ((self._vals_batch, self._a_vals_batch)
+                            if self._vals is None else (self._vals, self._a_vals))
+            growth, min_diag = factor_stats(vals, self._factorizer._diag_idx,
+                                            a_vals.abs().amax(-1))
+            n_pert = self._n_pert
+            self._info.update(
+                pivot_growth=_host(growth), min_diag=_host(min_diag),
+                n_perturbed=None if n_pert is None else _host(n_pert))
             self._stats_pending = False
         return dict(self._info)
 
@@ -347,6 +484,12 @@ class GLU:
         """||Ax - b||_inf / ||b||_inf on the original system."""
         r = self._A_scipy @ np.asarray(x) - np.asarray(b)
         return float(np.abs(r).max() / (np.abs(b).max() + 1e-300))
+
+
+def _host(t: torch.Tensor):
+    """A device reduction on the host: a Python number for a 0-d tensor, a
+    numpy array for a batch's (B,) one."""
+    return t.item() if t.dim() == 0 else t.cpu().numpy()
 
 
 def _check_slice(dtype, static_pivot, layout, mesh, verify):

@@ -15,8 +15,12 @@ What the reference's one dispatch becomes on the card is
 ``torch.cuda.CUDAGraph`` over static input and output buffers, then one
 replay per call.  A graph is bound to its buffers' addresses, so it is
 captured per executor instance and never cached: two ``GLU`` objects on
-one plan share the index tensors and keep their own factors.  On the CPU
-there is no graph: the cached schedule runs eagerly.
+one plan share the index tensors and keep their own factors.  A batch of
+B matrices on the plan runs the same built schedule (nothing cached
+depends on B, so the cache key holds no batch size); its graph is per
+instance and per B, and a call with another B binds new buffers and
+captures again.  On the CPU there is no graph: the cached schedule runs
+eagerly.
 """
 from __future__ import annotations
 

@@ -327,20 +327,26 @@ def _level_step(vals, norm_idx, norm_diag, lidx, uidx, didx, bounds):
     ``vals[didx] -= vals[lidx] * vals[uidx]`` in fixed-order rounds (the
     triples are stored in :func:`round_order` of ``didx``).  Real or
     complex values alike: complex ones divide and multiply in PyTorch's
-    complex arithmetic."""
-    vals[norm_idx] = vals[norm_idx] / vals[norm_diag]
-    add_in_rounds_(vals, didx, vals[lidx] * vals[uidx], bounds, alpha=-1.0)
+    complex arithmetic.  ``vals`` is (nnz + 1,) or a batch (B, nnz + 1):
+    each matrix's elementwise operations and sums are those of one matrix
+    alone."""
+    vals[..., norm_idx] = vals[..., norm_idx] / vals[..., norm_diag]
+    add_in_rounds_(vals, didx, vals[..., lidx] * vals[..., uidx], bounds,
+                   alpha=-1.0)
 
 
 def _dense_tail_step(vals, tail_vidx, tail_flat, eye_flat, Np: int):
     """Gather the trailing block into a dense tile (exact zeros off the
     pattern, ones on the padded diagonal), factor it with K2, scatter the
-    real positions back."""
-    dense = torch.zeros(Np * Np, dtype=vals.dtype, device=vals.device)
-    dense[tail_flat] = vals[tail_vidx]
-    dense.index_fill_(0, eye_flat, 1.0)
-    lu = dense_lu(dense.view(Np, Np))
-    vals[tail_vidx] = lu.view(-1)[tail_flat]
+    real positions back.  A batch (B, nnz + 1) gathers (B, Np, Np) tiles
+    and factors them with one batched K2 call."""
+    lead = vals.shape[:-1]
+    dense = torch.zeros(lead + (Np * Np,), dtype=vals.dtype,
+                        device=vals.device)
+    dense[..., tail_flat] = vals[..., tail_vidx]
+    dense.index_fill_(-1, eye_flat, 1.0)
+    lu = dense_lu(dense.view(lead + (Np, Np)))
+    vals[..., tail_vidx] = lu.view(lead + (Np * Np,))[..., tail_flat]
     return vals
 
 
@@ -348,13 +354,18 @@ def _dense_tail_step_planar(vals, tail_vidx, tail_flat, eye_flat, Np: int):
     """Complex twin of :func:`_dense_tail_step`: gather the trailing block
     into (2, Np, Np) re/im planes (exact zeros off the pattern, ``1+0j`` on
     the padded diagonal: only the real plane gets the ones), factor them
-    with K3, scatter the real positions back."""
-    planes = torch.zeros((2, Np * Np), dtype=vals.real.dtype,
+    with K3, scatter the real positions back; a batch as (B, 2, Np, Np)
+    planes and one batched K3 call."""
+    lead = vals.shape[:-1]
+    planes = torch.zeros(lead + (2, Np * Np), dtype=vals.real.dtype,
                          device=vals.device)
-    planes[:, tail_flat] = torch.view_as_real(vals[tail_vidx]).T
-    planes[0].index_fill_(0, eye_flat, 1.0)
-    lu = dense_lu_planar(planes.view(2, Np, Np)).view(2, Np * Np)
-    vals[tail_vidx] = torch.complex(lu[0, tail_flat], lu[1, tail_flat])
+    planes[..., tail_flat] = torch.view_as_real(
+        vals[..., tail_vidx]).movedim(-1, -2)
+    planes.select(-2, 0).index_fill_(-1, eye_flat, 1.0)
+    lu = dense_lu_planar(planes.view(lead + (2, Np, Np))).view(
+        lead + (2, Np * Np))
+    vals[..., tail_vidx] = torch.complex(lu[..., 0, tail_flat],
+                                         lu[..., 1, tail_flat])
     return vals
 
 
@@ -436,11 +447,12 @@ class _Schedule:
         }
 
     def run(self, vals, tau=None, count=None) -> None:
-        """Every step in order, in place on the filled value array.  With
-        ``tau`` and ``count`` (static pivoting) each step first bumps its
-        column diagonals below ``tau`` and adds the bumps into ``count``:
-        a flat level and the dense tail through ``perturb_diags``, a K1 run
-        inside its kernel, once per level."""
+        """Every step in order, in place on the filled value array, (nnz +
+        1,) or a batch (B, nnz + 1) on the plan (with (B,) ``tau`` and
+        ``count``).  With ``tau`` and ``count`` (static pivoting) each step
+        first bumps its column diagonals below ``tau`` and adds the bumps
+        into ``count``: a flat level and the dense tail through
+        ``perturb_diags``, a K1 run inside its kernel, once per level."""
         for g in self.groups:
             if tau is None:
                 self.step[g.kind](vals, *g.arrays)
@@ -500,6 +512,13 @@ class TorchFactorizer:
     The factorizer owns static buffers: the A values (``a_values``) and
     the filled values.  :meth:`factorize` returns a view of the latter,
     which the next factorization overwrites.
+
+    :meth:`factorize_batched` factorizes B matrices on the plan in
+    lockstep (the JAX package's ``factorize_batched``): the same steps on
+    (B, nnz + 1) values, each K1 run one launch for the whole batch, the
+    dense tails one batched K2/K3 launch, the flat levels one step each;
+    one replay on the card.  It owns (B, nnz_A) and (B, nnz + 1) buffers
+    and a graph for the latest B; ``last_n_perturbed`` is then (B,).
     """
 
     def __init__(
@@ -541,13 +560,22 @@ class TorchFactorizer:
         dev, dt = self.device, self.dtype
         self.a_values = torch.zeros(len(plan.a_scatter), dtype=dt, device=dev)
         self._buf = torch.zeros(self.nnz + 1, dtype=dt, device=dev)
+        self._count = None
         if static_pivot is not None:
             self._eps = torch.tensor(float(static_pivot), dtype=dt, device=dev)
             self._count = torch.zeros((), dtype=torch.int32, device=dev)
-        self._graph = (CapturedSchedule(self._program, dev, 1 + self.n_groups)
-                       if dev.type == "cuda" and self.jit_schedule else None)
+        self._graph = self._capture(self.a_values, self._buf, self._count)
+        self._batch = None            # the latest batch size's buffers
         self.last_n_dispatches = 0
         self.last_n_perturbed = None
+
+    def _capture(self, a_values, vals, count):
+        """The whole factorization on these buffers as one CUDA graph (on
+        the card with ``jit_schedule``), else None."""
+        if self.device.type != "cuda" or not self.jit_schedule:
+            return None
+        return CapturedSchedule(lambda: self._program(a_values, vals, count),
+                                self.device, 1 + self.n_groups)
 
     def _schedule_key(self):
         """The cache key of the built steps, after the reference's runner
@@ -577,19 +605,19 @@ class TorchFactorizer:
     def _diag_idx(self):
         return self._sched.diag_idx
 
-    def _program(self) -> None:
-        """The whole factorization on the static buffers: the entry scatter
-        of ``a_values``, ``tau`` and a zeroed bump count under static
-        pivoting, then every step.  What the CUDA graph holds."""
-        vals = self._buf
+    def _program(self, a_values, vals, count) -> None:
+        """The whole factorization on static buffers, one matrix or a
+        batch: the entry scatter of ``a_values`` into ``vals``, ``tau``
+        and a zeroed bump ``count`` under static pivoting (one a matrix),
+        then every step.  What a CUDA graph holds."""
         vals.zero_()
-        vals[self._a_scatter] = self.a_values
+        vals[..., self._a_scatter] = a_values
         if self.static_pivot is None:
             self._sched.run(vals)
             return
-        tau = self._eps * vals.abs().max()
-        self._count.zero_()
-        self._sched.run(vals, tau, self._count)
+        tau = self._eps * vals.abs().amax(-1)
+        count.zero_()
+        self._sched.run(vals, tau, count)
 
     def load(self, a_vals) -> None:
         """Copy A values (the plan's A entry order; host or device) into
@@ -600,20 +628,73 @@ class TorchFactorizer:
         """Factorize the loaded A values: one replay of the captured graph
         on the card, the steps one by one otherwise.  Returns the (nnz,)
         factored values, a view of the static buffer."""
-        if self._graph is not None:
-            self.last_n_dispatches = self._graph()
-        else:
-            self._program()
-            self.last_n_dispatches = 1 + self.n_groups
-        self.last_n_perturbed = (None if self.static_pivot is None
-                                 else self._count)
+        self.last_n_dispatches = self._dispatch(
+            self._graph, self.a_values, self._buf, self._count)
+        self.last_n_perturbed = self._count
         return self._buf[: self.nnz]
+
+    def _dispatch(self, graph, a_values, vals, count) -> int:
+        if graph is not None:
+            return graph()
+        self._program(a_values, vals, count)
+        return 1 + self.n_groups
 
     def factorize(self, a_vals) -> torch.Tensor:
         """Scatter A values (the plan's A entry order) into the filled
         pattern and factorize: :meth:`load` then :meth:`run`."""
         self.load(a_vals)
         return self.run()
+
+    # -- batched refactorization (one plan, many matrices) -----------------
+    def _bind_batch(self, B: int) -> dict:
+        """Static buffers and graph of a batch of ``B`` matrices: the
+        (B, nnz_A) input, the (B, nnz + 1) filled values and (B,) bump
+        counts.  A new batch size binds new ones (and captures anew on the
+        card); the built steps are the single matrix's, shared."""
+        st = self._batch
+        if st is None or st["B"] != B:
+            dev, dt = self.device, self.dtype
+            st = dict(B=B,
+                      a_values=torch.zeros((B, len(self.plan.a_scatter)),
+                                           dtype=dt, device=dev),
+                      buf=torch.zeros((B, self.nnz + 1), dtype=dt, device=dev),
+                      count=(None if self.static_pivot is None else
+                             torch.zeros(B, dtype=torch.int32, device=dev)))
+            st["graph"] = self._capture(st["a_values"], st["buf"], st["count"])
+            self._batch = st
+        return st
+
+    def load_batched(self, a_vals_batch) -> torch.Tensor:
+        """Copy (B, nnz_A) A values, one matrix a row (host or device),
+        into the static input buffer of batch size B; returns it."""
+        a = torch.as_tensor(a_vals_batch, dtype=self.dtype)
+        if a.dim() != 2 or a.shape[1] != len(self.plan.a_scatter):
+            raise ValueError(f"expected (B, {len(self.plan.a_scatter)}) "
+                             f"values, got shape {tuple(a.shape)}")
+        st = self._bind_batch(a.shape[0])
+        st["a_values"].copy_(a)
+        return st["a_values"]
+
+    def run_batched(self) -> torch.Tensor:
+        """Factorize the loaded batch: every step once for the whole batch
+        (one K1 launch per run, one batched K2/K3 launch for the dense
+        tails), one graph replay on the card.  Returns the (B, nnz)
+        factored values, a view of the static buffer; row b equals
+        :meth:`factorize` of matrix b bit for bit."""
+        st = self._batch
+        if st is None:
+            raise RuntimeError("call load_batched() first")
+        self.last_n_dispatches = self._dispatch(
+            st["graph"], st["a_values"], st["buf"], st["count"])
+        self.last_n_perturbed = st["count"]
+        return st["buf"][:, : self.nnz]
+
+    def factorize_batched(self, a_vals_batch) -> torch.Tensor:
+        """Factorize B matrices on this plan in lockstep: (B, nnz_A) values
+        in the plan's A entry order, :meth:`load_batched` then
+        :meth:`run_batched`."""
+        self.load_batched(a_vals_batch)
+        return self.run_batched()
 
     def factorize_filled(self, vals) -> torch.Tensor:
         """Factorize an already-filled (nnz,) value array (not modified),

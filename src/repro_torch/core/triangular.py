@@ -21,6 +21,11 @@ magnitudes, ``|r| / (|A||x| + |b|)``, as the JAX package's planar path
 does.  Sweeps run in chunks of
 ``sync_every`` with the convergence mask applied on the device, so the
 common ``refine <= 2`` case costs one device-to-host read.
+
+A batch of B matrices on the plan (the JAX package's ``solve_batched`` and
+``solve_refined_batched``) runs the same steps on (B, nnz) factors and
+(B, n) vectors: one step a level for the whole batch, each matrix's sums
+as alone, the stopping test and its mask per matrix.
 """
 from __future__ import annotations
 
@@ -58,18 +63,19 @@ def trisolve_numpy(plan: FactorizePlan, vals: np.ndarray, b: np.ndarray) -> np.n
 
 
 def _fwd_level(vals, x, rows, cols, vidx, bounds):
-    add_in_rounds_(x, rows, vals[vidx] * x[cols], bounds, alpha=-1.0)
+    add_in_rounds_(x, rows, vals[..., vidx] * x[..., cols], bounds, alpha=-1.0)
 
 
 def _bwd_level(vals, x, lcols, ldiag, rows, cols, vidx, bounds):
-    x[lcols] = x[lcols] / vals[ldiag]
-    add_in_rounds_(x, rows, vals[vidx] * x[cols], bounds, alpha=-1.0)
+    x[..., lcols] = x[..., lcols] / vals[..., ldiag]
+    add_in_rounds_(x, rows, vals[..., vidx] * x[..., cols], bounds, alpha=-1.0)
 
 
 def _residual_berr(rows, cols, a_vals, a_abs, x, b, n: int):
-    """r = b - A x and the componentwise backward error (a 0-d tensor).
-    Zero denominators (a row with |A||x| + |b| == 0) count as converged
-    when the residual there is zero and as inf otherwise."""
+    """r = b - A x and the componentwise backward error (a 0-d tensor; (B,)
+    for a batch of (B, n) vectors and (B, nnz_A) values).  Zero
+    denominators (a row with |A||x| + |b| == 0) count as converged when
+    the residual there is zero and as inf otherwise."""
     r = b - spmv(rows, cols, a_vals, x, n)
     denom = spmv(rows, cols, a_abs, x.abs(), n) + b.abs()
     ra = r.abs()
@@ -77,14 +83,14 @@ def _residual_berr(rows, cols, a_vals, a_abs, x, b, n: int):
     ratio = torch.where(pos, ra / torch.where(pos, denom, torch.ones_like(denom)),
                         torch.where(ra > 0, torch.full_like(ra, torch.inf),
                                     torch.zeros_like(ra)))
-    return r, ratio.max()
+    return r, ratio.amax(-1)
 
 
 def _read_back(stat):
-    """Both refinement counters, ``stat = [berr, iters]``, in one
-    device-to-host read."""
-    b, i = stat.tolist()
-    return b, int(i)
+    """Both refinement counters, ``stat = [berr, iters]`` (each 0-d, or
+    (B,) for a batch), in one device-to-host read, as numpy arrays."""
+    b, i = stat.cpu().numpy()
+    return b, i.astype(np.int64)
 
 
 class _Sweeps:
@@ -117,7 +123,9 @@ class _Sweeps:
         self.n_steps = len(fwd) + len(bwd)
 
     def run(self, vals, x) -> None:
-        """Forward then backward substitution, in place on ``x``."""
+        """Forward then backward substitution, in place on ``x``: (n,)
+        with (nnz,) factors, or a batch (B, n) with (B, nnz) factors, one
+        step a level for the whole batch."""
         for lev in self.fwd:
             _fwd_level(vals, x, *lev)
         for lev in self.bwd:
@@ -150,7 +158,8 @@ def _bind_key(tensors):
 class TorchTriangularSolver:
     """solve(vals, b): forward + backward substitution on factored values,
     one step per level (eager PyTorch needs none of the JAX package's
-    padded level groups).
+    padded level groups); ``solve_batched`` and ``solve_refined_batched``
+    do the same for a batch of factors in lockstep.
 
     ``jit_schedule``: on the card an unrefined solve is one CUDA-graph
     replay (:class:`~.executor.CapturedSchedule`), and a refined solve one
@@ -191,8 +200,9 @@ class TorchTriangularSolver:
         return self._sweeps.bwd
 
     def _bind(self, slot: str, tensors) -> _Bound:
-        """The buffers and graphs of ``slot`` ("solve" or "refine") for
-        these input tensors, new ones if they changed."""
+        """The buffers and graphs of ``slot`` ("solve", "refine",
+        "solve_batched" or "refine_batched") for these input tensors, new
+        ones if they changed (a new batch size too)."""
         bound = self._bound.get(slot)
         if bound is None or bound.key != _bind_key(tensors):
             bound = self._bound[slot] = _Bound(tensors)
@@ -214,8 +224,20 @@ class TorchTriangularSolver:
         """Solve with factored (nnz,) values; returns an (n,) tensor in the
         values' dtype on their device: the solver's solution buffer, which
         the next solve with these values overwrites."""
-        bound = self._bind("solve", (vals,))
-        x = bound.buf("x", lambda: torch.empty(self.plan.n, dtype=vals.dtype,
+        return self._solve("solve", vals, b)
+
+    def solve_batched(self, vals: torch.Tensor, b) -> torch.Tensor:
+        """Row b of the result solves with factors ``vals[b]`` and
+        right-hand side ``b[b]``: (B, nnz) factors, (B, n) right-hand
+        sides, B solves in lockstep (one step a level for the batch, one
+        replay on the card); a buffer as in :meth:`solve`."""
+        _check_batch(vals, b, self.plan.n)
+        return self._solve("solve_batched", vals, b)
+
+    def _solve(self, slot, vals, b) -> torch.Tensor:
+        bound = self._bind(slot, (vals,))
+        shape = vals.shape[:-1] + (self.plan.n,)
+        x = bound.buf("x", lambda: torch.empty(shape, dtype=vals.dtype,
                                                device=vals.device))
         x.copy_(torch.as_tensor(b, dtype=vals.dtype))
         self.last_n_dispatches = self._dispatch(
@@ -232,22 +254,39 @@ class TorchTriangularSolver:
         ``|a_vals|``.  Returns ``(x, info)`` with ``refine_iters``,
         ``backward_error``, ``converged`` and ``host_syncs``; ``x`` is the
         solver's buffer, as in :meth:`solve`."""
+        return self._solve_refined("refine", vals, b, a_rows, a_cols, a_vals,
+                                   a_abs, max_iter, tol, sync_every)
+
+    def solve_refined_batched(self, vals, b, a_rows, a_cols, a_vals, a_abs,
+                              max_iter: int, tol: float, sync_every: int = 2):
+        """Batched twin of :meth:`solve_refined`: (B, nnz) factors, (B, n)
+        right-hand sides, (B, nnz_A) ``a_vals`` and ``a_abs``; one
+        lockstep sweep a round, corrections masked onto the matrices still
+        above ``tol``, until all meet it or ``max_iter`` is reached.
+        ``refine_iters``, ``backward_error`` and ``converged`` are (B,)
+        arrays."""
+        _check_batch(vals, b, self.plan.n)
+        return self._solve_refined("refine_batched", vals, b, a_rows, a_cols,
+                                   a_vals, a_abs, max_iter, tol, sync_every)
+
+    def _solve_refined(self, slot, vals, b, a_rows, a_cols, a_vals, a_abs,
+                       max_iter, tol, sync_every):
         n = self.plan.n
         dev = vals.device
-        bound = self._bind("refine", (vals, a_rows, a_cols, a_vals, a_abs))
-
-        def vec(name):
-            return bound.buf(name, lambda: torch.empty(n, dtype=vals.dtype,
-                                                       device=dev))
-
-        b_buf, x, r, d = vec("b"), vec("x"), vec("r"), vec("d")
+        batched = vals.dim() == 2
+        bound = self._bind(slot, (vals, a_rows, a_cols, a_vals, a_abs))
+        lead = vals.shape[:-1]
         real = vals.real.dtype
-        berr = bound.buf("berr", lambda: torch.empty((), dtype=real,
-                                                     device=dev))
-        iters = bound.buf("iters", lambda: torch.empty((), dtype=torch.int64,
+
+        def buf(name, shape, dtype):
+            return bound.buf(name, lambda: torch.empty(shape, dtype=dtype,
                                                        device=dev))
-        stat = bound.buf("stat", lambda: torch.empty(2, dtype=real,
-                                                     device=dev))
+
+        b_buf, x, r, d = (buf(k, lead + (n,), vals.dtype)
+                          for k in ("b", "x", "r", "d"))
+        berr = buf("berr", lead, real)
+        iters = buf("iters", lead, torch.int64)
+        stat = buf("stat", (2,) + lead, real)
         b_buf.copy_(torch.as_tensor(b, dtype=vals.dtype))
 
         def residual():
@@ -283,11 +322,20 @@ class TorchTriangularSolver:
             done += k
             berr_h, iters_h = _read_back(stat)
             syncs += 1
-            if berr_h <= tol:
+            if np.all(berr_h <= tol):
                 break
         if berr_h is None:                      # max_iter == 0
             berr_h, iters_h = _read_back(stat)
             syncs += 1
         self.last_n_dispatches = n_disp + syncs
+        if not batched:
+            berr_h, iters_h = float(berr_h), int(iters_h)
         return x, {"refine_iters": iters_h, "backward_error": berr_h,
                    "converged": berr_h <= tol, "host_syncs": syncs}
+
+
+def _check_batch(vals, b, n: int) -> None:
+    shape = tuple(b.shape) if hasattr(b, "shape") else np.shape(b)
+    if vals.dim() != 2 or shape != (vals.shape[0], n):
+        raise ValueError(f"expected (B, nnz) factors and (B, {n}) right-hand "
+                         f"sides, got {tuple(vals.shape)} and {shape}")

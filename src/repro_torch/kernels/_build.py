@@ -33,19 +33,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points and their argument types; every entry returns the
 # cudaError_t of its launches as an int (0 = success)
+_K1 = [_P, _P, _P, _P, _P, _P, _I, _I]            # vals, layout, n_levels, max_items
+_K1_ROBUST = [_P] * 10 + [_I, _I]                   # + diag_ptr, diag, tau, count
+_TILE = [_P, _P, _P, _I]                            # a, out, carry, N
 _SIGNATURES = {
-    "glu_level_run_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "glu_level_run_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "glu_level_run_c64": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "glu_level_run_c128": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "glu_level_run_robust_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _P],
-    "glu_level_run_robust_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _P],
-    "glu_dense_lu_f32": [_P, _P, _I, _P],
-    "glu_dense_lu_f64": [_P, _P, _I, _P],
-    "glu_dense_lu_planar_f32": [_P, _P, _I, _P],
-    "glu_dense_lu_planar_f64": [_P, _P, _I, _P],
+    **{f"glu_level_run_{t}": _K1 + [_P] for t in ("f32", "f64", "c64", "c128")},
+    **{f"glu_level_run_batched_{t}": _K1 + [_I, _I, _P]        # batch, stride
+       for t in ("f32", "f64", "c64", "c128")},
+    **{f"glu_level_run_robust_{t}": _K1_ROBUST + [_P] for t in ("f32", "f64")},
+    **{f"glu_level_run_robust_batched_{t}": _K1_ROBUST + [_I, _I, _P]
+       for t in ("f32", "f64")},
+    **{f"glu_dense_lu{k}_{t}": _TILE + [_P]
+       for k in ("", "_planar") for t in ("f32", "f64")},
+    **{f"glu_dense_lu{k}_batched_{t}": _TILE + [_I, _P]         # batch
+       for k in ("", "_planar") for t in ("f32", "f64")},
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,8 @@
 // it.  No pivoting: the GLU flow makes the pivots safe with MC64 scaling.
 // N is a multiple of the block width kB = 32; nb = N / kB block steps.
 //
-// One cooperative launch per tile.  The TPU holds the whole tile in VMEM; a
+// One cooperative launch per tile, or per batch of B tiles of one N (the
+// batched engine: B matrices on one plan).  The TPU holds the whole tile in VMEM; a
 // 736 x 736 float64 tile is 4.3 MB, far more than a CTA's 227 KB of shared
 // memory but a small part of the 50 MB L2, so the tile stays in global
 // memory and a persistent grid, sized to what the card keeps resident at
@@ -30,11 +31,13 @@
 //   * the other CTAs update the trailing blocks A(i,j), i, j > s, with
 //     step s-1's L(i,s-1) U(s-1,j), the next block's operands in flight
 //     (cp.async, L2 only) while one is multiplied;
-//   * CTA 0 writes the diagonal block it factored in phase s-1.
+//   * the CTA of each tile's first panel block writes the diagonal block
+//     factored in phase s-1, kept since in a carry slot in global memory.
 //
 // Phase s only reads blocks that phase s-1 finished, so one grid barrier
-// separates two phases: nb - 1 per tile (N = 32: 0, N = 160: 4, N = 736:
-// 22, N = 2048: 63), no other launch, no atomics on values; inside a CTA,
+// separates two phases: nb - 1 per launch (N = 32: 0, N = 160: 4, N = 736:
+// 22, N = 2048: 63) whatever B, no other launch, no atomics on values; a
+// phase's work items are (tile, block) over the batch; inside a CTA,
 // a panel factor takes one named barrier per pivot (32).  Every block's
 // sums run in an order fixed by the block alone, whichever CTA computes
 // it, so the result is bit-identical from run to run.  Phase 0 reads `a`,
@@ -431,9 +434,63 @@ __device__ inline bool panel_ctas_apart(int G, int P, int Tn) {
   return (Tn + G - P - 1) / (G - P) <= 4 + (Tn + G - 1) / G;
 }
 
+// The factored diagonal block of a tile, from shared memory (ld kLdT) to
+// its carry slot in global memory (kB x kB, planes kB^2 apart).
 template <typename Ops>
+__device__ void carry_store(const typename Ops::Scalar* sd, typename Ops::Scalar* c) {
+  using S = Smem<Ops>;
+  for (int e = threadIdx.x; e < kB * kB; e += kThreads) {
+#pragma unroll
+    for (int pl = 0; pl < Ops::kPlanes; ++pl)
+      c[pl * kB * kB + e] = sd[pl * S::kPlaneT + (e / kB) * kLdT + e % kB];
+  }
+}
+
+// A carry slot, written by another CTA before the last grid barrier (read
+// past L1), to block (bi, bi) of the tile.
+template <typename Ops>
+__device__ void carry_to_out(const typename Ops::Scalar* c, typename Ops::Scalar* out, int N,
+                             int bi) {
+  const long long plane = static_cast<long long>(N) * N;
+  const long long off = block_off(N, bi, bi);
+  for (int e = threadIdx.x; e < kB * kB; e += kThreads) {
+#pragma unroll
+    for (int pl = 0; pl < Ops::kPlanes; ++pl)
+      out[off + pl * plane + static_cast<long long>(e / kB) * N + e % kB] =
+          __ldcg(c + pl * kB * kB + e);
+  }
+}
+
+// Whether the lead CTA of tile tb in phase s (s < nb - 1) still holds the
+// tile's factored diagonal block in shared memory when it leads the tile
+// again in phase s + 1: the same CTA leads both phases (the later lead item
+// is its first item), and its later panel items of phase s are the tile's
+// own.  Then the block stays in shared memory and skips the carry slot;
+// with one tile (B = 1) it always does.
+__device__ inline bool diag_stays(int tb, int s, int nb, int batch, int G) {
+  const int per = 2 * (nb - s - 1);
+  const int per_next = s + 1 < nb - 1 ? per - 2 : 1;
+  const int lead = tb * per, lead_next = tb * per_next;
+  return lead_next < G && lead_next == lead % G &&
+         lead + G * ((per + G - 1) / G) >= batch * per;
+}
+
+// `batch` tiles of one N, `tile` values apart, in one launch: every tile
+// walks the same block steps, so one grid barrier a phase serves all of
+// them, and a phase's work items are (tile, block).  Each tile's diagonal
+// block is factored in phase s by every CTA that holds one of its panel
+// blocks, and written to `out` only in phase s + 1, when no CTA reads it
+// any more: the CTA of the tile's first panel block (the lead item) keeps
+// it, in shared memory when that CTA leads the tile's next phase too
+// (diag_stays), else in the tile's carry slot (global memory), and the
+// next phase's lead item writes it out; the last phase factors the last
+// diagonal block alone (one item a tile) and writes it at once.
+//
+// kBatched false: one tile (B = 1 known at compile time).
+template <typename Ops, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 2)
-dense_lu_kernel(const typename Ops::Scalar* a, typename Ops::Scalar* out, int N) {
+dense_lu_kernel(const typename Ops::Scalar* a, typename Ops::Scalar* out,
+                typename Ops::Scalar* carry, int N, int batch_arg) {
   using S = Smem<Ops>;
   using T = typename Ops::Scalar;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -444,77 +501,102 @@ dense_lu_kernel(const typename Ops::Scalar* a, typename Ops::Scalar* out, int N)
   T* st = sm + S::kT;
   T* smul = sm + S::kMul;
   cg::grid_group grid = cg::this_grid();
+  const int batch = kBatched ? batch_arg : 1;
   const int nb = N / kB;
+  const long long tile = static_cast<long long>(Ops::kPlanes) * N * N;
   const int G = gridDim.x, b = blockIdx.x;
   for (int s = 0; s < nb; ++s) {
     const T* src = s <= 1 ? a : out;   // phase 0 and 1 read blocks never written
     const int m = nb - s - 1;          // panel blocks on each side of the diagonal
     const int P = 2 * m;               // column panel (i, s) first, then row panel (s, j)
     const int Tn = s >= 1 ? m * m : 0; // trailing blocks (i, j), i, j > s
-    if (b == 0 && s >= 1) block_store<Ops>(sd, out, N, s - 1, s - 1);  // factored in phase s-1
-    if (b < P || b == 0) {
-      // the diagonal block into stage 0 and the first panel block into
-      // stage 1, in flight together
-      issue_operands<Ops>(src, out, N, s, s, s, stage0);
-      if (b >= P) {   // CTA 0 alone in the last phase
+    const int per = m > 0 ? P : 1;     // items a tile: its panel, or its last diagonal
+    const int n_panel = batch * per;
+    int staged = -1;                   // the tile whose diagonal operands are in stage 0
+    for (int w = b; w < n_panel; w += G) {
+      const int tb = kBatched ? w / per : 0, it = w - tb * per;
+      const T* src_t = src + tb * tile;
+      T* out_t = out + tb * tile;
+      T* carry_t = carry + tb * Ops::kPlanes * kB * kB;
+      if (it == 0 && s >= 1) {
+        if (!kBatched || diag_stays(tb, s - 1, nb, batch, G))
+          block_store<Ops>(sd, out_t, N, s - 1, s - 1);
+        else
+          carry_to_out<Ops>(carry_t, out_t, N, s - 1);
+      }
+      if (tb != staged) {
+        // the diagonal block into stage 0 and this panel block into stage
+        // 1, in flight together
+        issue_operands<Ops>(src_t, out_t, N, s, s, s, stage0);
+        staged = tb;
+      }
+      if (m == 0) {   // the last diagonal block alone
         cp_async_wait<0>();
         __syncthreads();
         block_to_shared<Ops>(stage0, s, sd);
         __syncthreads();
         panel_factor<Ops, 0>(sd, st, smul);
         __syncthreads();
+        block_store<Ops>(sd, out_t, N, s, s);
+        __syncthreads();
+        continue;
       }
-      for (int it = b; it < P; it += G) {
-        const bool lower = it < m;
-        const int k = s + 1 + (lower ? it : it - m);
-        const int bi = lower ? k : s, bj = lower ? s : k;
-        issue_operands<Ops>(src, out, N, bi, bj, s, stage1);
-        cp_async_wait<0>();
-        __syncthreads();
-        block_to_shared<Ops>(stage0, s, sd);
-        block_to_shared<Ops>(stage1, s, st);
-        __syncthreads();
-        if (lower)
-          panel_factor<Ops, 1>(sd, st, smul);
-        else
-          panel_factor<Ops, 2>(sd, st, smul);
-        __syncthreads();
-        block_store<Ops>(st, out, N, bi, bj);
-        __syncthreads();
-      }
+      const bool lower = it < m;
+      const int k = s + 1 + (lower ? it : it - m);
+      const int bi = lower ? k : s, bj = lower ? s : k;
+      issue_operands<Ops>(src_t, out_t, N, bi, bj, s, stage1);
+      cp_async_wait<0>();
+      __syncthreads();
+      block_to_shared<Ops>(stage0, s, sd);
+      block_to_shared<Ops>(stage1, s, st);
+      __syncthreads();
+      if (lower)
+        panel_factor<Ops, 1>(sd, st, smul);
+      else
+        panel_factor<Ops, 2>(sd, st, smul);
+      __syncthreads();
+      block_store<Ops>(st, out_t, N, bi, bj);
+      if (it == 0 && kBatched && !diag_stays(tb, s, nb, batch, G))
+        carry_store<Ops>(sd, carry_t);
+      __syncthreads();
     }
     // trailing blocks, the next one's operands in flight while one updates
-    const int t0 = panel_ctas_apart(G, P, Tn) ? P : 0;
+    const int n_trail = batch * Tn;
+    const int t0 = panel_ctas_apart(G, n_panel, n_trail) ? n_panel : 0;
     const int stride = G - t0;
     int t = b - t0;
-    if (t >= 0 && t < Tn) {
-      issue_operands<Ops>(src, out, N, s + 1 + t / m, s + 1 + t % m, s, stage0);
-      for (int k = 0; t < Tn; ++k, t += stride) {
+    if (t >= 0 && t < n_trail) {
+      auto issue = [&](int u, T* stage) {
+        const int tb = kBatched ? u / Tn : 0, r = u - tb * Tn;
+        issue_operands<Ops>(src + tb * tile, out + tb * tile, N, s + 1 + r / m,
+                            s + 1 + r % m, s, stage);
+      };
+      issue(t, stage0);
+      for (int k = 0; t < n_trail; ++k, t += stride) {
         const int tn = t + stride;
-        if (tn < Tn) {
-          issue_operands<Ops>(src, out, N, s + 1 + tn / m, s + 1 + tn % m, s,
-                              sm + ((k + 1) & 1) * S::kStage);
+        if (tn < n_trail) {
+          issue(tn, sm + ((k + 1) & 1) * S::kStage);
           cp_async_wait<1>();
         } else {
           cp_async_wait<0>();
         }
         __syncthreads();
-        const long long off = block_off(N, s + 1 + t / m, s + 1 + t % m);
+        const int tb = kBatched ? t / Tn : 0, r = t - tb * Tn;
+        const long long off = block_off(N, s + 1 + r / m, s + 1 + r % m);
         const T* stage = sm + (k & 1) * S::kStage;
         if constexpr (std::is_same<T, double>::value)
-          block_update_mma<Ops>(stage, out, off, N, true);
+          block_update_mma<Ops>(stage, out + tb * tile, off, N, true);
         else
-          block_update_fma<Ops>(stage, out, off, N, true);
+          block_update_fma<Ops>(stage, out + tb * tile, off, N, true);
         __syncthreads();
       }
     }
     if (s < nb - 1) grid.sync();
   }
-  if (b == 0) block_store<Ops>(sd, out, N, nb - 1, nb - 1);
 }
 
-// CTAs that have work in the busiest phase: phase 0's panel blocks, or
-// phase 1's panel and trailing blocks.
+// CTAs that have work in the busiest phase of one tile: phase 0's panel
+// blocks, or phase 1's panel and trailing blocks.
 inline int max_work(int nb) {
   const int w0 = 2 * (nb - 1);
   const int w1 = nb >= 2 ? (nb - 2) * (nb - 2) + 2 * (nb - 2) : 0;
@@ -522,16 +604,18 @@ inline int max_work(int nb) {
   return w > 1 ? w : 1;
 }
 
-// One cooperative launch on `stream`; returns its error (the launch is
-// refused, not run, if the grid could not be resident at once).  The grid
-// is what the card keeps resident (occupancy x multiprocessors), capped by
-// the busiest phase's work.
+// One cooperative launch on `stream` for `batch` tiles (each kPlanes N^2
+// values, one after the other in `a` and `out`); `carry` holds kPlanes
+// kB^2 values a tile.  Returns the launch's error (the launch is refused,
+// not run, if the grid could not be resident at once).  The grid is what
+// the card keeps resident (occupancy x multiprocessors), capped by the
+// busiest phase's work over the batch.
 template <typename Ops>
-int dense_lu(const void* a, void* out, int N, void* stream_ptr) {
+int dense_lu(const void* a, void* out, void* carry, int N, int batch, void* stream_ptr) {
   using T = typename Ops::Scalar;
-  if (N <= 0) return static_cast<int>(cudaSuccess);
+  if (N <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
   if (N % kB != 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = dense_lu_kernel<Ops>;
+  auto kernel = batch == 1 ? dense_lu_kernel<Ops, false> : dense_lu_kernel<Ops, true>;
   const size_t smem = Smem<Ops>::kBytes;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -542,11 +626,12 @@ int dense_lu(const void* a, void* out, int N, void* stream_ptr) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int work = max_work(N / kB);
-  const int grid = per_sm * sms < work ? per_sm * sms : work;
+  const long long work = static_cast<long long>(max_work(N / kB)) * batch;
+  const int grid = per_sm * sms < work ? per_sm * sms : static_cast<int>(work);
   const T* a_t = static_cast<const T*>(a);
   T* out_t = static_cast<T*>(out);
-  void* args[] = {&a_t, &out_t, &N};
+  T* carry_t = static_cast<T*>(carry);
+  void* args[] = {&a_t, &out_t, &carry_t, &N, &batch};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                     dim3(kThreads), args, smem,
                                     static_cast<cudaStream_t>(stream_ptr));

@@ -11,7 +11,9 @@
 // planes use plain FMA.  The planes stay separate in global and shared
 // memory, so a warp's loads of one plane are as coalesced as K2's.
 //
-// One cooperative launch per tile, N / 32 - 1 grid barriers.  A CTA's
+// One cooperative launch per tile, or per batch of tiles of one N (the
+// batched entries), N / 32 - 1 grid barriers; `carry` is scratch for the
+// diagonal blocks between phases, 2 kB^2 values a tile.  A CTA's
 // shared memory is 146,432 bytes for float64 planes (two stages of staged
 // operands, the diagonal and panel blocks, both planes), above the 48 KB
 // static limit, so it is dynamic shared memory raised with
@@ -25,10 +27,24 @@
 
 #include "dense_lu.cuh"
 
-extern "C" int glu_dense_lu_planar_f32(const void* a, void* out, int N, void* stream) {
-  return dense_lu<PlanarOps<float>>(a, out, N, stream);
+extern "C" int glu_dense_lu_planar_f32(const void* a, void* out, void* carry, int N,
+                                       void* stream) {
+  return dense_lu<PlanarOps<float>>(a, out, carry, N, 1, stream);
 }
 
-extern "C" int glu_dense_lu_planar_f64(const void* a, void* out, int N, void* stream) {
-  return dense_lu<PlanarOps<double>>(a, out, N, stream);
+extern "C" int glu_dense_lu_planar_f64(const void* a, void* out, void* carry, int N,
+                                       void* stream) {
+  return dense_lu<PlanarOps<double>>(a, out, carry, N, 1, stream);
+}
+
+// B tiles of one N, one after the other in `a` and `out`, in one launch
+// (the batched engine's dense tail; the JAX package vmaps its XLA LU).
+extern "C" int glu_dense_lu_planar_batched_f32(const void* a, void* out, void* carry, int N,
+                                               int batch, void* stream) {
+  return dense_lu<PlanarOps<float>>(a, out, carry, N, batch, stream);
+}
+
+extern "C" int glu_dense_lu_planar_batched_f64(const void* a, void* out, void* carry, int N,
+                                               int batch, void* stream) {
+  return dense_lu<PlanarOps<double>>(a, out, carry, N, batch, stream);
 }

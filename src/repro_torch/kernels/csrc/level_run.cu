@@ -52,11 +52,23 @@
 // each level, right after the grid barrier, the grid bumps them: any
 // |d| < tau becomes tau * d / |d| (+tau for an exact zero).  A second grid
 // barrier follows, so no normalize or product of the level reads a diagonal
-// before its bump.  tau is read from a device scalar (eps * max|A|, computed
-// on the card before the launch), and the bumps are added into a device
-// int32 counter with integer atomics, whose sum does not depend on their
-// order.  Layout: diag_ptr (L + 1) and diag (P) list each level's diagonal
-// positions; the plain instantiation never reads them.
+// before its bump.  tau is read from device memory, one value a matrix
+// (eps * max|A|, computed on the card before the launch), and each bump is
+// added into its matrix's device int32 counter with an integer atomic,
+// whose sum does not depend on the order.  Layout: diag_ptr (L + 1) and
+// diag (P) list each level's diagonal positions; the plain instantiation
+// never reads them.
+//
+// Batch axis: B value arrays that share one plan, matrix b's at vals +
+// b * stride (64-bit offsets), run in the same launch.  A level's work
+// items become (matrix, row, slot block), its diagonals and normalizations
+// (matrix, entry); their indices stay 32-bit (the host keeps B times a
+// level's items, its diagonals and the run's normalizations below 2^31),
+// and a single matrix (B = 1) runs an instantiation with B fixed at 1.  One grid barrier a
+// level serves the whole batch, and I1-I3 hold per matrix because the
+// matrices share nothing.  Each matrix's arithmetic and sum order are the
+// single matrix's, so matrix b comes out bit for bit as alone.  The robust
+// instantiation reads tau[b] and adds matrix b's bumps into count[b].
 //
 // Bound: the latency of the run's dependent levels (154 on grid64, 10 on
 // rajat12_like), each a round trip for the packed indices, one for the
@@ -139,14 +151,17 @@ struct Smem {
   int warp[kThreads / 32];
 };
 
-// vals[norm_idx] = vals[norm_idx] / vals[norm_diag] for entries [0, n),
-// spread over every thread of the grid.
+// vals[norm_idx] = vals[norm_idx] / vals[norm_diag] for entries [0, n) of
+// every matrix, spread over every thread of the grid.
 template <typename Ops>
-__device__ void normalize(typename Ops::V* vals, const int2* __restrict__ norm, int n) {
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    const int2 e = __ldg(norm + i);
-    Ops::store(vals, e.x, Ops::div(Ops::load(vals, e.x), Ops::load(vals, e.y)));
+__device__ void normalize(typename Ops::V* vals, const int2* __restrict__ norm, int n,
+                          int batch, int stride) {
+  const int total = batch * n;   // the host keeps batch * n below 2^31
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < total; i += gridDim.x * kThreads) {
+    const int b = batch == 1 ? 0 : i / n;
+    const int2 e = __ldg(norm + (i - b * n));
+    typename Ops::V* v = vals + static_cast<long long>(b) * stride;
+    Ops::store(v, e.x, Ops::div(Ops::load(v, e.x), Ops::load(v, e.y)));
   }
 }
 
@@ -245,69 +260,79 @@ __device__ void row_block(typename Ops::V* vals, int4 row, int c0,
     if (touched & (1 << k)) Ops::store(vals, col_start + c0 + my0 + k, acc[k]);
 }
 
-// The grid's bumps of one level's diagonals diag[d0 : d1]; returns this
-// thread's count.
+// The grid's bumps of one level's diagonals diag[d0 : d1] in every matrix,
+// matrix b's against tau[b] and counted into count[b].
 template <typename Ops>
-__device__ int bump_diagonals(typename Ops::V* vals, const int* __restrict__ diag,
-                              int d0, int d1, typename Ops::V tau) {
-  const int stride = gridDim.x * kThreads;
-  int bumps = 0;
-  for (int i = d0 + blockIdx.x * kThreads + threadIdx.x; i < d1; i += stride) {
-    const int p = __ldg(diag + i);
-    typename Ops::V d = Ops::load(vals, p);
-    if (Ops::bump(d, tau)) {
-      Ops::store(vals, p, d);
-      ++bumps;
+__device__ void bump_diagonals(typename Ops::V* vals, const int* __restrict__ diag,
+                               int d0, int d1, const typename Ops::V* __restrict__ tau,
+                               int* count, int batch, int stride) {
+  const int n = d1 - d0;
+  const int total = batch * n;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < total; i += gridDim.x * kThreads) {
+    const int b = batch == 1 ? 0 : i / n;
+    const int p = __ldg(diag + d0 + (i - b * n));
+    typename Ops::V* v = vals + static_cast<long long>(b) * stride;
+    typename Ops::V d = Ops::load(v, p);
+    if (Ops::bump(d, __ldg(tau + b))) {
+      Ops::store(v, p, d);
+      atomicAdd(count + b, 1);
     }
   }
-  return bumps;
 }
 
-template <typename Ops, bool kRobust>
+// kBatched false: a single matrix (B = 1 known at compile time, so its
+// work indices need no division).
+template <typename Ops, bool kRobust, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 level_run_kernel(typename Ops::V* vals, const int* __restrict__ levels,
                  const int2* __restrict__ items, const int4* __restrict__ rows,
                  const int4* __restrict__ upd, const int2* __restrict__ norm,
                  int n_levels, const int* __restrict__ diag_ptr,
                  const int* __restrict__ diag, const typename Ops::V* __restrict__ tau,
-                 int* count) {
+                 int* count, int batch_arg, int stride) {
   __shared__ Smem<typename Ops::V> sm;
   cg::grid_group grid = cg::this_grid();
-  int bumps = 0;
+  const int batch = kBatched ? batch_arg : 1;
   for (int lev = 0; lev < n_levels; ++lev) {
     if constexpr (kRobust) {
-      bumps += bump_diagonals<Ops>(vals, diag, __ldg(diag_ptr + lev),
-                                   __ldg(diag_ptr + lev + 1), __ldg(tau));
+      bump_diagonals<Ops>(vals, diag, __ldg(diag_ptr + lev), __ldg(diag_ptr + lev + 1), tau,
+                          count, batch, stride);
       grid.sync();
     }
     const int* meta = levels + lev * kLevelFields;
-    const int i1 = __ldg(meta + 5);
-    for (int it = __ldg(meta + 4) + blockIdx.x; it < i1; it += gridDim.x) {
-      const int2 item = __ldg(items + it);
-      row_block<Ops>(vals, __ldg(rows + item.x), item.y, upd, sm);
+    const int i0 = __ldg(meta + 4), n_items = __ldg(meta + 5) - i0;
+    const int total = batch * n_items;
+    // work item w: matrix w / n_items, item i0 + w % n_items
+    for (int w = blockIdx.x; w < total; w += gridDim.x) {
+      const int b = batch == 1 ? 0 : w / n_items;
+      const int2 item = __ldg(items + i0 + (w - b * n_items));
+      row_block<Ops>(vals + static_cast<long long>(b) * stride, __ldg(rows + item.x), item.y,
+                     upd, sm);
     }
     grid.sync();
   }
-  if constexpr (kRobust) {
-    if (bumps) atomicAdd(count, bumps);
-  }
   // every level's L entries: no level of the run writes them or their
   // diagonals after it normalizes them, nor reads them after its own (I3)
-  if (n_levels > 0) normalize<Ops>(vals, norm, __ldg(levels + (n_levels - 1) * kLevelFields + 1));
+  if (n_levels > 0)
+    normalize<Ops>(vals, norm, __ldg(levels + (n_levels - 1) * kLevelFields + 1), batch,
+                   stride);
 }
 
-// One cooperative launch on `stream`; returns its error (the launch is
-// refused, not run, if the grid could not be resident at once).  The grid
-// is what the card keeps resident (occupancy x multiprocessors), capped by
-// the largest level's work items.  The launch may be recorded into a CUDA
+// One cooperative launch on `stream` for `batch` value arrays `stride`
+// values apart; returns its error (the launch is refused, not run, if the
+// grid could not be resident at once).  The grid is what the card keeps
+// resident (occupancy x multiprocessors), capped by the largest level's
+// work items over the batch.  The launch may be recorded into a CUDA
 // graph (stream capture takes cooperative launches as cooperative kernel
 // nodes); the occupancy queries run on the host at capture time.
 template <typename Ops, bool kRobust>
 int level_run(void* vals, const void* levels, const void* items, const void* rows,
               const void* upd, const void* norm, const void* diag_ptr, const void* diag,
-              const void* tau, void* count, int n_levels, int max_items, void* stream) {
-  if (n_levels <= 0) return static_cast<int>(cudaSuccess);
-  auto kernel = level_run_kernel<Ops, kRobust>;
+              const void* tau, void* count, int n_levels, int max_items, int batch, int stride,
+              void* stream) {
+  if (n_levels <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
+  auto kernel = batch == 1 ? level_run_kernel<Ops, kRobust, false>
+                            : level_run_kernel<Ops, kRobust, true>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -315,8 +340,8 @@ int level_run(void* vals, const void* levels, const void* items, const void* row
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int work = max_items > 1 ? max_items : 1;
-  const int grid = per_sm * sms < work ? per_sm * sms : work;
+  const long long work = static_cast<long long>(max_items > 1 ? max_items : 1) * batch;
+  const int grid = per_sm * sms < work ? per_sm * sms : static_cast<int>(work);
   using V = typename Ops::V;
   V* v = static_cast<V*>(vals);
   const int* lv = static_cast<const int*>(levels);
@@ -328,7 +353,7 @@ int level_run(void* vals, const void* levels, const void* items, const void* row
   const int* dg = static_cast<const int*>(diag);
   const V* ta = static_cast<const V*>(tau);
   int* ct = static_cast<int*>(count);
-  void* args[] = {&v, &lv, &it, &rw, &up, &nm, &n_levels, &dp, &dg, &ta, &ct};
+  void* args[] = {&v, &lv, &it, &rw, &up, &nm, &n_levels, &dp, &dg, &ta, &ct, &batch, &stride};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                     dim3(kThreads), args, 0,
                                     static_cast<cudaStream_t>(stream));
@@ -337,11 +362,12 @@ int level_run(void* vals, const void* levels, const void* items, const void* row
 
 }  // namespace
 
+// One value array (B = 1).
 extern "C" int glu_level_run_f32(void* vals, const void* levels, const void* items,
                                  const void* rows, const void* upd, const void* norm,
                                  int n_levels, int max_items, void* stream) {
   return level_run<RealOps<float>, false>(vals, levels, items, rows, upd, norm, nullptr,
-                                          nullptr, nullptr, nullptr, n_levels, max_items,
+                                          nullptr, nullptr, nullptr, n_levels, max_items, 1, 0,
                                           stream);
 }
 
@@ -349,7 +375,7 @@ extern "C" int glu_level_run_f64(void* vals, const void* levels, const void* ite
                                  const void* rows, const void* upd, const void* norm,
                                  int n_levels, int max_items, void* stream) {
   return level_run<RealOps<double>, false>(vals, levels, items, rows, upd, norm, nullptr,
-                                           nullptr, nullptr, nullptr, n_levels, max_items,
+                                           nullptr, nullptr, nullptr, n_levels, max_items, 1, 0,
                                            stream);
 }
 
@@ -358,7 +384,7 @@ extern "C" int glu_level_run_c64(void* vals, const void* levels, const void* ite
                                  int n_levels, int max_items, void* stream) {
   return level_run<ComplexOps<float, float2>, false>(vals, levels, items, rows, upd, norm,
                                                      nullptr, nullptr, nullptr, nullptr,
-                                                     n_levels, max_items, stream);
+                                                     n_levels, max_items, 1, 0, stream);
 }
 
 extern "C" int glu_level_run_c128(void* vals, const void* levels, const void* items,
@@ -366,7 +392,7 @@ extern "C" int glu_level_run_c128(void* vals, const void* levels, const void* it
                                   int n_levels, int max_items, void* stream) {
   return level_run<ComplexOps<double, double2>, false>(vals, levels, items, rows, upd, norm,
                                                        nullptr, nullptr, nullptr, nullptr,
-                                                       n_levels, max_items, stream);
+                                                       n_levels, max_items, 1, 0, stream);
 }
 
 // The robust (static-pivot) instantiations: tau is a device scalar of the
@@ -377,7 +403,7 @@ extern "C" int glu_level_run_robust_f32(void* vals, const void* levels, const vo
                                         const void* tau, void* count, int n_levels,
                                         int max_items, void* stream) {
   return level_run<RealOps<float>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
-                                         diag, tau, count, n_levels, max_items, stream);
+                                         diag, tau, count, n_levels, max_items, 1, 0, stream);
 }
 
 extern "C" int glu_level_run_robust_f64(void* vals, const void* levels, const void* items,
@@ -386,5 +412,72 @@ extern "C" int glu_level_run_robust_f64(void* vals, const void* levels, const vo
                                         const void* tau, void* count, int n_levels,
                                         int max_items, void* stream) {
   return level_run<RealOps<double>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
-                                          diag, tau, count, n_levels, max_items, stream);
+                                          diag, tau, count, n_levels, max_items, 1, 0, stream);
+}
+
+// A batch of `batch` value arrays that share the run, `stride` values apart
+// (the rows of a contiguous (B, stride) tensor): the counterparts of the
+// JAX package's level_update_batched_body (kernels/ops.py:86, real values)
+// and level_update_planar_batched_body (:173, complex values).
+extern "C" int glu_level_run_batched_f32(void* vals, const void* levels, const void* items,
+                                         const void* rows, const void* upd, const void* norm,
+                                         int n_levels, int max_items, int batch, int stride,
+                                         void* stream) {
+  return level_run<RealOps<float>, false>(vals, levels, items, rows, upd, norm, nullptr,
+                                          nullptr, nullptr, nullptr, n_levels, max_items, batch,
+                                          stride, stream);
+}
+
+extern "C" int glu_level_run_batched_f64(void* vals, const void* levels, const void* items,
+                                         const void* rows, const void* upd, const void* norm,
+                                         int n_levels, int max_items, int batch, int stride,
+                                         void* stream) {
+  return level_run<RealOps<double>, false>(vals, levels, items, rows, upd, norm, nullptr,
+                                           nullptr, nullptr, nullptr, n_levels, max_items,
+                                           batch, stride, stream);
+}
+
+extern "C" int glu_level_run_batched_c64(void* vals, const void* levels, const void* items,
+                                         const void* rows, const void* upd, const void* norm,
+                                         int n_levels, int max_items, int batch, int stride,
+                                         void* stream) {
+  return level_run<ComplexOps<float, float2>, false>(vals, levels, items, rows, upd, norm,
+                                                     nullptr, nullptr, nullptr, nullptr,
+                                                     n_levels, max_items, batch, stride, stream);
+}
+
+extern "C" int glu_level_run_batched_c128(void* vals, const void* levels, const void* items,
+                                          const void* rows, const void* upd, const void* norm,
+                                          int n_levels, int max_items, int batch, int stride,
+                                          void* stream) {
+  return level_run<ComplexOps<double, double2>, false>(vals, levels, items, rows, upd, norm,
+                                                       nullptr, nullptr, nullptr, nullptr,
+                                                       n_levels, max_items, batch, stride,
+                                                       stream);
+}
+
+// Robust and batched: tau holds one threshold a matrix, count one int32 a
+// matrix.
+extern "C" int glu_level_run_robust_batched_f32(void* vals, const void* levels,
+                                                const void* items, const void* rows,
+                                                const void* upd, const void* norm,
+                                                const void* diag_ptr, const void* diag,
+                                                const void* tau, void* count, int n_levels,
+                                                int max_items, int batch, int stride,
+                                                void* stream) {
+  return level_run<RealOps<float>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
+                                         diag, tau, count, n_levels, max_items, batch, stride,
+                                         stream);
+}
+
+extern "C" int glu_level_run_robust_batched_f64(void* vals, const void* levels,
+                                                const void* items, const void* rows,
+                                                const void* upd, const void* norm,
+                                                const void* diag_ptr, const void* diag,
+                                                const void* tau, void* count, int n_levels,
+                                                int max_items, int batch, int stride,
+                                                void* stream) {
+  return level_run<RealOps<double>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
+                                          diag, tau, count, n_levels, max_items, batch, stride,
+                                          stream);
 }

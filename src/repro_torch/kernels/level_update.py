@@ -12,7 +12,9 @@ runs the plain version ``ref.level_run_ref``.  Any other device raises.
 With ``tau`` and ``count`` (real values only) it launches the robust
 instantiation: static pivoting, each level's column diagonals bumped at
 the start of that level (``ref.perturb_diags``'s rule) and the bumps added
-into ``count``.
+into ``count``.  A (B, n) value array is a batch of matrices on one run,
+the counterpart of the JAX package's batched level steps: one launch, a
+batch axis of the same kernel.
 
 ``segmented_accumulate(col_vals, contribs, didx_local)`` is the TPU
 kernel's own function, ``col_vals (D, C) + scatter(contribs (D, R) at
@@ -32,12 +34,9 @@ __all__ = ["LevelRun", "check_run_invariants", "level_run",
 
 SLOTS = 1024   # kSlots in csrc/level_run.cu: slots of one work item
 
-_ENTRY = {torch.float32: "glu_level_run_f32",
-          torch.float64: "glu_level_run_f64",
-          torch.complex64: "glu_level_run_c64",
-          torch.complex128: "glu_level_run_c128"}
-_ROBUST_ENTRY = {torch.float32: "glu_level_run_robust_f32",
-                 torch.float64: "glu_level_run_robust_f64"}
+_TYPES = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
+          torch.complex128: "c128"}
+_ROBUST_TYPES = (torch.float32, torch.float64)
 _INT32_MAX = np.iinfo(np.int32).max
 
 
@@ -229,6 +228,9 @@ class LevelRun:
         self.n_levels = len(levels)
         self.n_updates = len(upd)
         self.max_items = int((levels[:, 5] - levels[:, 4]).max(initial=0))
+        # the most work indices of one pass over a matrix (a level's items,
+        # the run's normalizations, its diagonals): times B within int32
+        self.max_work = max(self.max_items, len(norm), len(diag_idx), 1)
         self.host = dict(levels=levels, items=items, rows=rows, upd=upd,
                          norm=norm, diag_ptr=diag_ptr, diag=diag_idx)
         self.tensors = {k: torch.as_tensor(v, dtype=torch.int32,
@@ -274,29 +276,34 @@ class LevelRun:
 _fns: dict = {}
 
 
-def _entry(dtype, robust: bool):
+def _entry(dtype, robust: bool, batched: bool):
     """The library's C entry for ``dtype``, looked up once."""
-    fn = _fns.get((dtype, robust))
+    key = (dtype, robust, batched)
+    fn = _fns.get(key)
     if fn is None:
-        table = _ROBUST_ENTRY if robust else _ENTRY
-        if dtype not in table:
+        if dtype not in (_ROBUST_TYPES if robust else _TYPES):
             raise TypeError(
                 f"level_run takes float32 or float64 values with static "
                 f"pivoting, got {dtype}" if robust else
                 f"level_run takes float32, float64, complex64 or complex128 "
                 f"values, got {dtype}")
-        fn = _fns[(dtype, robust)] = getattr(_build.load_library(),
-                                             table[dtype])
+        name = ("glu_level_run" + ("_robust" if robust else "")
+                + ("_batched" if batched else "") + "_" + _TYPES[dtype])
+        fn = _fns[key] = getattr(_build.load_library(), name)
     return fn
 
 
 def level_run(vals: torch.Tensor, run: LevelRun, tau=None,
               count=None) -> torch.Tensor:
     """Run every level of ``run`` in place on the contiguous value array
-    ``vals``; returns ``vals``.  With ``tau`` (a 0-d tensor of the value
-    dtype: the static-pivot threshold) and ``count`` (a 0-d int32 tensor)
+    ``vals``; returns ``vals``.  ``vals`` is one (n,) array, or a batch
+    (B, n) of arrays that share the run (the JAX package's
+    ``level_update_batched_body`` and ``level_update_planar_batched_body``):
+    one launch for the whole batch, each matrix's bits those of a launch
+    on it alone.  With ``tau`` (the static-pivot threshold in the values'
+    dtype: 0-d, or (B,) for a batch) and ``count`` (int32, 0-d or (B,))
     each level first bumps its column diagonals below ``tau`` and adds the
-    number it bumped into ``count``."""
+    number it bumped into ``count``, per matrix."""
     dev = vals.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"level_run runs on cuda or cpu, not {dev}")
@@ -305,27 +312,42 @@ def level_run(vals: torch.Tensor, run: LevelRun, tau=None,
     robust = tau is not None
     if robust != (count is not None):
         raise ValueError("level_run takes tau and count together")
+    if vals.dim() not in (1, 2):
+        raise ValueError(f"level_run takes (n,) or (B, n) values, got shape "
+                         f"{tuple(vals.shape)}")
+    batched = vals.dim() == 2
+    if robust:
+        shape = vals.shape[:1] if batched else ()
+        if tau.shape != shape or count.shape != shape:
+            raise ValueError(f"level_run needs tau and count of shape "
+                             f"{tuple(shape)}, got {tuple(tau.shape)} and "
+                             f"{tuple(count.shape)}")
     if dev.type == "cpu":
         return level_run_ref(vals, run, tau, count)
-    fn = _entry(vals.dtype, robust)
-    if not vals.is_contiguous() or vals.numel() < run.n_vals:
+    fn = _entry(vals.dtype, robust, batched)
+    if not vals.is_contiguous() or vals.shape[-1] < run.n_vals \
+            or vals.shape[-1] > _INT32_MAX:
         raise ValueError(f"level_run needs a contiguous value array of at "
-                         f"least {run.n_vals} values")
+                         f"least {run.n_vals} values a matrix")
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return level_run(vals, run, tau, count)
+    batch = (vals.shape[0], vals.shape[1]) if batched else ()
+    if batched and vals.shape[0] * run.max_work > _INT32_MAX:
+        raise ValueError(f"a batch of {vals.shape[0]} on this run needs "
+                         f"work indices beyond int32")
     stream = torch.cuda.current_stream(dev).cuda_stream
     if robust:
-        if tau.dtype != vals.dtype or tau.numel() != 1 or tau.device != dev \
-                or count.dtype != torch.int32 or count.numel() != 1 \
-                or count.device != dev:
-            raise ValueError("level_run needs tau as one value of the values' "
-                             "dtype and count as one int32, on their device")
+        if tau.dtype != vals.dtype or tau.device != dev \
+                or count.dtype != torch.int32 or count.device != dev \
+                or not (tau.is_contiguous() and count.is_contiguous()):
+            raise ValueError("level_run needs tau in the values' dtype and "
+                             "count as int32, contiguous, on their device")
         rc = fn(vals.data_ptr(), *run.ptrs, *run.diag_ptrs, tau.data_ptr(),
-                count.data_ptr(), run.n_levels, run.max_items, stream)
+                count.data_ptr(), run.n_levels, run.max_items, *batch, stream)
     else:
         rc = fn(vals.data_ptr(), *run.ptrs, run.n_levels, run.max_items,
-                stream)
+                *batch, stream)
     _build.check(rc, "level_run")
     _build.count_launch(level_run)
     return vals

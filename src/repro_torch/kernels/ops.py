@@ -28,8 +28,9 @@ from .level_update import segmented_accumulate
 from .ref import add_in_rounds_, perturb_diags, round_order, spmv_ref
 
 __all__ = ["level_update_body", "level_update_planar_body", "spmv",
-           "factor_stats", "masked_correction", "round_order",
-           "add_in_rounds_", "perturb_diags"]
+           "factor_stats", "factor_stats_batched", "masked_correction",
+           "round_order", "add_in_rounds_", "perturb_diags",
+           "perturb_diags_batched"]
 
 
 def level_update_body(vals, norm_idx, norm_diag, lidx2d, uidx2d, didx_local,
@@ -88,16 +89,26 @@ spmv = spmv_ref
 
 def factor_stats(vals, diag_idx, a_max):
     """Element pivot growth ``max|LU| / max|A|`` and the smallest factored
-    diagonal magnitude, as 0-d tensors; complex values reduce magnitudes."""
+    diagonal magnitude, as 0-d tensors; complex values reduce magnitudes.
+    A batch, (B, nnz) values and (B,) ``a_max``, gives (B,) tensors, each
+    matrix's as alone."""
     mag = vals.abs()
     tiny = torch.finfo(mag.dtype).tiny
-    growth = mag.max() / torch.clamp(a_max, min=tiny)
-    return growth, mag[diag_idx].min()
+    growth = mag.amax(-1) / torch.clamp(a_max, min=tiny)
+    return growth, mag[..., diag_idx].amin(-1)
 
 
 def masked_correction(x, d, berr, tol: float):
     """``x + d`` while the solve is above tolerance, ``x`` once it has
     converged: the convergence mask stays on the device, so refinement
-    sweeps need no host sync each."""
-    return x + torch.where(berr > tol, d, torch.zeros((), dtype=x.dtype,
-                                                      device=x.device))
+    sweeps need no host sync each.  ``berr`` is 0-d for one solve, (B,)
+    for a batch of (B, n) solves (each row masked by its own)."""
+    mask = (berr > tol).reshape(berr.shape + (1,) * (x.dim() - berr.dim()))
+    return x + torch.where(mask, d, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+
+# the reference's batched names: the functions above and ``perturb_diags``
+# take a leading batch axis themselves
+factor_stats_batched = factor_stats
+perturb_diags_batched = perturb_diags

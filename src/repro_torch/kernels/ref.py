@@ -57,16 +57,20 @@ def round_order(idx: np.ndarray):
 
 
 def add_in_rounds_(dst, idx, src, bounds, alpha: float = 1.0):
-    """``dst[idx] += alpha * src`` for entries in :func:`round_order`: each
-    round's targets are distinct, so every ``index_add_`` is exact and the
-    sum order per target is the entries' original order, on any device and
-    in any run.  Complex tensors add on their re/im plane views: the same
-    sums, through the real ``index_add_``."""
+    """``dst[..., idx] += alpha * src`` for entries in :func:`round_order`:
+    each round's targets are distinct, so every ``index_add_`` is exact and
+    the sum order per target is the entries' original order, on any device
+    and in any run.  ``dst`` is (n,) or a batch (B, n), ``src`` (k,) or
+    (B, k): the batch adds each matrix's entries as one matrix alone.
+    Complex tensors add on their re/im plane views: the same sums, through
+    the real ``index_add_``."""
+    dim = dst.dim() - 1
     target = torch.view_as_real(dst) if dst.is_complex() else dst
     if src.is_complex():
         src = torch.view_as_real(src)
     for s, e in zip(bounds[:-1], bounds[1:]):
-        target.index_add_(0, idx[s:e], src[s:e], alpha=alpha)
+        target.index_add_(dim, idx[s:e], src.narrow(dim, s, e - s),
+                          alpha=alpha)
     return dst
 
 
@@ -104,15 +108,19 @@ def perturb_diags(vals, diag_idx, tau):
     zero becomes ``+tau``).  ``tau`` is a 0-d tensor of the values' dtype.
     Returns ``(vals, n_bumped)`` with the count as a 0-d int32 tensor on the
     device.  The reference's ``_perturb_diags_body`` (its ``diag_idx`` is
-    padded; here every index is real)."""
-    d = vals[diag_idx]
+    padded; here every index is real).  A batch, (B, n) values with a (B,)
+    ``tau``, bumps each matrix against its own threshold and returns (B,)
+    counts (the reference's ``perturb_diags_batched``), elementwise as one
+    matrix alone."""
+    d = vals[..., diag_idx]
     mag = d.abs()
+    tau = tau[..., None]
     tiny = mag < tau
     pos = mag > 0
     phase = torch.where(pos, d / torch.where(pos, mag, torch.ones_like(mag)),
                         torch.ones_like(d))
-    vals[diag_idx] = torch.where(tiny, phase * tau, d)
-    return vals, tiny.sum(dtype=torch.int32)
+    vals[..., diag_idx] = torch.where(tiny, phase * tau, d)
+    return vals, tiny.sum(-1, dtype=torch.int32)
 
 
 def level_run_ref(vals, run, tau=None, count=None):
@@ -127,7 +135,13 @@ def level_run_ref(vals, run, tau=None, count=None):
     checked against make its bits the kernel's, which normalizes every
     level's L entries after the last.  ``run`` is a
     :class:`~repro_torch.kernels.level_update.LevelRun` on ``vals``'s
-    device."""
+    device.  A batch, (B, n) values with (B,) ``tau`` and ``count``, runs
+    the single-matrix version on each matrix."""
+    if vals.dim() == 2:
+        for b in range(vals.shape[0]):
+            level_run_ref(vals[b], run, *(() if tau is None
+                                          else (tau[b], count[b])))
+        return vals
     for lidx, uidx, ldiag, slots, bounds, ni, nd, diag in run.ref_levels():
         if tau is not None:
             count += perturb_diags(vals, diag, tau)[1]
@@ -142,7 +156,10 @@ def level_run_ref(vals, run, tau=None, count=None):
 
 def dense_lu_ref(a):
     """Unpivoted dense LU, in-place layout (L strictly below the diagonal,
-    unit diagonal implied; U on and above), unblocked right-looking."""
+    unit diagonal implied; U on and above), unblocked right-looking.  A
+    (B, N, N) batch factors each tile alone."""
+    if a.dim() == 3:
+        return torch.stack([dense_lu_ref(t) for t in a])
     m = a.clone()
     n = m.shape[0]
     for j in range(n - 1):
@@ -155,7 +172,10 @@ def dense_lu_ref(a):
 def dense_lu_planar_ref(a):
     """Planar twin of :func:`dense_lu_ref`: ``a`` is (2, N, N) re/im planes
     of a complex tile.  The complex multiply is 4 real outer products and a
-    sign; the pivot reciprocal is ``conj(p) / (re^2 + im^2)``."""
+    sign; the pivot reciprocal is ``conj(p) / (re^2 + im^2)``.  A
+    (B, 2, N, N) batch factors each tile alone."""
+    if a.dim() == 4:
+        return torch.stack([dense_lu_planar_ref(t) for t in a])
     m = a.clone()
     mr, mi = m[0], m[1]
     n = m.shape[-1]
@@ -196,6 +216,15 @@ def lu_backward_error(a, lu) -> float:
 
 
 def spmv_ref(row_ids, colidx, vals, x, n_rows):
-    """COO SpMV oracle: ``y[row_ids] += vals * x[colidx]``."""
-    y = torch.zeros(n_rows, dtype=vals.dtype, device=vals.device)
-    return scatter_add_(y, row_ids, vals * x[colidx])
+    """COO SpMV oracle: ``y[row_ids] += vals * x[colidx]``.  A batch,
+    (B, nnz) values and (B, n) vectors, scatters into one flat (B * n_rows)
+    array, each matrix's entries in their order as one matrix alone."""
+    prods = vals * x[..., colidx]
+    if prods.dim() == 1:
+        y = torch.zeros(n_rows, dtype=prods.dtype, device=prods.device)
+        return scatter_add_(y, row_ids, prods)
+    B = prods.shape[0]
+    flat = (torch.arange(B, device=row_ids.device)[:, None] * n_rows
+            + row_ids).reshape(-1)
+    y = torch.zeros(B * n_rows, dtype=prods.dtype, device=prods.device)
+    return scatter_add_(y, flat, prods.reshape(-1)).view(B, n_rows)

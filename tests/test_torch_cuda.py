@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version on the same inputs, and the GLU facade end to end.  Every test
+version on the same inputs (with a batch axis too), and the GLU facade end
+to end, single and batched.  Every test
 needs an NVIDIA GPU (marker ``cuda``) and skips elsewhere; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -371,3 +372,161 @@ def test_transient_graph_equals_eager(cuda):
     assert graph.n_factorizations == graph.newton_iters.sum()
     assert graph.ladder_counts == dict(refactorize=graph.n_factorizations,
                                        rescale=0, bump=0, replan=0)
+
+
+# -- the batched engine: B matrices on one plan -------------------------------
+
+@pytest.mark.parametrize("dtype", K1_DTYPES)
+def test_batched_k1_matches_plain(cuda, dtype):
+    """One launch for a (B, n) batch: each matrix bit for bit as its plain
+    version and as a launch on it alone, and a bit-identical repeat."""
+    shapes = K1_RUNS["grid64"]
+    run, _ = random_level_run(np.random.default_rng(8), shapes, dtype, cuda)
+    vals = torch.stack([random_level_run(np.random.default_rng(9 + b), shapes,
+                                         dtype, cuda)[1] for b in range(5)])
+    got, again, want = vals.clone(), vals.clone(), vals.clone()
+    before = level_run.launches
+    level_run(got, run)
+    torch.cuda.synchronize()
+    assert level_run.launches == before + 1
+    level_run(again, run)
+    level_run_ref(want, run)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    for b in range(5):
+        assert torch.equal(level_run(vals[b].clone(), run), got[b]), b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_robust_k1_matches_plain(cuda, dtype):
+    """Per-matrix tau and (B,) bump counts, bit for bit and bump for bump
+    as the plain version; a matrix with nothing to bump counts 0."""
+    run, vals = random_level_run(np.random.default_rng(6), K1_RUNS["grid64"],
+                                 dtype, cuda)
+    vals = torch.stack([vals] * 4)
+    diag = torch.from_numpy(run.host["diag"]).to(cuda)
+    rng = np.random.default_rng(7)
+    for b in (0, 2, 3):
+        pick = torch.from_numpy(rng.choice(len(diag), size=5 * (b + 1),
+                                           replace=False)).to(cuda)
+        vals[b, diag[pick]] = 1e-9
+    tau = torch.tensor([1e-3, 1e-3, 1e-3, 1e-12], dtype=dtype, device=cuda)
+    outs = []
+    for fn in (level_run, level_run, level_run_ref):
+        v = vals.clone()
+        count = torch.zeros(4, dtype=torch.int32, device=cuda)
+        fn(v, run, tau, count)
+        torch.cuda.synchronize()
+        outs.append((v, count.tolist()))
+    (got, n), (again, n2), (want, n_want) = outs
+    assert n == n2 == n_want == [5, 0, 15, 0]
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("N", [32, 160, 736])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("planar", [False, True], ids=["K2", "K3"])
+def test_batched_dense_lu_equals_single_tiles(cuda, N, dtype, planar):
+    """B tiles in one launch: each tile bit for bit as the single-tile
+    launch (the same blocks in the same order), within the stated
+    tolerance of the plain version, ``a`` untouched."""
+    rng = np.random.default_rng(N)
+    shape = (5, 2, N, N) if planar else (5, N, N)
+    a = rng.normal(size=shape)
+    (a[:, 0] if planar else a)[...] += N * np.eye(N)
+    a = torch.from_numpy(a).to(cuda, dtype)
+    a0 = a.clone()
+    kernel = dense_lu_planar if planar else dense_lu
+    plain = dense_lu_planar_ref if planar else dense_lu_ref
+    before = kernel.launches
+    got = kernel(a)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and torch.equal(a, a0)
+    assert torch.equal(kernel(a), got)
+    tol = K2_TOL[dtype]
+    for b in range(5):
+        assert torch.equal(kernel(a[b]), got[b]), b
+    torch.testing.assert_close(got, plain(a), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_batched_replays_equal_eager_steps(cuda, dtype):
+    """factorize_batched and solve_batched: one replay each after the
+    first call, bit for bit the steps one by one and the single GLU's
+    factors and solutions a matrix, and the CPU's to tolerance."""
+    A = (ac_jacobian(300, avg_degree=4.0, seed=0) if dtype.is_complex
+         else circuit_jacobian(300, avg_degree=4.0, seed=0))
+    rng = np.random.default_rng(12)
+    batch = np.asarray(A.data)[None] * (1 + 0.1 * rng.uniform(-1, 1, (4, A.nnz)))
+    bs = rng.normal(size=(4, A.n)) + (1j * rng.normal(size=(4, A.n))
+                                      if dtype.is_complex else 0.0)
+    sets = [batch * s for s in (1.0, 1.01, 1.02)]
+    g = GLU(A, dtype=dtype)
+    ge = GLU(A, dtype=dtype, jit_schedule=False)
+    g1 = GLU(A, dtype=dtype)
+    kinds = g._factorizer.step_kinds
+    for i, vals in enumerate(sets):
+        k1, kd = level_run.launches, dense_lu.launches + dense_lu_planar.launches
+        x = g.factorize_batched(vals).solve_batched(bs)
+        disp = (g.solve_info["n_dispatches"], g.solve_info["solve_dispatches"])
+        assert level_run.launches - k1 == kinds.count("run")
+        assert (dense_lu.launches + dense_lu_planar.launches - kd
+                == kinds.count("dense"))
+        xe = ge.factorize_batched(vals).solve_batched(bs)
+        assert torch.equal(g.factorized_values_batched(),
+                           ge.factorized_values_batched())
+        assert x.tobytes() == xe.tobytes()
+        if i:
+            assert disp == (1, 1)
+    factors = g.factorized_values_batched()
+    for b in range(4):
+        x1 = g1.factorize(sets[2][b]).solve(bs[b])
+        assert torch.equal(g1.factorized_values(), factors[b])
+        assert x1.tobytes() == x[b].tobytes()
+    xr = g.solve_batched(bs, refine=2)
+    assert xr.tobytes() == ge.solve_batched(bs, refine=2).tobytes()
+    assert g.solve_info["converged"].all()
+    gc = GLU(A, dtype=dtype, device="cpu")
+    xc = gc.factorize_batched(sets[2]).solve_batched(bs, refine=2)
+    np.testing.assert_allclose(xr, xc, rtol=1e-9, atol=1e-9)
+
+
+def test_batched_static_pivot_on_card(cuda):
+    """The batched robust K1 inside the replay: per-matrix bump counts
+    equal the steps one by one and the single GLU's."""
+    from repro_torch.sparse import ill_conditioned_jacobian
+
+    A = ill_conditioned_jacobian(150, decades=0.0, tiny_pivots=3, seed=5)
+    rng = np.random.default_rng(13)
+    batch = np.asarray(A.data)[None] * (1 + 0.05 * rng.uniform(-1, 1, (3, A.nnz)))
+    kw = dict(static_pivot=1e-10, mc64="none")
+    g, ge, g1 = GLU(A, **kw), GLU(A, jit_schedule=False, **kw), GLU(A, **kw)
+    for _ in range(2):
+        g.factorize_batched(batch)
+    ge.factorize_batched(batch)
+    n, ne = g.solve_info["n_perturbed"], ge.solve_info["n_perturbed"]
+    assert n.tolist() == ne.tolist() and (n > 0).all()
+    assert torch.equal(g.factorized_values_batched(),
+                       ge.factorized_values_batched())
+    for b in range(3):
+        g1.factorize(batch[b])
+        assert g1.solve_info["n_perturbed"] == n[b]
+        assert torch.equal(g1.factorized_values(),
+                           g.factorized_values_batched()[b])
+
+
+def test_transient_sweep_on_card(cuda):
+    """The lockstep sweep on the card: replays and eager steps give the
+    same voltages bit for bit, and the CPU run's to 1e-9."""
+    from repro_torch.circuit import rc_grid_circuit, transient_sweep
+
+    ckt = rc_grid_circuit(8, 8, with_diodes=True, seed=0)
+    kw = dict(t_end=0.02, dt=0.005, scales=[0.9, 1.0, 1.1], refine=1)
+    graph = transient_sweep(ckt, **kw)
+    eager = transient_sweep(ckt, jit_schedule=False, **kw)
+    cpu = transient_sweep(ckt, device="cpu", **kw)
+    assert graph.voltages.tobytes() == eager.voltages.tobytes()
+    np.testing.assert_allclose(graph.voltages, cpu.voltages, rtol=1e-9,
+                               atol=1e-9)
+    assert graph.max_residual < 1e-8
+    assert graph.n_batched_factorizations == graph.newton_iters.sum()

@@ -153,12 +153,18 @@ def test_ported_options_run(pair, option):
     assert info["n_dispatches"] == 1 + info["n_groups"]
 
 
-@pytest.mark.parametrize("method", ["factorize_batched", "solve_batched",
-                                    "solve_multi", "refactorize_solve"])
-def test_batched_methods_raise(method):
+# the batched methods are ported: they refuse values that are not (B, nnz)
+# and a solve with no batched factorization; solve_multi is not ported
+@pytest.mark.parametrize("method,exc", [
+    ("factorize_batched", ValueError), ("solve_batched", RuntimeError),
+    ("solve_multi", NotImplementedError), ("refactorize_solve", ValueError)],
+    ids=["factorize_batched", "solve_batched", "solve_multi",
+         "refactorize_solve"])
+def test_batched_methods_raise(method, exc):
     g = repro_torch.GLU(torch_circuit_jacobian(40, seed=1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        getattr(g, method)(np.zeros((2, 40)))
+    with pytest.raises(exc):
+        getattr(g, method)(*[np.zeros((2, 40))] * (2 if method ==
+                                                  "refactorize_solve" else 1))
 
 
 def test_rhs_pattern_raises():

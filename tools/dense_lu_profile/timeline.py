@@ -40,14 +40,13 @@ N_STAMPS = 8
 # (text in dense_lu_kernel, stamp, before or after it)
 HOOKS = [
     ("const int Tn = s >= 1 ? m * m : 0;", 0, "before"),
-    ("        issue_operands<Ops>(src, out, N, bi, bj, s, stage1);\n"
-     "        cp_async_wait<0>();\n        __syncthreads();", 1, "after"),
-    ("        block_to_shared<Ops>(stage1, s, st);\n        __syncthreads();",
+    ("      issue_operands<Ops>(src_t, out_t, N, bi, bj, s, stage1);\n"
+     "      cp_async_wait<0>();\n      __syncthreads();", 1, "after"),
+    ("      block_to_shared<Ops>(stage1, s, st);\n      __syncthreads();",
      2, "after"),
-    ("          panel_factor<Ops, 2>(sd, st, smul);\n        __syncthreads();",
+    ("        panel_factor<Ops, 2>(sd, st, smul);\n      __syncthreads();",
      3, "after"),
-    ("        block_store<Ops>(st, out, N, bi, bj);\n        __syncthreads();",
-     4, "after"),
+    ("carry_store<Ops>(sd, carry_t);\n      __syncthreads();", 4, "after"),
     ("    // trailing blocks, the next one's operands in flight", 5, "before"),
     ("    if (s < nb - 1) grid.sync();", 6, "before"),
     ("    if (s < nb - 1) grid.sync();", 7, "after"),
@@ -71,9 +70,9 @@ __device__ __forceinline__ unsigned long long now_ns() {
 ENTRIES = r'''
 #include "dense_lu.cuh"
 extern "C" int set_stamps(void* p) { return cudaMemcpyToSymbol(g_stamps, &p, sizeof(p)); }
-extern "C" int lu_f64(const void* a, void* o, int N, void* s) { return dense_lu<RealOps<double>>(a, o, N, s); }
-extern "C" int lu_f32(const void* a, void* o, int N, void* s) { return dense_lu<RealOps<float>>(a, o, N, s); }
-extern "C" int lu_c128(const void* a, void* o, int N, void* s) { return dense_lu<PlanarOps<double>>(a, o, N, s); }
+extern "C" int lu_f64(const void* a, void* o, void* c, int N, void* s) { return dense_lu<RealOps<double>>(a, o, c, N, 1, s); }
+extern "C" int lu_f32(const void* a, void* o, void* c, int N, void* s) { return dense_lu<RealOps<float>>(a, o, c, N, 1, s); }
+extern "C" int lu_c128(const void* a, void* o, void* c, int N, void* s) { return dense_lu<PlanarOps<double>>(a, o, c, N, 1, s); }
 '''
 
 
@@ -101,7 +100,7 @@ def build_stamped():
     nvcc("-Xcompiler", "-fPIC", "-shared", "-o", str(so), str(OUT / "stamped.cu"))
     lib = ctypes.CDLL(str(so))
     for name in ("lu_f64", "lu_f32", "lu_c128"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int,
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
                                                               ctypes.c_void_p]
     lib.set_stamps.argtypes = [ctypes.c_void_p]
     return lib
@@ -118,15 +117,16 @@ def timeline(lib, entry, N, planar, dtype):
     (a[0] if planar else a)[...] += N * np.eye(N)
     a = torch.from_numpy(a).to("cuda", dtype)
     out = torch.empty_like(a)
+    carry = torch.empty(2 * 32 * 32, dtype=dtype, device="cuda")
     nb = N // 32
     stamps = torch.zeros(1024 * nb * N_STAMPS, dtype=torch.int64, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     fn = getattr(lib, entry)
     for _ in range(3):
-        assert fn(a.data_ptr(), out.data_ptr(), N, stream) == 0
+        assert fn(a.data_ptr(), out.data_ptr(), carry.data_ptr(), N, stream) == 0
     torch.cuda.synchronize()
     assert lib.set_stamps(stamps.data_ptr()) == 0
-    assert fn(a.data_ptr(), out.data_ptr(), N, stream) == 0
+    assert fn(a.data_ptr(), out.data_ptr(), carry.data_ptr(), N, stream) == 0
     torch.cuda.synchronize()
     assert lib.set_stamps(None) == 0
     t = stamps.view(1024, nb, N_STAMPS).cpu().numpy()
