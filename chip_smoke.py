@@ -12,9 +12,11 @@ Phases, in order; any failure exits non-zero before the result line:
     complex128 and complex64, bit for bit and repeated bit for bit (runs of
     grid64's widest levels, rajat12_like's maxima D 801, R 2,355, C 794, a
     row of more than 1,024 slots, all-duplicate positions, one level); K1's
-    robust (static-pivot) instantiation in float64 and float32 on the same
-    runs with diagonals crushed below tau in every level, bit for bit and
-    bump for bump; K2 and K3 in float64 and float32 (complex128 and
+    robust (static-pivot) instantiation in the four dtypes on the same
+    runs with diagonals crushed below tau in every level (complex ones by
+    magnitude, phase kept, some exact zeros; complex ones at B = 4 with
+    per-matrix tau too), bit for bit and bump for bump; K2 and K3 in
+    float64 and float32 (complex128 and
     complex64 planes for K3) with the stated tolerances and against their
     componentwise backward error, from a single block (N = 32) to more
     blocks than the card keeps CTAs resident (K2 at N = 2048), with ``a``
@@ -85,7 +87,35 @@ Phases, in order; any failure exits non-zero before the result line:
     0.8-1.2, t_end 0.05, dt 5e-3, refine=1) with the counters at 0:
     ``max_residual < 1e-8``, one K1 and one K2 launch per batched
     factorization, every copy within 1e-9 of ``transient`` on its own
-    circuit, and a per-iterate breakdown of the batch.
+    circuit, and a per-iterate breakdown of the batch;
+13. pruned and many-RHS solves on grid64, rajat12_like and rajat12_ac
+    (counters at 0 for their factorizations): ``rhs_pattern`` of one node,
+    three nodes and every node, each pruned replay bit for bit the full
+    replay (exact zeros off the reach), its warm-up and the pruned steps
+    one by one; reach sizes, levels kept, device kernels a solve and the
+    replay's time against the full one; ``solve_multi`` at K = 16 (one
+    replay, each row a single solve bit for bit, against 16 single
+    replays); ``solve_batched(rhs_pattern=)`` at B = 8, each row the
+    unpruned batched solve;
+14. ``ac_sweep`` of the 64 × 64 grid with an AC source at node 1 over
+    SPICE's ``.ac dec 10 1 1meg`` (61 points, refine=2), with the counters
+    at 0: as a user calls it (the escalation ladder on) and with
+    ``escalation="none"`` (one batched factorization: one batched K1 and
+    one batched K3 launch in the AC phase, one K1 and one K2 launch per DC
+    Newton factorization), each bit for bit the sweep with the steps one
+    by one, every point within 1e-9 of scipy's ``splu``, the componentwise
+    backward error at most 1e-10 at every point whose voltages stay normal
+    float64 (far from the source the high frequencies decay below
+    2.2e-308); its time on a warmed solver against 61 single ``GLU``
+    solves; with ``static_pivot`` 1e-10 (the complex robust batched K1 in
+    the graph, the same voltages) and 0.99 (bumps fire), (F,) bump counts
+    equal to the steps one by one, and the robust batched K1 on the path's
+    recorded run against its plain version and the library route.
+
+Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
+robust K1 inside the graph, bump counts equal to the steps one by one) and
+times the complex robust K1 on its recorded run with the diagonals crushed
+below tau.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 and matrix, over all matrices (the batched ones with ``batch``); the last
@@ -136,6 +166,9 @@ N_REFACTOR = 5
 # that bumps fire on grid64's scaled values
 PIVOT_EPS = 1e-10
 PIVOT_EPS_BUMPS = 0.6
+# complex matrices keep every pivot above 0.6 max|A| after MC64 scaling
+# (rajat12_ac): a threshold at which bumps fire on them
+PIVOT_EPS_BUMPS_AC = 0.99
 # the transient phase: the G3_circuit-like grid at grid64's width
 TRANSIENT = dict(nx=64, ny=64, t_end=0.1, dt=5e-3, refine=1)
 AC_OMEGAS = np.logspace(2.5, 3.5, N_REFACTOR)   # rad/s, around the plan's 1e3
@@ -144,6 +177,12 @@ AC_OMEGAS = np.logspace(2.5, 3.5, N_REFACTOR)   # rad/s, around the plan's 1e3
 BATCHES = {"grid64": (1, 16), "rajat12_like": (1, 16), "rajat12_ac": (8,)}
 BATCH_AC_OMEGAS = (2.5, 3.5)
 PIVOT_BATCH = 4
+# phase 13: many right-hand sides and the batch of a pruned batched solve
+MULTI_K = 16
+PATTERN_BATCH = 8
+# phase 14: SPICE's ".ac dec 10 1 1meg" (ten points a decade, 1 Hz to
+# 1 MHz) on the transient phase's grid, one AC current source at node 1
+AC_SWEEP = dict(nx=64, ny=64, node=1, decades=(0, 6), points=61, refine=2)
 SWEEP = dict(nx=64, ny=64, t_end=0.05, dt=5e-3, refine=1,
              scales=np.linspace(0.8, 1.2, 8))
 SEED = 1234
@@ -240,13 +279,16 @@ def check_kernels_at_shapes(dev) -> None:
                 f"{max(s[0] for s in shapes)}, R {max(s[1] for s in shapes)}, "
                 f"C {max(s[2] for s in shapes)}): bit-identical to the plain "
                 "version, repeat bit-identical ok")
-    for dtype in (torch.float64, torch.float32):
+    for dtype in (torch.float64, torch.float32, torch.complex128,
+                  torch.complex64):
         name = str(dtype).split(".")[-1]
+        real = torch.empty(0, dtype=dtype).real.dtype
         for label, shapes, dups in K1_RUNS:
             run, vals = random_level_run(rng, shapes, dtype, dev,
                                          duplicates=dups)
+            fresh = vals.clone()
             n_crushed = crush_diagonals(rng, run, vals)
-            tau = torch.tensor(1e-3, dtype=dtype, device=dev)
+            tau = torch.tensor(1e-3, dtype=real, device=dev)
             outs = []
             for fn in (kernels.level_run, kernels.level_run,
                        ref.level_run_ref):
@@ -263,6 +305,40 @@ def check_kernels_at_shapes(dev) -> None:
             log(f"check K1 robust {name} {label}: {n} bumps in "
                 f"{len(shapes)} level(s) (tau 1e-3), bit-identical to the "
                 "plain version with equal counts, repeat bit-identical ok")
+            if not dtype.is_complex:
+                continue
+            # B = 4 with per-matrix tau; the last matrix crushed less
+            # (below 1e-3) against tau 1e-5, so that only some of its
+            # crushed diagonals bump.  A level's diagonals are not written
+            # before its bump, so the counts are those of the values given
+            batch = torch.stack([fresh] * PIVOT_BATCH)
+            for b in range(PIVOT_BATCH):
+                crush_diagonals(rng, run, batch[b],
+                                below=1e-3 if b == PIVOT_BATCH - 1 else 1e-6)
+            tau = torch.tensor([1e-3] * (PIVOT_BATCH - 1) + [1e-5],
+                               dtype=real, device=dev)
+            diag = torch.from_numpy(run.host["diag"]).to(dev)
+            d = batch[:, diag]
+            mag = (torch.hypot(d.real, d.imag) if d.is_complex()
+                   else d.abs())
+            expected = (mag < tau[:, None]).sum(-1).tolist()
+            outs = []
+            for fn in (kernels.level_run, kernels.level_run,
+                       ref.level_run_ref):
+                v = batch.clone()
+                count = torch.zeros(PIVOT_BATCH, dtype=torch.int32,
+                                    device=dev)
+                fn(v, run, tau, count)
+                torch.cuda.synchronize(dev)
+                outs.append((v, count.tolist()))
+            (got, n), (again, n2), (want, n_want) = outs
+            assert n == n2 == n_want == expected, (label, name, n, expected)
+            assert torch.equal(got, want) and torch.equal(again, got), (
+                label, name, "robust batched")
+            log(f"check K1 robust batched {name} {label}: B={PIVOT_BATCH}, "
+                f"bumps a matrix {n} (tau 1e-3, last 1e-5), bit-identical "
+                "to the plain version with equal counts, repeat "
+                "bit-identical ok")
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
         for label, kernel, plain, sizes, planes in (
@@ -293,18 +369,26 @@ def check_kernels_at_shapes(dev) -> None:
                     "repeat bit-identical ok")
 
 
-def crush_diagonals(rng, run, vals) -> int:
-    """Set up to 5 of each level's column diagonals to values below 1e-6
-    in magnitude, so that static pivoting bumps them in every level;
-    returns how many."""
+def crush_diagonals(rng, run, vals, below: float = 1e-6) -> int:
+    """Crush up to 5 of each level's column diagonals below ``below`` in
+    magnitude, so that static pivoting bumps them in every level: real
+    values drawn from (-below, below), complex ones scaled to a magnitude
+    in [0, below) with their phase kept, every seventh an exact zero.
+    Returns how many."""
     h = run.host
     picks = []
     for k in range(run.n_levels):
         d = h["diag"][h["diag_ptr"][k]:h["diag_ptr"][k + 1]]
         picks.append(rng.choice(d, size=min(5, len(d)), replace=False))
-    picks = np.concatenate(picks)
-    vals[torch.from_numpy(picks).to(vals.device)] = torch.from_numpy(
-        rng.uniform(-1e-6, 1e-6, size=len(picks))).to(vals.device, vals.dtype)
+    picks = torch.from_numpy(np.concatenate(picks)).to(vals.device)
+    mag = torch.from_numpy(rng.uniform(-below, below, size=len(picks))).to(
+        vals.device, vals.real.dtype)
+    if vals.is_complex():
+        mag = mag.abs()
+        mag[::7] = 0.0
+        vals[picks] = vals[picks] / vals[picks].abs() * mag
+    else:
+        vals[picks] = mag
     return len(picks)
 
 
@@ -904,18 +988,27 @@ def profile_path(dev, clock, g, ge):
     return out
 
 
-def robust_k1_entry(dev, clock, rec_k1, report):
-    """K1's robust instantiation on the recorded run of grid64's
-    static-pivot factorization (its tau; a batch's (B, n) values with (B,)
-    tau and counts when the path was batched): kernel against plain version
-    bit for bit and bump for bump, times of kernel, plain version and the
-    library route (per level, ``perturb_diags`` and the per-level eager
-    steps with one ``scatter_add_``)."""
+def robust_k1_entry(dev, clock, rec_k1, report, crush: bool = False):
+    """K1's robust instantiation on a path's recorded run (its tau; a
+    batch's (B, n) values with (B,) tau and counts when the path was
+    batched; real or complex values): kernel against plain version bit for
+    bit and bump for bump, times of kernel, plain version and the library
+    route (per level, ``perturb_diags`` and the per-level eager steps with
+    one ``scatter_add_``).  ``crush``: first crush the recorded values'
+    diagonals below tau (:func:`crush_diagonals`), so that every level
+    bumps."""
     from repro_torch.kernels import level_run
     from repro_torch.kernels.ref import level_run_ref
 
     (v0, run, (tau, _)), = rec_k1
     batched = v0.dim() == 2
+    cplx = v0.is_complex()
+    planes = 2 if cplx else 1
+    if crush:
+        rng = np.random.default_rng(SEED + 5)
+        v0 = v0.clone()
+        for row, t in zip(v0.view(-1, v0.shape[-1]), tau.view(-1).tolist()):
+            crush_diagonals(rng, run, row, below=t)
     count = torch.zeros(v0.shape[:-1], dtype=torch.int32, device=dev)
     got, want = v0.clone(), v0.clone()
     c_got, c_want = count.clone(), count.clone()
@@ -938,32 +1031,35 @@ def robust_k1_entry(dev, clock, rec_k1, report):
             fn(buf, count)
         return max(clock.ms(call, reps=reps) - copy_ms, 0.0)
 
-    n_bytes, n_ops = _k1_bound(run, v0.element_size(), 1,
-                               int(c_got.sum()), batch=v0.numel() // v0.shape[-1])
+    n_bytes, n_ops = _k1_bound(run, v0.element_size() // planes, planes,
+                               int(c_got.sum()),
+                               batch=v0.numel() // v0.shape[-1])
     ent = dict(name="level_run_robust" + ("_batched" if batched else ""),
                route="cuda", source="src/repro_torch/kernels/csrc/level_run.cu",
-               replaces=("src/repro/kernels/ops.py:86" if batched
-                         else "src/repro/kernels/level_update.py:60"),
+               replaces=K1_SITES[(cplx, batched)][1],
                launches=report["k1_launches"], max_abs_err=0.0,
                ms=timed(lambda v, c: level_run(v, run, tau, c), 20),
                plain_ms=timed(lambda v, c: level_run_ref(v, run, tau, c), 3),
                **_bound(n_bytes, n_ops),
                library_ms=timed(lambda v, c: _library_level_route(
                    v, levels, lib_idx, tau, c), 10))
-    ent.update(matrix=report["matrix"], levels=run.n_levels,
-               updates=run.n_updates, bumps=bumps, bytes=n_bytes,
-               operations=n_ops, copy_ms=copy_ms,
+    ent.update(matrix=report["matrix"], dtype=str(v0.dtype), levels=run.n_levels,
+               updates=run.n_updates, bumps=bumps, crushed=crush,
+               bytes=n_bytes, operations=n_ops, copy_ms=copy_ms,
                ratio_to_library=ent["ms"] / ent["library_ms"],
                library="per level perturb_diags + the eager steps, one "
                        "scatter_add_ a level",
-               also_replaces="src/repro/kernels/ops.py:220 "
-                             "(_perturb_diags_body, per level)")
+               also_replaces=("src/repro/kernels/ops.py:244 "
+                              "(_perturb_diags_planar_body, per level)" if cplx
+                              else "src/repro/kernels/ops.py:220 "
+                                   "(_perturb_diags_body, per level)"))
     if batched:
         ent.update(batch=v0.shape[0],
                    kernel_site="src/repro/kernels/level_update.py:60")
-    log(f"{report['matrix']}: {ent['name']} ({run.n_levels} levels, "
-        f"{bumps} bumps at tau={tau.tolist()}) {ent['ms']:.4f} ms, "
-        f"bit-identical to the plain version ({ent['plain_ms']:.3f} ms), "
+    log(f"{report['matrix']}: {ent['name']} {v0.dtype} ({run.n_levels} levels"
+        f"{', diagonals crushed below tau' if crush else ''}, {bumps} bumps"
+        f"{'' if batched else f' at tau={tau.item():.3e}'}) {ent['ms']:.4f} "
+        f"ms, bit-identical to the plain version ({ent['plain_ms']:.3f} ms), "
         f"bump for bump; library route {ent['library_ms']:.4f} ms; bound "
         f"{ent['bound_ms']:.5f} ms ({ent['bound_by']})")
     return ent
@@ -1021,6 +1117,68 @@ def drive_static_pivot(dev, clock):
             log(f"static pivot eps={eps:g}: grid64 factorize {t_fact:.4f} ms "
                 f"one replay, {t_eager:.4f} ms steps one by one")
     return report, robust_k1_entry(dev, clock, rec["k1"], report)
+
+
+def drive_complex_static_pivot(dev, clock):
+    """Phase 7, complex values: ``GLU(rajat12_ac, dtype=complex128,
+    static_pivot=...)`` driven with the counters at 0 (the complex robust K1
+    inside the graph, the tail guarded before K3), replays against the
+    steps one by one bit for bit and bump for bump over other frequencies,
+    and the complex robust K1 on the path's recorded run with its
+    diagonals crushed below tau."""
+    from repro_torch import GLU
+
+    A = make_matrix("rajat12_ac")
+    rng = np.random.default_rng(SEED + 6)
+    b = rng.normal(size=A.n) + 1j * rng.normal(size=A.n)
+    reset_counts()
+    g = GLU(A, dtype=torch.complex128, static_pivot=PIVOT_EPS)
+    x = g.factorize().solve(b)
+    torch.cuda.synchronize(dev)
+    k1, k2, k3 = launch_counts()
+    steps = g._factorizer.step_kinds
+    assert k1 == steps.count("run") == 1 and (k2, k3) == (0, 1), (k1, k2, k3)
+    assert g.residual(b, x) < 1e-9
+    log(f"complex static pivot: rajat12_ac path K1 launches={k1} (complex "
+        f"robust instantiation), K3 launches={k3}, n_perturbed="
+        f"{g.solve_info['n_perturbed']}")
+    report = {"matrix": "rajat12_ac", "k1_launches": k1, "static_pivot": {}}
+    S = A.to_scipy()
+    sets = [np.asarray(A.data)] + refactor_values("rajat12_ac", A, rng)[:3]
+    rec = None
+    for eps in (PIVOT_EPS, PIVOT_EPS_BUMPS_AC):
+        g = GLU(A, dtype=torch.complex128, static_pivot=eps)
+        ge = GLU(A, dtype=torch.complex128, static_pivot=eps,
+                 jit_schedule=False)
+        counts = []
+        for i, new in enumerate(sets):
+            x, xe = g.factorize(new).solve(b), ge.factorize(new).solve(b)
+            info = g.solve_info
+            assert torch.equal(g.factorized_values(), ge.factorized_values())
+            assert x.tobytes() == xe.tobytes(), (eps, i)
+            assert info["n_perturbed"] == ge.solve_info["n_perturbed"], (eps, i)
+            if i:
+                assert info["n_dispatches"] == info["solve_dispatches"] == 1
+            S.data = new
+            res = float(np.abs(S @ x - b).max() / np.abs(b).max())
+            if eps == PIVOT_EPS:
+                assert res < 1e-9 and info["n_perturbed"] == 0, (res, info)
+            else:
+                assert info["n_perturbed"] > 0 and np.isfinite(x).all()
+            counts.append(info["n_perturbed"])
+        report["static_pivot"][str(eps)] = dict(n_perturbed=counts)
+        log(f"complex static pivot eps={eps:g}: 4 factorizations and solves "
+            f"(other frequencies), one replay each, bit-identical to the "
+            f"steps one by one, bumps {counts} (equal)")
+        if eps == PIVOT_EPS:
+            rec = record_kernel_inputs(ge, np.asarray(A.data))
+            report.update(factorize_ms=clock.ms(g._factorizer.run, reps=20),
+                          eager_factorize_ms=clock.ms(ge._factorizer.run,
+                                                      reps=10))
+            log(f"complex static pivot eps={eps:g}: rajat12_ac factorize "
+                f"{report['factorize_ms']:.4f} ms one replay, "
+                f"{report['eager_factorize_ms']:.4f} ms steps one by one")
+    return report, robust_k1_entry(dev, clock, rec["k1"], report, crush=True)
 
 
 def newton_breakdown(dev, ckt, g, volts, dt):
@@ -1502,6 +1660,299 @@ def drive_sweep(dev):
                 single_loops_s=single_s, breakdown=breakdown)
 
 
+def drive_patterns(dev, clock, card, name):
+    """Phase 13 for one matrix: solves pruned to a right-hand side's reach
+    (``rhs_pattern``) and many right-hand sides (``solve_multi``), each a
+    replay, held bit for bit against the full replays, the steps one by
+    one and single solves."""
+    from repro_torch import GLU
+
+    A = make_matrix(name)
+    n = A.n
+    cplx = np.iscomplexobj(A.data)
+    dtype = torch.complex128 if cplx else torch.float64
+    rng = np.random.default_rng(SEED + 4)
+
+    def draw(*shape):
+        return rng.normal(size=shape) + (1j * rng.normal(size=shape)
+                                         if cplx else 0.0)
+
+    reset_counts()
+    g = GLU(A, dtype=dtype)
+    g.factorize()
+    ge = GLU(A, dtype=dtype, jit_schedule=False)
+    ge.factorize()
+    torch.cuda.synchronize(dev)
+    k1, k2, k3 = launch_counts()
+    steps = g._factorizer.step_kinds
+    assert k1 == 2 * steps.count("run") >= 2 and \
+        k2 + k3 == 2 * steps.count("dense"), (name, k1, k2, k3)
+    sv, vals = g._solver, g._vals
+
+    def device_rhs(b):
+        return torch.as_tensor((b * g.Dr)[..., g._inv_row], dtype=dtype,
+                               device=dev)
+
+    bp_full = device_rhs(draw(n))
+    full_ms = clock.ms(lambda: sv.solve(vals, bp_full), reps=10)
+    full_prof = _profile(dev, lambda: sv.solve(vals, bp_full))
+    rows = []
+    for label, pat in (("one node", [n // 2]),
+                       ("three nodes", [1, n // 3, 2 * n // 3]),
+                       ("every node", list(range(n)))):
+        b = np.zeros(n, dtype=np.complex128 if cplx else np.float64)
+        b[pat] = draw(len(pat))
+        g.solve(b)
+        x_full = g.solve(b)                                 # a replay
+        x_first = g.solve(b, rhs_pattern=pat)               # warm-up, capture
+        x = g.solve(b, rhs_pattern=pat)                     # a replay
+        assert g.solve_info["solve_dispatches"] == 1
+        xe = ge.solve(b, rhs_pattern=pat)
+        eager_steps = ge.solve_info["solve_dispatches"]
+        assert np.array_equal(x, x_full), (name, label)
+        assert x.tobytes() == x_first.tobytes() == xe.tobytes(), (name, label)
+        pp = g.row_map[np.unique(pat)]
+        fwd, bwd, fr, br = sv.schedule_for_pattern(pp)
+        bp = device_rhs(b)
+        xp = sv.solve(vals, bp, rhs_pattern=pp).cpu().numpy()
+        assert (xp[np.setdiff1d(np.arange(n), br)] == 0).all(), (name, label)
+        ms = clock.ms(lambda: sv.solve(vals, bp, rhs_pattern=pp), reps=10)
+        prof = _profile(dev, lambda: sv.solve(vals, bp, rhs_pattern=pp))
+        row = dict(pattern=label, nodes=len(pat), fwd_reach=len(fr),
+                   bwd_reach=len(br), fwd_levels=len(fwd), bwd_levels=len(bwd),
+                   full_levels=[len(sv.fwd_levels), len(sv.bwd_levels)],
+                   eager_steps=eager_steps, kernels=prof.get("kernels"),
+                   full_kernels=full_prof.get("kernels"), solve_ms=ms,
+                   full_solve_ms=full_ms)
+        rows.append(row)
+        log(f"{name} rhs_pattern {label}: reach {len(fr)} forward / {len(br)} "
+            f"backward columns of {n}, levels kept {len(fwd)} / {len(bwd)} of "
+            f"{len(sv.fwd_levels)} / {len(sv.bwd_levels)}, device kernels a "
+            f"solve {row['kernels']} (full {row['full_kernels']}); replay "
+            f"{ms:.4f} ms against the full replay {full_ms:.4f} ms; "
+            "bit-identical to the full replay, to its warm-up and to the "
+            "pruned steps one by one, exact zeros off the reach ok")
+
+    B = draw(MULTI_K, n)
+    g.solve_multi(B)
+    X = g.solve_multi(B)
+    assert g.solve_info["solve_dispatches"] == 1
+    for k in range(MULTI_K):
+        assert X[k].tobytes() == g.solve(B[k]).tobytes(), (name, k)
+    Bp = device_rhs(B)
+    multi_ms = clock.ms(lambda: sv.solve_multi(vals, Bp), reps=5)
+    singles_ms = clock.ms(lambda: [sv.solve(vals, Bp[k])
+                                   for k in range(MULTI_K)], reps=2)
+    log(f"{name} solve_multi K={MULTI_K}: one replay, each row bit-identical "
+        f"to a single solve; {multi_ms:.4f} ms against {MULTI_K} single "
+        f"replays {singles_ms:.4f} ms")
+
+    batch = batch_values(name, A, PATTERN_BATCH, rng)
+    pat = [1, n // 3]
+    bs = np.zeros((PATTERN_BATCH, n), dtype=B.dtype)
+    bs[:, pat] = draw(PATTERN_BATCH, len(pat))
+    g.factorize_batched(batch)
+    full = g.solve_batched(bs)
+    for _ in range(2):
+        pruned = g.solve_batched(bs, rhs_pattern=pat)
+    assert g.solve_info["solve_dispatches"] == 1
+    assert np.array_equal(full, pruned), name
+    log(f"{name} solve_batched B={PATTERN_BATCH} rhs_pattern {pat}: one "
+        "replay, every row bit-identical to the unpruned batched solve")
+    return dict(matrix=name, card=card, k1_launches=k1, k2_launches=k2,
+                k3_launches=k3, patterns=rows, multi_k=MULTI_K,
+                multi_ms=multi_ms, single_replays_ms=singles_ms,
+                batch=PATTERN_BATCH)
+
+
+def _ac_point_checks(ckt, res):
+    """Per frequency point of an ``ac_sweep`` result: the relative error
+    against scipy's ``splu`` on the host, the componentwise backward error
+    on the original system, and whether every voltage stayed a normal
+    float64 (far from the source a high-frequency response decays below
+    2.2e-308, and those rows' backward error is about 1 in any package:
+    the residual of a flushed entry against denominators that underflow)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    pat = ckt.pattern()
+    vals, rhs = ckt.assemble_ac(res.op_point, res.freqs)
+    err, berr, normal = [], [], []
+    for v, b, x in zip(vals, rhs, res.voltages):
+        A = sp.csc_matrix((v, pat.indices, pat.indptr), shape=(pat.n, pat.n))
+        xr = spla.splu(A).solve(b)
+        err.append(float(np.abs(x - xr).max() / np.abs(xr).max()))
+        r = np.abs(A @ x - b)
+        den = abs(A) @ np.abs(x) + np.abs(b)
+        berr.append(float(np.where(den > 0, r / np.where(den > 0, den, 1.0),
+                                   np.where(r > 0, np.inf, 0.0)).max()))
+        normal.append(bool((np.abs(x) >= np.finfo(np.float64).tiny).all()))
+    return np.array(err), np.array(berr), np.array(normal)
+
+
+def drive_ac_sweep(dev, clock, card):
+    """Phase 14: ``ac_sweep`` of the 64 x 64 grid at SPICE's ``.ac dec 10 1
+    1meg``, with the counters at 0: as a user calls it (the escalation
+    ladder on), then with ``escalation="none"`` (one batched factorization);
+    each against the steps one by one bit for bit and against scipy per
+    point; the time against F single ``GLU`` solves; then with
+    ``static_pivot``: the complex robust batched K1 inside the graph, bump
+    counts against the steps one by one, and the kernel on the path's
+    recorded run."""
+    from repro_torch import GLU
+    from repro_torch.circuit import ac_sweep, rc_grid_circuit
+    from repro_torch.sparse import CSC
+
+    c = AC_SWEEP
+    ckt = rc_grid_circuit(c["nx"], c["ny"], with_diodes=True, seed=0)
+    ckt.add_ac_current_source(c["node"], 0, 1.0)
+    freqs = np.logspace(*c["decades"], c["points"])
+    F, n = len(freqs), ckt.n
+    nodes = [c["node"] - 1]
+    kw = dict(refine=c["refine"])
+    report = dict(matrix=f"rc_grid_circuit({c['nx']}, {c['ny']}) AC",
+                  card=card, n=n, freqs=F, runs={}, static_pivot={})
+    pat = ckt.pattern()
+    v0 = np.zeros(n)
+    g_dc = GLU(CSC(pat.n, pat.indptr, pat.indices,
+                   ckt.assemble(v0, v0, 0.0, 0.0)[0]), **kw)
+    dc = g_dc._factorizer.step_kinds
+    res_by = {}
+    for esc in ("ladder", "none"):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = ac_sweep(ckt, freqs, escalation=esc, **kw)
+        wall_s = time.perf_counter() - t0
+        k1, k2, k3 = launch_counts()
+        it, n_ac = res.op_newton_iters, res.n_batched_factorizations
+        vals_ac, rhs_ac = ckt.assemble_ac(res.op_point, freqs)
+        ac = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[0]),
+                 dtype=torch.complex128, **kw)._factorizer.step_kinds
+        err, berr, normal = _ac_point_checks(ckt, res)
+        log(f"ac sweep ({esc}): n={n}, F={F} points, operating point in {it} "
+            f"Newton iteration(s) (converged {res.op_converged}), {n_ac} "
+            f"batched AC factorization(s), K1 launches {k1}, K2 {k2}, K3 {k3}, "
+            f"ladder {res.ladder_counts}; max_backward_error "
+            f"{res.max_backward_error:.3e}; {int(normal.sum())} of {F} points "
+            f"with every voltage a normal float64 (berr there at most "
+            f"{berr[normal].max():.3e}; the other points' berr "
+            f"{berr[~normal].tolist()}); error against scipy splu at most "
+            f"{err.max():.3e}; "
+            f"setup {res.setup_seconds:.3f} s, solve {res.solve_seconds:.3f} "
+            f"s ({res.solve_seconds / F * 1e3:.3f} ms a point), wall "
+            f"{wall_s:.3f} s; steps DC {dc}, AC {ac}")
+        assert res.op_converged
+        assert res.voltages.shape == (F, n) and np.isfinite(res.voltages).all()
+        assert err.max() < 1e-9, err
+        assert berr[normal].max() <= 1e-10 and normal[0], berr
+        assert dc.count("run") == ac.count("run") == 1
+        assert k2 == it * dc.count("dense") and k1 - it >= n_ac and k3 >= 1, (
+            k1, k2, k3)
+        rungs = res.ladder_counts
+        if esc == "none":
+            assert n_ac == 1 and (k1, k3) == (it + 1, ac.count("dense")) == \
+                (it + 1, 1), (k1, k3)
+            assert not any(rungs.values()), rungs
+        else:
+            # each ladder rung climbed in the AC phase rebuilds its solver
+            assert rungs["refactorize"] == it + 1 and \
+                rungs["rescale"] + rungs["bump"] + rungs["replan"] == n_ac - 1
+            assert (k1, k3) == (it + n_ac, n_ac) or n_ac > 1, (k1, k3)
+        eager = ac_sweep(ckt, freqs, escalation=esc, jit_schedule=False, **kw)
+        assert eager.voltages.tobytes() == res.voltages.tobytes()
+        assert eager.ladder_counts == res.ladder_counts
+        log(f"ac sweep ({esc}): {n_ac} batched K1 and {n_ac} batched K3 "
+            f"launch(es) in the AC phase, one K1 and one K2 launch per DC "
+            f"Newton factorization; voltages and ladder counts bit-identical "
+            f"to the sweep with the steps one by one (solve "
+            f"{eager.solve_seconds:.3f} s)")
+        report["runs"][esc] = dict(
+            op_newton_iters=it, n_batched_factorizations=n_ac,
+            k1_launches=k1, k2_launches=k2, k3_launches=k3,
+            ladder_counts=res.ladder_counts,
+            max_backward_error=res.max_backward_error,
+            points_all_normal=int(normal.sum()),
+            max_berr_all_normal=float(berr[normal].max()),
+            max_rel_err_scipy=float(err.max()),
+            setup_s=res.setup_seconds, solve_s=res.solve_seconds,
+            ms_per_point=res.solve_seconds / F * 1e3, wall_s=wall_s,
+            eager_solve_s=eager.solve_seconds)
+        res_by[esc] = res
+
+    # the same F points again on a warmed solver (one replay for the batched
+    # factorization), and as F single complex GLU solves
+    res = res_by["none"]
+    vals_ac, rhs_ac = ckt.assemble_ac(res.op_point, freqs)
+    g_ac = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[0]),
+               dtype=torch.complex128, **kw)
+    g_ac.refactorize_solve(vals_ac, rhs_ac, rhs_pattern=nodes)
+    steady_ms = clock.median_ms(lambda: g_ac.refactorize_solve(
+        vals_ac, rhs_ac, rhs_pattern=nodes), reps=3)
+    x_steady = g_ac.refactorize_solve(vals_ac, rhs_ac, rhs_pattern=nodes)
+    assert g_ac.solve_info["n_dispatches"] == 1
+    assert x_steady.tobytes() == res.voltages.tobytes()
+    g1 = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[0]),
+             dtype=torch.complex128, **kw)
+    g1.factorize(vals_ac[0]).solve(rhs_ac[0], rhs_pattern=nodes)
+
+    def singles():
+        return np.stack([g1.factorize(vals_ac[k]).solve(rhs_ac[k],
+                                                        rhs_pattern=nodes)
+                         for k in range(F)])
+
+    single_ms = clock.median_ms(singles, reps=3)
+    diff = float(np.abs(singles() - res.voltages).max()
+                 / np.abs(res.voltages).max())
+    assert diff < 1e-9, diff
+    report.update(steady_ms=steady_ms, single_glu_ms=single_ms,
+                  single_glu_max_rel_diff=diff)
+    log(f"ac sweep: on a warmed solver {steady_ms:.3f} ms for the {F} points "
+        f"({steady_ms / F:.4f} ms a point; bit-identical), against "
+        f"{single_ms:.3f} ms for {F} single GLU factorize + refined solve "
+        f"calls ({single_ms / F:.4f} ms a point; within {diff:.1e})")
+
+    # static pivoting: the complex robust batched K1 inside the graph
+    reset_counts()
+    res_p = ac_sweep(ckt, freqs, static_pivot=PIVOT_EPS, escalation="none",
+                     **kw)
+    kp = launch_counts()
+    eager_p = ac_sweep(ckt, freqs, static_pivot=PIVOT_EPS, escalation="none",
+                       jit_schedule=False, **kw)
+    assert res_p.voltages.tobytes() == eager_p.voltages.tobytes()
+    assert res_p.voltages.tobytes() == res.voltages.tobytes()
+    ac_launches = kp[0] - res_p.op_newton_iters * dc.count("run")
+    assert ac_launches == 1 and kp[2] == 1, kp
+    rec = None
+    for eps in (PIVOT_EPS, PIVOT_EPS_BUMPS_AC):
+        gp = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[0]),
+                 dtype=torch.complex128, static_pivot=eps, **kw)
+        gpe = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[0]),
+                  dtype=torch.complex128, static_pivot=eps,
+                  jit_schedule=False, **kw)
+        for _ in range(2):
+            xp = gp.refactorize_solve(vals_ac, rhs_ac, rhs_pattern=nodes)
+        assert gp.solve_info["n_dispatches"] == 1
+        xpe = gpe.refactorize_solve(vals_ac, rhs_ac, rhs_pattern=nodes)
+        bumps = gp.solve_info["n_perturbed"].tolist()
+        assert bumps == gpe.solve_info["n_perturbed"].tolist(), eps
+        assert xp.tobytes() == xpe.tobytes() and np.isfinite(xp).all(), eps
+        if eps == PIVOT_EPS:
+            assert not any(bumps)
+        else:
+            assert sum(bumps) > 0
+            rec = record_kernel_inputs(gpe, vals_ac, batched=True)
+        report["static_pivot"][str(eps)] = dict(n_perturbed_sum=sum(bumps),
+                                                n_perturbed_max=max(bumps))
+        log(f"ac sweep static pivot eps={eps:g}: {F} points, one replay for "
+            f"the batched factorization, bit-identical to the steps one by "
+            f"one with equal (F,) bump counts (sum {sum(bumps)}, max "
+            f"{max(bumps)})")
+    ent = robust_k1_entry(dev, clock, rec["k1"], dict(
+        matrix=report["matrix"], k1_launches=ac_launches))
+    ent["frequencies"] = F
+    return report, ent
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -1562,10 +2013,13 @@ def main() -> int:
         log(json.dumps({"matrix_report": report}))
         del rec, g, ge
 
-    # 7. static pivoting
+    # 7. static pivoting, real and complex
     pivot_report, robust = drive_static_pivot(dev, clock)
     entries.append(robust)
     log(json.dumps({"static_pivot_report": pivot_report}))
+    pivot_report, robust = drive_complex_static_pivot(dev, clock)
+    entries.append(robust)
+    log(json.dumps({"complex_static_pivot_report": pivot_report}))
 
     # 8. the Newton transient
     log(json.dumps({"transient_report": drive_transient(dev)}))
@@ -1593,11 +2047,27 @@ def main() -> int:
     # 12. the lockstep transient sweep
     log(json.dumps({"sweep_report": drive_sweep(dev)}))
 
+    # 13. pruned and many-RHS solves
+    for name, _, _, _ in MATRICES:
+        log(json.dumps({"pattern_report": drive_patterns(dev, clock, card,
+                                                          name)}))
+
+    # 14. the AC sweep
+    ac_report, robust = drive_ac_sweep(dev, clock, card)
+    entries.append(robust)
+    log(json.dumps({"ac_sweep_report": ac_report}))
+
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",
                      "dense_lu_planar", "level_run_batched",
                      "level_run_robust_batched", "dense_lu_batched",
                      "dense_lu_planar_batched"}, names
+    robust_kinds = {(e["name"], e["dtype"]) for e in entries
+                    if e["name"].startswith("level_run_robust")}
+    assert robust_kinds == {(k, d) for k in ("level_run_robust",
+                                             "level_run_robust_batched")
+                            for d in ("torch.float64", "torch.complex128")}, \
+        robust_kinds
     log(f"peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(f"card: {card}")

@@ -23,23 +23,32 @@ one plan (the Monte-Carlo / process-corner workload): per Newton iterate
 the host assembles the B systems, and one ``GLU.refactorize_solve``
 factorizes and solves them together (on the card one replay each for the
 batched factorization and solve).
+
+``ac_sweep`` is SPICE's AC small-signal analysis: the DC operating point by
+the same Newton loop and ladder, then ``A(w) = G + jwC`` at every frequency
+point factorized and solved in lockstep on one complex128 plan, one
+batched ``refactorize_solve`` whose initial solves are pruned to the reach
+of the AC sources' nodes.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.api import GLU
+from ..core.factorize import ported_layout
 from ..sparse.csc import CSC
 from .ladder import RUNGS, LadderConfig, RefactorizationLadder
 from .mna import Circuit
 
-__all__ = ["TransientResult", "TransientSweepResult", "transient",
-           "transient_sweep", "perturbed_copies", "A_mul"]
+__all__ = ["ACSweepResult", "TransientResult", "TransientSweepResult",
+           "ac_sweep", "transient", "transient_sweep", "perturbed_copies",
+           "A_mul"]
 
 
 def _empty_ladder_counts() -> dict:
@@ -459,4 +468,222 @@ def transient_sweep(
         plan_cache_hits=n_plan_hits,
         n_full_rebuilds=0 if ladder is None else ladder.n_full_rebuilds,
         ladder_counts=counts,
+    )
+
+
+# --------------------------------------------------------------------------
+# AC small-signal analysis
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ACSweepResult:
+    freqs: np.ndarray            # (F,) sweep frequencies in Hz
+    voltages: np.ndarray         # (F, n) complex node-voltage phasors
+    op_point: np.ndarray         # (n,) DC operating point the sweep linearized at
+    op_newton_iters: int         # Newton iterations spent finding it
+    n_batched_factorizations: int  # batched complex factorize+solve calls (1)
+    setup_seconds: float         # operating point + symbolic plan
+    solve_seconds: float         # the batched complex linear solve
+    max_backward_error: float    # worst componentwise berr over all freqs
+    plan_cache_hits: int = 0     # GLU constructions served by the plan cache
+    op_converged: bool = True    # DC operating-point Newton loop met newton_tol
+    n_full_rebuilds: int = 0     # ladder-triggered rebuilds (DC + AC phases)
+    ladder_counts: Optional[dict] = None  # per-rung action counts
+    n_devices: int = 1           # devices the frequency axis ran on
+
+
+def ac_sweep(
+    ckt: Circuit,
+    freqs,
+    newton_tol: float = 1e-9,
+    max_newton: int = 50,
+    ordering: str = "auto",
+    refine: int = 2,
+    refine_tol: Optional[float] = None,
+    static_pivot: Optional[float] = None,
+    mc64="scale",
+    escalation: str = "ladder",
+    ladder_config: Optional[LadderConfig] = None,
+    layout: str = "auto",
+    mesh=None,
+    jit_schedule: bool = True,
+    device=None,
+) -> ACSweepResult:
+    """AC small-signal frequency sweep: ``A(w) x(w) = b`` at every point.
+
+    The classic second half of SPICE: find the DC operating point with the
+    Newton loop of :func:`transient` (capacitors open, ``dt=0`` assembly),
+    linearize there, then factorize ``A(w) = G + jwC`` for all F frequency
+    points in lockstep: one complex128 symbolic plan, one batched
+    ``refactorize_solve`` over the (F, nnz) value matrix (on the card one
+    replay for the batched factorization, one batched K1 launch per run and
+    one batched K3 launch for the F dense tails).
+
+    Iterative refinement (default ``refine=2``) runs on the complex values
+    (the componentwise backward error is written in terms of ``|.|``), and
+    ``max_backward_error`` reports the worst frequency point on the
+    original (unscaled) systems.
+
+    The excitation is nonzero only at the AC current-source nodes, so the
+    batched solve passes that support as ``rhs_pattern`` and the initial
+    triangular solves run on the reach-pruned sweeps.  One escalation
+    ladder (see :func:`transient`) is shared by the DC operating-point loop
+    and the AC phase: a rung climbed while finding the operating point
+    carries into the AC solver's construction, and an unhealthy AC solve
+    rebuilds on the worst frequency point's values.  A non-converged
+    operating-point loop sets ``op_converged=False`` and warns.
+
+    ``layout``: ``"auto"`` (default) or ``"planar"``, the complex values'
+    storage on the kernels; ``"native"`` (the JAX package's route off the
+    kernels) raises ``NotImplementedError`` before any work.  ``device`` and
+    ``jit_schedule`` are as in :func:`transient`.  ``mesh`` (the frequency
+    axis sharded over several devices) is not ported and raises
+    ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "ac_sweep(mesh=...) (the frequency axis sharded over several "
+            "devices) is not ported to the PyTorch package yet")
+    ported_layout(layout, torch.complex128)
+    freqs = np.atleast_1d(np.asarray(freqs, dtype=np.float64))
+    pat = ckt.pattern()
+    n = ckt.n
+    ladder = _make_ladder(escalation, ladder_config)
+
+    t0 = time.perf_counter()
+    # DC operating point: dt=0 assembly opens the capacitors; the AC
+    # sources are zero at the operating point by definition
+    v = np.zeros(n)
+    glu_dc = None
+    n_plan_hits = 0
+    op_iters = 0
+    dv = np.inf
+    dc_kwargs = dict(ordering=ordering, dtype=torch.float64, refine=refine,
+                     refine_tol=refine_tol, static_pivot=static_pivot,
+                     mc64=mc64, jit_schedule=jit_schedule, device=device)
+    rebuilt_dc = False
+    for it in range(max_newton):
+        vals, rhs = ckt.assemble(v, v, 0.0, 0.0)
+        if glu_dc is None:
+            # the operating-point solves get the AC phase's robustness
+            # options: a bad operating point poisons the linearization
+            glu_dc = GLU(CSC(pat.n, pat.indptr, pat.indices, vals),
+                         **(dc_kwargs if ladder is None
+                            else ladder.glu_kwargs(dc_kwargs)))
+            n_plan_hits += int(glu_dc.plan_from_cache)
+        glu_dc.factorize(vals)
+        v_new = glu_dc.solve(rhs)
+        if ladder is not None:
+            ladder.note_refactorize()
+            reason = ladder.diagnose(glu_dc, v_new)
+            while reason is not None:
+                if ladder.can_escalate():
+                    ladder.escalate(step="dc-op", reason=reason)
+                elif not rebuilt_dc:
+                    ladder.retry_at_current_rung(step="dc-op", reason=reason)
+                else:
+                    break
+                rebuilt_dc = True
+                try:
+                    glu_dc = GLU(CSC(pat.n, pat.indptr, pat.indices, vals),
+                                 **ladder.glu_kwargs(dc_kwargs))
+                except ValueError:
+                    break
+                n_plan_hits += int(glu_dc.plan_from_cache)
+                glu_dc.factorize(vals)
+                v_new = glu_dc.solve(rhs)
+                reason = ladder.diagnose(glu_dc, v_new)
+        dv = np.abs(v_new - v).max()
+        v = v_new
+        op_iters = it + 1
+        if dv < newton_tol:
+            break
+    op_converged = bool(dv < newton_tol)
+    if not op_converged:
+        warnings.warn(
+            f"ac_sweep: DC operating-point Newton loop did not converge in "
+            f"{max_newton} iterations (last |dv| = {dv:.3g} >= newton_tol "
+            f"= {newton_tol:.3g}); the sweep linearizes at an unconverged "
+            f"operating point", RuntimeWarning, stacklevel=2)
+
+    # the AC excitation's nonzero support: the pruned solves need b to be
+    # exactly zero outside the pattern
+    ac_nodes = sorted({node - 1 for a, b, _ in ckt.ac_isources
+                       for node in (a, b) if node > 0})
+    rhs_pattern = np.asarray(ac_nodes, dtype=np.int64) if ac_nodes else None
+
+    # one complex plan for the whole sweep (MC64 matches/scales on |A(w0)|)
+    vals_ac, rhs_ac = ckt.assemble_ac(v, freqs)
+    ac_kwargs = dict(ordering=ordering, dtype=torch.complex128, refine=refine,
+                     refine_tol=refine_tol, static_pivot=static_pivot,
+                     mc64=mc64, layout=layout, jit_schedule=jit_schedule,
+                     device=device)
+    glu = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[0]),
+              **(ac_kwargs if ladder is None else ladder.glu_kwargs(ac_kwargs)))
+    n_plan_hits += int(glu.plan_from_cache)
+    setup_s = time.perf_counter() - t0
+    n_batched = 0
+
+    t0 = time.perf_counter()
+    x = glu.refactorize_solve(vals_ac, rhs_ac, rhs_pattern=rhs_pattern)
+    n_batched += 1
+    if ladder is not None:
+        ladder.note_refactorize()
+        # AC-phase recovery: rebuild on the worst frequency point's values
+        # (one shared plan, one representative for the scaling)
+        reason = ladder.diagnose(glu, x)
+        rebuilt_ac = False
+        while reason is not None:
+            if ladder.can_escalate():
+                ladder.escalate(step="ac", reason=reason)
+            elif not rebuilt_ac:
+                ladder.retry_at_current_rung(step="ac", reason=reason)
+            else:
+                break
+            rebuilt_ac = True
+            worst = _worst_index(glu)
+            try:
+                glu = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[worst]),
+                          **ladder.glu_kwargs(ac_kwargs))
+            except ValueError:
+                break
+            n_plan_hits += int(glu.plan_from_cache)
+            x = glu.refactorize_solve(vals_ac, rhs_ac,
+                                      rhs_pattern=rhs_pattern)
+            n_batched += 1
+            reason = ladder.diagnose(glu, x)
+    solve_s = time.perf_counter() - t0
+
+    # componentwise backward error on the original systems, all F points in
+    # two vectorized scatter-add SpMV passes (pattern indices built once)
+    F = len(freqs)
+    rows = np.broadcast_to(pat.indices, (F, len(pat.indices)))
+    cols = np.repeat(np.arange(pat.n), np.diff(pat.indptr))
+    batch = np.arange(F)[:, None]
+
+    def spmv_all(vmat, xmat):
+        y = np.zeros((F, n), dtype=np.result_type(vmat.dtype, xmat.dtype))
+        np.add.at(y, (batch, rows), vmat * xmat[:, cols])
+        return y
+
+    r = spmv_all(vals_ac, x) - rhs_ac
+    denom = spmv_all(np.abs(vals_ac), np.abs(x)) + np.abs(rhs_ac)
+    max_berr = float(np.where(denom > 0,
+                              np.abs(r) / np.where(denom > 0, denom, 1.0),
+                              np.where(np.abs(r) > 0, np.inf, 0.0)).max())
+
+    return ACSweepResult(
+        freqs=freqs,
+        voltages=x,
+        op_point=v,
+        op_newton_iters=op_iters,
+        n_batched_factorizations=n_batched,
+        setup_seconds=setup_s,
+        solve_seconds=solve_s,
+        max_backward_error=max_berr,
+        plan_cache_hits=n_plan_hits,
+        op_converged=op_converged,
+        n_full_rebuilds=0 if ladder is None else ladder.n_full_rebuilds,
+        ladder_counts=(_empty_ladder_counts() if ladder is None
+                       else dict(ladder.counts)),
     )

@@ -67,12 +67,15 @@ class GLU:
     values (AC analysis, ``A = G + jwC``) take ``layout="auto"`` or
     ``"planar"``: K1 and K3 run on their re/im planes and callers see
     native complex.  ``layout="native"`` with a complex dtype, the JAX
-    package's route off the kernels, is not ported and raises
-    ``NotImplementedError``, as do ``static_pivot`` with a complex dtype,
-    ``mesh``, ``verify`` other than ``"off"``, ``rhs_pattern`` and
-    ``solve_multi`` (many right-hand sides).  The batched methods
+    package's route off the kernels, raises ``NotImplementedError`` (the
+    planar storage gives the same interface on the kernels), as do
+    ``mesh`` and ``verify`` other than ``"off"``.  The batched methods
     (``factorize_batched``, ``solve_batched``, ``refactorize_solve``)
-    factor and solve B matrices on the pattern in lockstep.
+    factor and solve B matrices on the pattern in lockstep;
+    ``solve_multi`` solves K right-hand sides against one factorization.
+    Every solve takes ``rhs_pattern``, the indices (original row
+    numbering) of the right-hand side's nonzero support, which prunes the
+    triangular sweeps to its reach.
 
     ``jit_schedule`` (default True): on the card each factorization is one
     CUDA-graph replay, and so is each unrefined solve (a refined one: one
@@ -82,7 +85,8 @@ class GLU:
     (device index tensors) between ``GLU`` objects on one plan; the graphs
     and buffers are each object's own.  ``static_pivot``: the relative
     threshold eps of the static pivot guard, ``|diag| < eps * max|A|``
-    bumped just before each level divides by it (real values).
+    bumped just before each level divides by it (complex values keep
+    their phase: ``tau * d / |d|``).
 
     The JAX package's level-fusion options (``fuse_levels``,
     ``fuse_buckets``, ``bucket_waste``) have no counterpart: every level is
@@ -111,7 +115,7 @@ class GLU:
         verify: str = "off",
         device=None,
     ):
-        _check_slice(dtype, static_pivot, layout, mesh, verify)
+        _check_slice(dtype, layout, mesh, verify)
         plan, scaling, from_cache = plan_factorization(
             A, ordering=ordering, symbolic=symbolic, mc64=mc64,
             panel_threshold=panel_threshold, cache=plan_cache)
@@ -145,7 +149,7 @@ class GLU:
         symbolic work.  ``A`` must carry the plan's pattern, and the MC64
         matching of its values must reproduce ``plan.row_perm``; raises
         ``ValueError`` otherwise."""
-        _check_slice(dtype, static_pivot, layout, mesh, verify)
+        _check_slice(dtype, layout, mesh, verify)
         if not plan.matches_pattern(A):
             raise ValueError("matrix pattern differs from the plan's pattern")
         scaling = compute_scaling(A, mc64)
@@ -269,8 +273,61 @@ class GLU:
               rhs_pattern=None) -> np.ndarray:
         """Solve A x = b with the current factorization; ``refine`` extra
         iterative-refinement sweeps reuse the device factors (default: the
-        constructor's ``refine``)."""
-        _not_ported("rhs_pattern", rhs_pattern, None)
+        constructor's ``refine``).  ``rhs_pattern``: indices (original row
+        numbering) of b's nonzero support; it prunes the triangular sweeps
+        to the pattern's reach (raises if b is nonzero outside it)."""
+        self._require_single()
+        k = self.refine_default if refine is None else int(refine)
+        pat = self._map_rhs_pattern(rhs_pattern, b)
+        bp = (np.asarray(b) * self.Dr)[self._inv_row]
+        abs_steps = 0
+        if k > 0:
+            abs_steps = self._refresh_a_abs()
+            xp, rinfo = self._solver.solve_refined(
+                self._vals, bp, self._spmv_rows, self._spmv_cols,
+                self._a_vals, self._a_abs, max_iter=k, tol=self.refine_tol,
+                rhs_pattern=pat)
+        else:
+            xp = self._solver.solve(self._vals, bp, rhs_pattern=pat)
+            rinfo = {"refine_iters": 0, "backward_error": None,
+                     "converged": None, "host_syncs": 0}
+        self._set_solve_info(rinfo, abs_steps)
+        return xp.cpu().numpy()[self.col_map] * self.Dc
+
+    def solve_multi(self, b_multi, refine: Optional[int] = None,
+                    rhs_pattern=None) -> np.ndarray:
+        """Solve A X^T = B^T: many right-hand sides against the current
+        single-matrix factorization (the adjoint/sensitivity workload: K
+        seed vectors, one Jacobian).  ``b_multi`` is (K, n), returns
+        (K, n); each level is one step for all K (one replay on the card),
+        and row k equals :meth:`solve` of ``b_multi[k]`` bit for bit.
+        ``rhs_pattern`` is the union support of all rows; with ``refine``
+        ``solve_info`` holds (K,) arrays."""
+        self._require_single()
+        b = np.asarray(b_multi)
+        if b.ndim != 2 or b.shape[1] != self.n:
+            raise ValueError(f"expected (K, {self.n}) rhs, got shape {b.shape}")
+        k = self.refine_default if refine is None else int(refine)
+        pat = self._map_rhs_pattern(rhs_pattern, b)
+        bp = (b * self.Dr[None, :])[:, self._inv_row]
+        abs_steps = 0
+        if k > 0:
+            abs_steps = self._refresh_a_abs()
+            xp, rinfo = self._solver.solve_refined_multi(
+                self._vals, bp, self._spmv_rows, self._spmv_cols,
+                self._a_vals, self._a_abs, max_iter=k, tol=self.refine_tol,
+                rhs_pattern=pat)
+        else:
+            xp = self._solver.solve_multi(self._vals, bp, rhs_pattern=pat)
+            rinfo = {"refine_iters": np.zeros(b.shape[0], dtype=np.int64),
+                     "backward_error": None, "converged": None,
+                     "host_syncs": 0}
+        self._set_solve_info(rinfo, abs_steps)
+        return xp.cpu().numpy()[:, self.col_map] * self.Dc[None, :]
+
+    def _require_single(self) -> None:
+        """Factorize A's own values when nothing is factorized yet; raise
+        when the active factorization is batched."""
         if self._vals is None:
             if self._vals_batch is not None:
                 raise RuntimeError(
@@ -278,23 +335,36 @@ class GLU:
                     "solve_batched(), or call factorize() to refactorize "
                     "one matrix first")
             self.factorize()
-        k = self.refine_default if refine is None else int(refine)
-        bp = (np.asarray(b) * self.Dr)[self._inv_row]
-        abs_steps = 0
-        if k > 0:
-            if self._a_abs_stale:
-                torch.abs(self._a_vals, out=self._a_abs)
-                self._a_abs_stale = False
-                abs_steps = 1
-            xp, rinfo = self._solver.solve_refined(
-                self._vals, bp, self._spmv_rows, self._spmv_cols,
-                self._a_vals, self._a_abs, max_iter=k, tol=self.refine_tol)
-        else:
-            xp = self._solver.solve(self._vals, bp)
-            rinfo = {"refine_iters": 0, "backward_error": None,
-                     "converged": None, "host_syncs": 0}
-        self._set_solve_info(rinfo, abs_steps)
-        return xp.cpu().numpy()[self.col_map] * self.Dc
+
+    def _refresh_a_abs(self) -> int:
+        """|A| of the single factorization for refinement, recomputed once
+        after each factorization; returns the steps it took (0 or 1)."""
+        if not self._a_abs_stale:
+            return 0
+        torch.abs(self._a_vals, out=self._a_abs)
+        self._a_abs_stale = False
+        return 1
+
+    def _map_rhs_pattern(self, rhs_pattern, b) -> Optional[np.ndarray]:
+        """Translate a right-hand-side pattern from original row indices to
+        the solver's permuted positions, checking that ``b`` really is zero
+        outside it (a nonzero there would be dropped in silence by the
+        pruned solve)."""
+        if rhs_pattern is None:
+            return None
+        pat = np.unique(np.asarray(rhs_pattern, dtype=np.int64).ravel())
+        if pat.size and (pat[0] < 0 or pat[-1] >= self.n):
+            raise ValueError(f"rhs_pattern indices out of range [0, {self.n})")
+        mask = np.zeros(self.n, dtype=bool)
+        mask[pat] = True
+        bad = np.asarray(b) != 0
+        if bad.ndim == 2:
+            bad = bad.any(axis=0)
+        if np.any(bad & ~mask):
+            raise ValueError(
+                "rhs has nonzero entries outside rhs_pattern; the pruned "
+                "solve would silently drop them")
+        return self.row_map[pat]
 
     def _set_solve_info(self, rinfo: dict, abs_steps: int) -> None:
         if self._info is None:
@@ -346,8 +416,8 @@ class GLU:
         factorization; ``b_batch`` is (B, n), returns (B, n).  With
         ``refine`` the corrections are masked onto the matrices still above
         tolerance; ``solve_info`` then holds (B,) arrays.  An unrefined
-        solve is one graph replay on the card."""
-        _not_ported("rhs_pattern", rhs_pattern, None)
+        solve is one graph replay on the card.  A ``rhs_pattern`` is the
+        batch's union support."""
         if self._vals_batch is None:
             raise RuntimeError("call factorize_batched() first")
         b = np.asarray(b_batch)
@@ -358,6 +428,7 @@ class GLU:
             raise ValueError(f"rhs batch of {B} does not match the factorized "
                              f"batch of {self._batch_size}")
         k = self.refine_default if refine is None else int(refine)
+        pat = self._map_rhs_pattern(rhs_pattern, b)
         bp = (b * self.Dr[None, :])[:, self._inv_row]
         abs_steps = 0
         if k > 0:
@@ -368,9 +439,10 @@ class GLU:
             xp, rinfo = self._solver.solve_refined_batched(
                 self._vals_batch, bp, self._spmv_rows, self._spmv_cols,
                 self._a_vals_batch, self._a_abs_batch, max_iter=k,
-                tol=self.refine_tol)
+                tol=self.refine_tol, rhs_pattern=pat)
         else:
-            xp = self._solver.solve_batched(self._vals_batch, bp)
+            xp = self._solver.solve_batched(self._vals_batch, bp,
+                                            rhs_pattern=pat)
             rinfo = {"refine_iters": np.zeros(B, dtype=np.int64),
                      "backward_error": None, "converged": None,
                      "host_syncs": 0}
@@ -430,12 +502,6 @@ class GLU:
                 "n_devices": 1, "batch_spec": None,
                 "n_perturbed_global": None, "verify_report": None}
 
-    # -- out of this slice -----------------------------------------------------
-    def solve_multi(self, *args, **kwargs):
-        raise NotImplementedError(
-            "solve_multi (many right-hand sides against one factorization) "
-            "is not ported to the PyTorch package yet")
-
     # -- diagnostics ----------------------------------------------------------
     @property
     def solve_info(self) -> Optional[dict]:
@@ -492,12 +558,8 @@ def _host(t: torch.Tensor):
     return t.item() if t.dim() == 0 else t.cpu().numpy()
 
 
-def _check_slice(dtype, static_pivot, layout, mesh, verify):
+def _check_slice(dtype, layout, mesh, verify):
     """Refuse what this package does not run before any planning work."""
     ported_layout(layout, dtype)
-    if static_pivot is not None and value_dtype(dtype).is_complex:
-        raise NotImplementedError(
-            "static_pivot with complex values is not ported to the PyTorch "
-            "package yet")
     _not_ported("mesh", mesh, None)
     _not_ported("verify", verify, "off")

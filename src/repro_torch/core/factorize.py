@@ -484,8 +484,9 @@ class TorchFactorizer:
     static_pivot: relative threshold eps of the static pivot guard: after
         the entry scatter ``tau = eps * max|A|`` is computed on the device,
         and each step bumps its column diagonals below ``tau`` just before
-        it divides by them (a K1 run once per level, inside the kernel).
-        Real values only: complex ones raise ``NotImplementedError``.
+        it divides by them (a K1 run once per level, inside the kernel; the
+        dense tail before K2 or K3).  Complex values keep their phase
+        (``tau * d / |d|``, the reference's planar rule; ``tau`` is real).
         ``last_n_perturbed`` is then the bump count, a 0-d int32 device
         tensor.
     jit_schedule: on the card, the whole factorization (entry scatter,
@@ -537,10 +538,6 @@ class TorchFactorizer:
         self.device = resolve_device(device)
         self.dtype = value_dtype(dtype)
         self.layout = ported_layout(layout, self.dtype)
-        if static_pivot is not None and self.dtype.is_complex:
-            raise NotImplementedError(
-                "static_pivot with complex values is not ported to the "
-                "PyTorch package yet")
         self.static_pivot = static_pivot
         self.jit_schedule = bool(jit_schedule)
         self.kernels_disabled_reason = (
@@ -562,7 +559,9 @@ class TorchFactorizer:
         self._buf = torch.zeros(self.nnz + 1, dtype=dt, device=dev)
         self._count = None
         if static_pivot is not None:
-            self._eps = torch.tensor(float(static_pivot), dtype=dt, device=dev)
+            # tau = eps * max|A| is real for complex values too
+            self._eps = torch.tensor(float(static_pivot),
+                                     dtype=self.a_values.real.dtype, device=dev)
             self._count = torch.zeros((), dtype=torch.int32, device=dev)
         self._graph = self._capture(self.a_values, self._buf, self._count)
         self._batch = None            # the latest batch size's buffers

@@ -31,7 +31,7 @@ from ..sparse.csc import csc_transpose_pattern, pattern_digest
 from .dependency import Levelization, levelize_relaxed, longest_path_levels
 from .symbolic import FilledPattern
 
-__all__ = ["FactorizePlan", "LevelSegment", "build_plan",
+__all__ = ["FactorizePlan", "LevelSegment", "build_plan", "reach_closure",
            "MODE_FLAT", "MODE_SEGMENTED", "MODE_PANEL"]
 
 MODE_FLAT = "flat"            # one fused scatter-add (type A levels)
@@ -56,6 +56,31 @@ class LevelSegment:
     @property
     def n_upd(self) -> int:
         return self.upd_slice.stop - self.upd_slice.start
+
+
+def reach_closure(n: int, adj_ptr: np.ndarray, adj_rows: np.ndarray,
+                  seeds: np.ndarray) -> np.ndarray:
+    """Transitive closure of ``seeds`` under the DAG ``col j -> adj_rows
+    [adj_ptr[j]:adj_ptr[j+1]]``, as a sorted index array.
+
+    This is the Gilbert-Peierls reach computation driving sparse-RHS
+    triangular solves (Ruipeng Li, arXiv 1710.04985): the nonzero set of
+    ``L^{-1} b`` is exactly the closure of ``nonzeros(b)`` under L's
+    below-diagonal adjacency.  Frontier-batched BFS, same discipline as the
+    vectorized symbolic engine: one ranged-concat gather per wave."""
+    seeds = np.unique(np.asarray(seeds, dtype=np.int64))
+    if seeds.size and (seeds[0] < 0 or seeds[-1] >= n):
+        raise ValueError(f"rhs pattern indices out of range [0, {n})")
+    visited = np.zeros(n, dtype=bool)
+    visited[seeds] = True
+    frontier = seeds
+    while frontier.size:
+        cand = adj_rows[_concat_ranges(adj_ptr[frontier],
+                                       adj_ptr[frontier + 1])]
+        cand = np.unique(cand[~visited[cand]])
+        visited[cand] = True
+        frontier = cand
+    return np.flatnonzero(visited)
 
 
 @dataclasses.dataclass
@@ -87,9 +112,9 @@ class FactorizePlan:
     bwd_ptr: np.ndarray
     bwd_level_cols: np.ndarray    # columns ordered by U-level
     bwd_col_ptr: np.ndarray
-    # CSR-ish DAG adjacency of L (below-diagonal rows per column) and U
-    # (above-diagonal rows per column), the JAX package's sparse-RHS reach
-    # machinery; kept so the plan arrays stay those of the reference
+    # sparse-RHS reach machinery: CSR-ish DAG adjacency of L (below-diagonal
+    # rows per column) and U (above-diagonal rows per column), computed at
+    # plan time so per-pattern reach closures are pure index walks
     l_adj_ptr: np.ndarray
     l_adj_rows: np.ndarray
     u_adj_ptr: np.ndarray
@@ -98,6 +123,18 @@ class FactorizePlan:
     # which whole-schedule executables are cached process-wide, so two
     # executors built on equal plans share one compiled program
     digest: str = ""
+
+    def fwd_reach(self, nonzeros) -> np.ndarray:
+        """Columns of ``y = L^{-1} b`` that can be nonzero when ``b`` is
+        supported on ``nonzeros`` (sorted index array)."""
+        return reach_closure(self.n, self.l_adj_ptr, self.l_adj_rows,
+                             nonzeros)
+
+    def bwd_reach(self, nonzeros) -> np.ndarray:
+        """Rows of ``x = U^{-1} y`` that can be nonzero when ``y`` is
+        supported on ``nonzeros`` (sorted index array)."""
+        return reach_closure(self.n, self.u_adj_ptr, self.u_adj_rows,
+                             nonzeros)
 
     @property
     def num_levels(self) -> int:

@@ -25,9 +25,27 @@ common ``refine <= 2`` case costs one device-to-host read.
 A batch of B matrices on the plan (the JAX package's ``solve_batched`` and
 ``solve_refined_batched``) runs the same steps on (B, nnz) factors and
 (B, n) vectors: one step a level for the whole batch, each matrix's sums
-as alone, the stopping test and its mask per matrix.
+as alone, the stopping test and its mask per matrix.  Many right-hand
+sides against one factorization (``solve_multi``, ``solve_refined_multi``)
+run them on (nnz,) factors and (K, n) vectors: each level's gathers of the
+factors broadcast over the K rows, so each row gets one solve's bits.
+
+Sparse right-hand sides: circuit RHS vectors are mostly zeros (an AC
+excitation is often 1-2 entries), and the solution of ``L y = b`` is
+supported exactly on the reach of ``nonzeros(b)`` in L's DAG
+(Gilbert-Peierls; cf. Ruipeng Li, arXiv 1710.04985).  ``rhs_pattern``
+prunes the sweeps to that reach: only levels that hold a reach column are
+kept, and within a level only the entries whose source column is in the
+reach, filtered from the full level's round order, so every kept entry is
+added in the same round and order as in the full solve and every dropped
+one would have added an exact zero.  The pruned solve is the full solve's
+bits on the reach, exact zeros off it.  Pruned sweeps are cached per
+pattern (an LRU of ``SPARSE_SCHEDULE_CAP``, with their graphs and
+buffers) and shared between solvers through the executable cache.
 """
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -97,35 +115,64 @@ class _Sweeps:
     """The built forward and backward sweeps of one plan on one device:
     per level its index tensors (device int64, entries in
     :func:`round_order` of their target rows) and round bounds.  Shared
-    through the process-wide :class:`~.executor.ExecutableCache`."""
+    through the process-wide :class:`~.executor.ExecutableCache`.
 
-    def __init__(self, plan: FactorizePlan, device):
-        def level(*head, rows, cols, vidx):
+    ``fwd_mask`` / ``bwd_mask`` (boolean (n,) column masks, the reaches of
+    a right-hand-side pattern) prune the sweeps: a level is kept when it
+    holds a masked column, and of it only the masked columns and the
+    entries whose source column is masked, taken from the full level's
+    round order (emptied rounds dropped), so each kept entry is added in
+    the same round and order as in the full sweep."""
+
+    def __init__(self, plan: FactorizePlan, device, fwd_mask=None,
+                 bwd_mask=None):
+        def level(*head, rows, cols, vidx, keep=None):
             perm, bounds = round_order(rows)
-            arrs = (*head, rows[perm], cols[perm], vidx[perm])
+            arrs = (rows[perm], cols[perm], vidx[perm])
+            if keep is not None:
+                kept = keep[perm]
+                sizes = [int(kept[s:e].sum())
+                         for s, e in zip(bounds[:-1], bounds[1:])]
+                bounds = [0] + np.cumsum([k for k in sizes if k]).tolist()
+                arrs = tuple(a[kept] for a in arrs)
             return tuple(torch.as_tensor(np.asarray(a, dtype=np.int64),
-                                         device=device) for a in arrs) + (bounds,)
+                                         device=device)
+                         for a in (*head, *arrs)) + (bounds,)
 
         fwd = []
         for l in range(len(plan.fwd_ptr) - 1):
             s, e = int(plan.fwd_ptr[l]), int(plan.fwd_ptr[l + 1])
-            fwd.append(level(rows=plan.fwd_rows[s:e], cols=plan.fwd_cols[s:e],
-                             vidx=plan.fwd_vidx[s:e]))
+            cols = plan.fwd_cols[s:e]
+            keep = None
+            if fwd_mask is not None:
+                keep = fwd_mask[cols]
+                if not keep.any():
+                    continue
+            fwd.append(level(rows=plan.fwd_rows[s:e], cols=cols,
+                             vidx=plan.fwd_vidx[s:e], keep=keep))
         bwd = []
         for l in range(len(plan.bwd_ptr) - 1):
             s, e = int(plan.bwd_ptr[l]), int(plan.bwd_ptr[l + 1])
             cs, ce = int(plan.bwd_col_ptr[l]), int(plan.bwd_col_ptr[l + 1])
             lcols = plan.bwd_level_cols[cs:ce]
+            cols = plan.bwd_cols[s:e]
+            keep = None
+            if bwd_mask is not None:
+                keep = bwd_mask[cols]
+                lcols = lcols[bwd_mask[lcols]]
+                if not len(lcols) and not keep.any():
+                    continue
             bwd.append(level(lcols, plan.diag_idx[lcols],
-                             rows=plan.bwd_rows[s:e], cols=plan.bwd_cols[s:e],
-                             vidx=plan.bwd_vidx[s:e]))
+                             rows=plan.bwd_rows[s:e], cols=cols,
+                             vidx=plan.bwd_vidx[s:e], keep=keep))
         self.fwd, self.bwd = fwd, bwd
         self.n_steps = len(fwd) + len(bwd)
 
     def run(self, vals, x) -> None:
         """Forward then backward substitution, in place on ``x``: (n,)
-        with (nnz,) factors, or a batch (B, n) with (B, nnz) factors, one
-        step a level for the whole batch."""
+        with (nnz,) factors, a batch (B, n) with (B, nnz) factors, or K
+        right-hand sides (K, n) with (nnz,) factors, one step a level for
+        all rows."""
         for lev in self.fwd:
             _fwd_level(vals, x, *lev)
         for lev in self.bwd:
@@ -134,11 +181,11 @@ class _Sweeps:
 
 class _Bound:
     """Static buffers and captured schedules bound to one set of input
-    tensors (their addresses, dtypes and shapes): a graph reads its inputs
-    where they lay at capture."""
+    tensors (their addresses, dtypes and shapes) and one right-hand-side
+    shape: a graph reads its inputs where they lay at capture."""
 
-    def __init__(self, tensors):
-        self.key = _bind_key(tensors)
+    def __init__(self, key, tensors):
+        self.key = key
         self.inputs = tensors          # keeps the bound memory alive
         self.bufs: dict = {}
         self.graphs: dict = {}
@@ -150,16 +197,22 @@ class _Bound:
         return b
 
 
-def _bind_key(tensors):
+def _bind_key(tensors, shape):
     return tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.device)
-                 for t in tensors)
+                 for t in tensors) + (tuple(shape),)
 
 
 class TorchTriangularSolver:
     """solve(vals, b): forward + backward substitution on factored values,
     one step per level (eager PyTorch needs none of the JAX package's
     padded level groups); ``solve_batched`` and ``solve_refined_batched``
-    do the same for a batch of factors in lockstep.
+    do the same for a batch of factors in lockstep, ``solve_multi`` and
+    ``solve_refined_multi`` for K right-hand sides against one set of
+    factors.  Every solve takes ``rhs_pattern``: the indices
+    of the right-hand side's nonzero support (for a batch or K rows, their
+    union), which prunes the sweeps to its reach (:meth:`schedule_for_pattern`;
+    ``b`` must be zero outside it).  A refined solve prunes its first solve
+    only: the corrections solve a dense residual on the full sweeps.
 
     ``jit_schedule``: on the card an unrefined solve is one CUDA-graph
     replay (:class:`~.executor.CapturedSchedule`), and a refined solve one
@@ -167,11 +220,13 @@ class TorchTriangularSolver:
     ``sync_every`` refinement sweeps, each followed by one device-to-host
     read of the stopping test; ``False`` issues the steps one by one.  The
     two give the same bits.  A graph is bound to the tensors it was
-    captured on (the factors, and for refinement A's COO arrays), so a call
-    with other tensors captures anew; the solver owns the right-hand side,
+    captured on (the factors, and for refinement A's COO arrays) and to the
+    right-hand side's shape, so a call with other tensors or another K
+    captures anew; each pattern has graphs of its own, released with its
+    schedule when the LRU evicts it.  The solver owns the right-hand side,
     solution and residual buffers.  On the CPU the steps always run one by
-    one.  ``executable_cache`` shares the built sweeps between solvers on
-    one plan, as in :class:`~.factorize.TorchFactorizer`.
+    one.  ``executable_cache`` shares the built sweeps, full and pruned,
+    between solvers on one plan, as in :class:`~.factorize.TorchFactorizer`.
 
     ``last_n_dispatches`` counts the latest call's dispatches: replays plus
     reads on the graph path, host-issued steps plus reads otherwise (and
@@ -179,15 +234,22 @@ class TorchTriangularSolver:
     while it warms up the graph).
     """
 
+    # pruned schedules kept per rhs pattern (with their graphs and buffers):
+    # a handful of excitation patterns without unbounded growth
+    SPARSE_SCHEDULE_CAP = 32
+
     def __init__(self, plan: FactorizePlan, device=None,
                  jit_schedule: bool = True, executable_cache="default"):
         self.plan = plan
         self.device = resolve_device(device)
         self.jit_schedule = bool(jit_schedule)
-        self._sweeps = resolve_executable_cache(executable_cache).get_or_build(
-            ("trisolve", plan.digest, plan.n, len(plan.fwd_ptr),
-             len(plan.bwd_ptr), str(self.device)),
-            lambda: _Sweeps(plan, self.device))
+        self._cache = resolve_executable_cache(executable_cache)
+        self._key = ("trisolve", plan.digest, plan.n, len(plan.fwd_ptr),
+                     len(plan.bwd_ptr), str(self.device))
+        self._sweeps = self._cache.get_or_build(
+            self._key, lambda: _Sweeps(plan, self.device))
+        # pattern key -> (schedule_for_pattern's entry, its _Sweeps)
+        self._sparse_schedules: OrderedDict = OrderedDict()
         self._bound: dict = {}
         self.last_n_dispatches = 0
 
@@ -199,13 +261,61 @@ class TorchTriangularSolver:
     def bwd_levels(self):
         return self._sweeps.bwd
 
-    def _bind(self, slot: str, tensors) -> _Bound:
-        """The buffers and graphs of ``slot`` ("solve", "refine",
-        "solve_batched" or "refine_batched") for these input tensors, new
-        ones if they changed (a new batch size too)."""
+    # -- sparse-RHS schedules ----------------------------------------------
+    def schedule_for_pattern(self, rhs_pattern):
+        """The pruned ``(fwd_levels, bwd_levels, fwd_reach, bwd_reach)`` for
+        a right-hand side supported on ``rhs_pattern`` (positions in the
+        solver's numbering), memoized per pattern (LRU).  When the reaches
+        are every column the full sweeps themselves are returned."""
+        return self._schedule(rhs_pattern)[1][0]
+
+    def _schedule(self, rhs_pattern):
+        """``(key, (entry, sweeps))`` of the pattern: its normalized bytes,
+        the :meth:`schedule_for_pattern` entry and its :class:`_Sweeps`.
+        An evicted pattern takes its graphs and buffers with it."""
+        pat = np.unique(np.asarray(rhs_pattern, dtype=np.int64).ravel())
+        key = pat.tobytes()
+        hit = self._sparse_schedules.get(key)
+        if hit is not None:
+            self._sparse_schedules.move_to_end(key)
+            return key, hit
+        n = self.plan.n
+        freach = self.plan.fwd_reach(pat)
+        breach = self.plan.bwd_reach(freach)
+        if len(freach) == n and len(breach) == n:
+            sweeps = self._sweeps
+        else:
+            fmask = np.zeros(n, dtype=bool)
+            fmask[freach] = True
+            bmask = np.zeros(n, dtype=bool)
+            bmask[breach] = True
+            sweeps = self._cache.get_or_build(
+                self._key + (key,),
+                lambda: _Sweeps(self.plan, self.device, fmask, bmask))
+        hit = self._sparse_schedules[key] = (
+            (sweeps.fwd, sweeps.bwd, freach, breach), sweeps)
+        while len(self._sparse_schedules) > self.SPARSE_SCHEDULE_CAP:
+            old, _ = self._sparse_schedules.popitem(last=False)
+            for slot in [s for s in self._bound if s[1] == old]:
+                del self._bound[slot]
+        return key, hit
+
+    def _sweeps_for(self, rhs_pattern):
+        """The sweeps for the right-hand side's support and the id of its
+        graphs and buffers: ``"full"`` for the full sweeps."""
+        if rhs_pattern is None:
+            return self._sweeps, "full"
+        key, (_, sweeps) = self._schedule(rhs_pattern)
+        return sweeps, ("full" if sweeps is self._sweeps else key)
+
+    def _bind(self, slot, tensors, shape) -> _Bound:
+        """The buffers and graphs of ``slot`` (the call kind and the
+        pattern's id) for these input tensors and right-hand-side shape,
+        new ones if they changed (a new batch size or K too)."""
+        key = _bind_key(tensors, shape)
         bound = self._bound.get(slot)
-        if bound is None or bound.key != _bind_key(tensors):
-            bound = self._bound[slot] = _Bound(tensors)
+        if bound is None or bound.key != key:
+            bound = self._bound[slot] = _Bound(key, tensors)
         return bound
 
     def _dispatch(self, bound: _Bound, name, fn, eager_steps: int) -> int:
@@ -220,45 +330,63 @@ class TorchTriangularSolver:
                                                           eager_steps)
         return graph()
 
-    def solve(self, vals: torch.Tensor, b) -> torch.Tensor:
+    # -- solves ----------------------------------------------------------------
+    def solve(self, vals: torch.Tensor, b, rhs_pattern=None) -> torch.Tensor:
         """Solve with factored (nnz,) values; returns an (n,) tensor in the
         values' dtype on their device: the solver's solution buffer, which
         the next solve with these values overwrites."""
-        return self._solve("solve", vals, b)
+        return self._solve("solve", vals, b, (self.plan.n,), rhs_pattern)
 
-    def solve_batched(self, vals: torch.Tensor, b) -> torch.Tensor:
+    def solve_batched(self, vals: torch.Tensor, b,
+                      rhs_pattern=None) -> torch.Tensor:
         """Row b of the result solves with factors ``vals[b]`` and
         right-hand side ``b[b]``: (B, nnz) factors, (B, n) right-hand
         sides, B solves in lockstep (one step a level for the batch, one
-        replay on the card); a buffer as in :meth:`solve`."""
+        replay on the card); a buffer as in :meth:`solve`.  A
+        ``rhs_pattern`` is the batch's union support."""
         _check_batch(vals, b, self.plan.n)
-        return self._solve("solve_batched", vals, b)
+        return self._solve("solve_batched", vals, b, (vals.shape[0], self.plan.n),
+                           rhs_pattern)
 
-    def _solve(self, slot, vals, b) -> torch.Tensor:
-        bound = self._bind(slot, (vals,))
-        shape = vals.shape[:-1] + (self.plan.n,)
+    def solve_multi(self, vals: torch.Tensor, b,
+                    rhs_pattern=None) -> torch.Tensor:
+        """Many right-hand sides against one set of factors: (nnz,) values,
+        (K, n) right-hand sides, one step a level for all K (one replay on
+        the card); row k equals :meth:`solve` of ``b[k]`` bit for bit.  A
+        ``rhs_pattern`` is the rows' union support; a buffer as in
+        :meth:`solve`."""
+        K = _check_multi(vals, b, self.plan.n)
+        return self._solve("solve_multi", vals, b, (K, self.plan.n),
+                           rhs_pattern)
+
+    def _solve(self, slot, vals, b, shape, rhs_pattern) -> torch.Tensor:
+        sweeps, pid = self._sweeps_for(rhs_pattern)
+        bound = self._bind((slot, pid), (vals,), shape)
         x = bound.buf("x", lambda: torch.empty(shape, dtype=vals.dtype,
                                                device=vals.device))
         x.copy_(torch.as_tensor(b, dtype=vals.dtype))
         self.last_n_dispatches = self._dispatch(
-            bound, "solve", lambda: self._sweeps.run(vals, x),
-            self._sweeps.n_steps)
+            bound, "solve", lambda: sweeps.run(vals, x), sweeps.n_steps)
         return x
 
     def solve_refined(self, vals, b, a_rows, a_cols, a_vals, a_abs,
-                      max_iter: int, tol: float, sync_every: int = 2):
+                      max_iter: int, tol: float, rhs_pattern=None,
+                      sync_every: int = 2):
         """Solve then refine: up to ``max_iter`` sweeps of
         ``x += solve(b - A x)`` on the existing factors, stopping when the
         componentwise backward error drops to ``tol``.  ``a_rows``/
         ``a_cols``/``a_vals`` describe A in COO entry order and ``a_abs`` is
         ``|a_vals|``.  Returns ``(x, info)`` with ``refine_iters``,
         ``backward_error``, ``converged`` and ``host_syncs``; ``x`` is the
-        solver's buffer, as in :meth:`solve`."""
-        return self._solve_refined("refine", vals, b, a_rows, a_cols, a_vals,
-                                   a_abs, max_iter, tol, sync_every)
+        solver's buffer, as in :meth:`solve`.  ``rhs_pattern`` prunes the
+        first solve; the corrections run the full sweeps."""
+        return self._solve_refined("refine", vals, b, (self.plan.n,), a_rows,
+                                   a_cols, a_vals, a_abs, max_iter, tol,
+                                   rhs_pattern, sync_every)
 
     def solve_refined_batched(self, vals, b, a_rows, a_cols, a_vals, a_abs,
-                              max_iter: int, tol: float, sync_every: int = 2):
+                              max_iter: int, tol: float, rhs_pattern=None,
+                              sync_every: int = 2):
         """Batched twin of :meth:`solve_refined`: (B, nnz) factors, (B, n)
         right-hand sides, (B, nnz_A) ``a_vals`` and ``a_abs``; one
         lockstep sweep a round, corrections masked onto the matrices still
@@ -266,24 +394,39 @@ class TorchTriangularSolver:
         ``refine_iters``, ``backward_error`` and ``converged`` are (B,)
         arrays."""
         _check_batch(vals, b, self.plan.n)
-        return self._solve_refined("refine_batched", vals, b, a_rows, a_cols,
-                                   a_vals, a_abs, max_iter, tol, sync_every)
+        return self._solve_refined("refine_batched", vals, b,
+                                   (vals.shape[0], self.plan.n), a_rows,
+                                   a_cols, a_vals, a_abs, max_iter, tol,
+                                   rhs_pattern, sync_every)
 
-    def _solve_refined(self, slot, vals, b, a_rows, a_cols, a_vals, a_abs,
-                       max_iter, tol, sync_every):
+    def solve_refined_multi(self, vals, b, a_rows, a_cols, a_vals, a_abs,
+                            max_iter: int, tol: float, rhs_pattern=None,
+                            sync_every: int = 2):
+        """Many-RHS twin of :meth:`solve_refined`: (nnz,) factors and
+        ``a_vals``, (K, n) right-hand sides, corrections masked per row;
+        ``refine_iters``, ``backward_error`` and ``converged`` are (K,)
+        arrays."""
+        K = _check_multi(vals, b, self.plan.n)
+        return self._solve_refined("refine_multi", vals, b, (K, self.plan.n),
+                                   a_rows, a_cols, a_vals, a_abs, max_iter,
+                                   tol, rhs_pattern, sync_every)
+
+    def _solve_refined(self, slot, vals, b, shape, a_rows, a_cols, a_vals,
+                       a_abs, max_iter, tol, rhs_pattern, sync_every):
         n = self.plan.n
         dev = vals.device
-        batched = vals.dim() == 2
-        bound = self._bind(slot, (vals, a_rows, a_cols, a_vals, a_abs))
-        lead = vals.shape[:-1]
+        first, pid = self._sweeps_for(rhs_pattern)
+        full = self._sweeps
+        bound = self._bind((slot, pid), (vals, a_rows, a_cols, a_vals, a_abs),
+                           shape)
+        lead = tuple(shape[:-1])
         real = vals.real.dtype
 
         def buf(name, shape, dtype):
             return bound.buf(name, lambda: torch.empty(shape, dtype=dtype,
                                                        device=dev))
 
-        b_buf, x, r, d = (buf(k, lead + (n,), vals.dtype)
-                          for k in ("b", "x", "r", "d"))
+        b_buf, x, r, d = (buf(k, shape, vals.dtype) for k in ("b", "x", "r", "d"))
         berr = buf("berr", lead, real)
         iters = buf("iters", lead, torch.int64)
         stat = buf("stat", (2,) + lead, real)
@@ -298,20 +441,20 @@ class TorchTriangularSolver:
 
         def head():                           # x = solve(b), r = b - A x
             x.copy_(b_buf)
-            self._sweeps.run(vals, x)
+            first.run(vals, x)
             iters.zero_()
             residual()
 
         def chunk(k):                         # k refinement sweeps
             for _ in range(k):
                 d.copy_(r)
-                self._sweeps.run(vals, d)
+                full.run(vals, d)
                 x.copy_(masked_correction(x, d, berr, tol))
                 iters.add_(berr > tol)
                 residual()
 
-        steps = self._sweeps.n_steps
-        n_disp = self._dispatch(bound, "head", head, steps + 1)
+        steps = full.n_steps
+        n_disp = self._dispatch(bound, "head", head, first.n_steps + 1)
         syncs = 0
         done = 0
         berr_h = iters_h = None
@@ -328,14 +471,23 @@ class TorchTriangularSolver:
             berr_h, iters_h = _read_back(stat)
             syncs += 1
         self.last_n_dispatches = n_disp + syncs
-        if not batched:
+        if not lead:
             berr_h, iters_h = float(berr_h), int(iters_h)
         return x, {"refine_iters": iters_h, "backward_error": berr_h,
                    "converged": berr_h <= tol, "host_syncs": syncs}
 
 
 def _check_batch(vals, b, n: int) -> None:
-    shape = tuple(b.shape) if hasattr(b, "shape") else np.shape(b)
+    shape = tuple(np.shape(b))
     if vals.dim() != 2 or shape != (vals.shape[0], n):
         raise ValueError(f"expected (B, nnz) factors and (B, {n}) right-hand "
                          f"sides, got {tuple(vals.shape)} and {shape}")
+
+
+def _check_multi(vals, b, n: int) -> int:
+    """K of (nnz,) factors and (K, n) right-hand sides; raises otherwise."""
+    shape = tuple(np.shape(b))
+    if vals.dim() != 1 or len(shape) != 2 or shape[1] != n:
+        raise ValueError(f"expected (nnz,) factors and (K, {n}) right-hand "
+                         f"sides, got {tuple(vals.shape)} and {shape}")
+    return shape[0]

@@ -40,9 +40,10 @@ _SIGNATURES = {
     **{f"glu_level_run_{t}": _K1 + [_P] for t in ("f32", "f64", "c64", "c128")},
     **{f"glu_level_run_batched_{t}": _K1 + [_I, _I, _P]        # batch, stride
        for t in ("f32", "f64", "c64", "c128")},
-    **{f"glu_level_run_robust_{t}": _K1_ROBUST + [_P] for t in ("f32", "f64")},
+    **{f"glu_level_run_robust_{t}": _K1_ROBUST + [_P]
+       for t in ("f32", "f64", "c64", "c128")},
     **{f"glu_level_run_robust_batched_{t}": _K1_ROBUST + [_I, _I, _P]
-       for t in ("f32", "f64")},
+       for t in ("f32", "f64", "c64", "c128")},
     **{f"glu_dense_lu{k}_{t}": _TILE + [_P]
        for k in ("", "_planar") for t in ("f32", "f64")},
     **{f"glu_dense_lu{k}_batched_{t}": _TILE + [_I, _P]         # batch

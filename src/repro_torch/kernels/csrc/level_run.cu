@@ -45,15 +45,21 @@
 // array is not declared const __restrict__, so nvcc never reads it through
 // the non-coherent path.
 //
-// Static pivoting (the robust instantiation, real values only): the
-// counterpart of the reference's per-level guard (core/factorize.py:567-571,
-// kernels/ops.py:220 _perturb_diags_body).  Each level's column diagonals
-// are final once the earlier levels of the run are done, so at the start of
-// each level, right after the grid barrier, the grid bumps them: any
-// |d| < tau becomes tau * d / |d| (+tau for an exact zero).  A second grid
-// barrier follows, so no normalize or product of the level reads a diagonal
-// before its bump.  tau is read from device memory, one value a matrix
-// (eps * max|A|, computed on the card before the launch), and each bump is
+// Static pivoting (the robust instantiation): the counterpart of the
+// reference's per-level guard (core/factorize.py:567-571, kernels/ops.py:220
+// _perturb_diags_body, and for complex values :244
+// _perturb_diags_planar_body before each planar level,
+// core/factorize.py:257-263).  Each level's column diagonals are final once
+// the earlier levels of the run are done, so at the start of each level,
+// right after the grid barrier, the grid bumps them: any |d| < tau becomes
+// tau * d / |d| (+tau for an exact zero).  For complex values |d| is
+// hypot(re, im) (what PyTorch's complex abs computes on the card), the
+// phase re / |d|, im / |d| is taken per plane and each times tau, and an
+// exact zero becomes (tau, 0).  A second grid barrier follows, so no
+// normalize or product of the level reads a diagonal before its bump.  tau
+// is real (the values' real type) and read from device memory, one value a
+// matrix (eps * max|A|, computed on the card before the launch), and each
+// bump is
 // added into its matrix's device int32 counter with an integer atomic,
 // whose sum does not depend on the order.  Layout: diag_ptr (L + 1) and
 // diag (P) list each level's diagonal positions; the plain instantiation
@@ -99,11 +105,14 @@ __device__ inline float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ inline double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ inline float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ inline double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ inline float hypot_of(float a, float b) { return hypotf(a, b); }
+__device__ inline double hypot_of(double a, double b) { return hypot(a, b); }
 
 // Real values: v = l / d, contribution -(v * u), sums a + c.
 template <typename T>
 struct RealOps {
   using V = T;
+  using R = T;  // the type of tau
   __device__ static V load(const V* p, int i) { return __ldcg(p + i); }
   __device__ static void store(V* p, int i, V v) { __stcg(p + i, v); }
   __device__ static V zero() { return T(0); }
@@ -112,7 +121,7 @@ struct RealOps {
   __device__ static V add(V a, V b) { return add_rn(a, b); }
   // the static-pivot rule of the reference: |d| < tau -> tau * d / |d|,
   // where d / |d| is exactly +-1, and an exact zero (either sign) -> +tau
-  __device__ static bool bump(V& d, V tau) {
+  __device__ static bool bump(V& d, R tau) {
     if (!(fabs(d) < tau)) return false;
     d = d < T(0) ? -tau : tau;
     return true;
@@ -125,6 +134,7 @@ struct RealOps {
 template <typename T, typename T2>
 struct ComplexOps {
   using V = T2;
+  using R = T;  // the type of tau
   __device__ static V load(const V* p, int i) { return __ldcg(p + i); }
   __device__ static void store(V* p, int i, V v) { __stcg(p + i, v); }
   __device__ static V zero() { return V{T(0), T(0)}; }
@@ -139,6 +149,15 @@ struct ComplexOps {
              -add_rn(mul_rn(n.x, u.y), mul_rn(n.y, u.x))};
   }
   __device__ static V add(V a, V b) { return V{add_rn(a.x, b.x), add_rn(a.y, b.y)}; }
+  // the reference's planar static-pivot rule: |d| = hypot(re, im) < tau ->
+  // (re / |d| * tau, im / |d| * tau), an exact zero -> (tau, 0)
+  __device__ static bool bump(V& d, R tau) {
+    const T mag = hypot_of(d.x, d.y);
+    if (!(mag < tau)) return false;
+    d = mag > T(0) ? V{mul_rn(div_rn(d.x, mag), tau), mul_rn(div_rn(d.y, mag), tau)}
+                   : V{tau, T(0)};
+    return true;
+  }
 };
 
 template <typename V>
@@ -264,7 +283,7 @@ __device__ void row_block(typename Ops::V* vals, int4 row, int c0,
 // matrix b's against tau[b] and counted into count[b].
 template <typename Ops>
 __device__ void bump_diagonals(typename Ops::V* vals, const int* __restrict__ diag,
-                               int d0, int d1, const typename Ops::V* __restrict__ tau,
+                               int d0, int d1, const typename Ops::R* __restrict__ tau,
                                int* count, int batch, int stride) {
   const int n = d1 - d0;
   const int total = batch * n;
@@ -288,7 +307,7 @@ level_run_kernel(typename Ops::V* vals, const int* __restrict__ levels,
                  const int2* __restrict__ items, const int4* __restrict__ rows,
                  const int4* __restrict__ upd, const int2* __restrict__ norm,
                  int n_levels, const int* __restrict__ diag_ptr,
-                 const int* __restrict__ diag, const typename Ops::V* __restrict__ tau,
+                 const int* __restrict__ diag, const typename Ops::R* __restrict__ tau,
                  int* count, int batch_arg, int stride) {
   __shared__ Smem<typename Ops::V> sm;
   cg::grid_group grid = cg::this_grid();
@@ -343,6 +362,7 @@ int level_run(void* vals, const void* levels, const void* items, const void* row
   const long long work = static_cast<long long>(max_items > 1 ? max_items : 1) * batch;
   const int grid = per_sm * sms < work ? per_sm * sms : static_cast<int>(work);
   using V = typename Ops::V;
+  using R = typename Ops::R;
   V* v = static_cast<V*>(vals);
   const int* lv = static_cast<const int*>(levels);
   const int2* it = static_cast<const int2*>(items);
@@ -351,7 +371,7 @@ int level_run(void* vals, const void* levels, const void* items, const void* row
   const int2* nm = static_cast<const int2*>(norm);
   const int* dp = static_cast<const int*>(diag_ptr);
   const int* dg = static_cast<const int*>(diag);
-  const V* ta = static_cast<const V*>(tau);
+  const R* ta = static_cast<const R*>(tau);
   int* ct = static_cast<int*>(count);
   void* args[] = {&v, &lv, &it, &rw, &up, &nm, &n_levels, &dp, &dg, &ta, &ct, &batch, &stride};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
@@ -396,7 +416,7 @@ extern "C" int glu_level_run_c128(void* vals, const void* levels, const void* it
 }
 
 // The robust (static-pivot) instantiations: tau is a device scalar of the
-// value type, count a device int32 the bumps are added into.
+// values' real type, count a device int32 the bumps are added into.
 extern "C" int glu_level_run_robust_f32(void* vals, const void* levels, const void* items,
                                         const void* rows, const void* upd, const void* norm,
                                         const void* diag_ptr, const void* diag,
@@ -413,6 +433,28 @@ extern "C" int glu_level_run_robust_f64(void* vals, const void* levels, const vo
                                         int max_items, void* stream) {
   return level_run<RealOps<double>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
                                           diag, tau, count, n_levels, max_items, 1, 0, stream);
+}
+
+// Complex values: tau is real (float for c64, double for c128), the bump
+// keeps the phase (the reference's _perturb_diags_planar_body).
+extern "C" int glu_level_run_robust_c64(void* vals, const void* levels, const void* items,
+                                        const void* rows, const void* upd, const void* norm,
+                                        const void* diag_ptr, const void* diag,
+                                        const void* tau, void* count, int n_levels,
+                                        int max_items, void* stream) {
+  return level_run<ComplexOps<float, float2>, true>(vals, levels, items, rows, upd, norm,
+                                                    diag_ptr, diag, tau, count, n_levels,
+                                                    max_items, 1, 0, stream);
+}
+
+extern "C" int glu_level_run_robust_c128(void* vals, const void* levels, const void* items,
+                                         const void* rows, const void* upd, const void* norm,
+                                         const void* diag_ptr, const void* diag,
+                                         const void* tau, void* count, int n_levels,
+                                         int max_items, void* stream) {
+  return level_run<ComplexOps<double, double2>, true>(vals, levels, items, rows, upd, norm,
+                                                      diag_ptr, diag, tau, count, n_levels,
+                                                      max_items, 1, 0, stream);
 }
 
 // A batch of `batch` value arrays that share the run, `stride` values apart
@@ -480,4 +522,28 @@ extern "C" int glu_level_run_robust_batched_f64(void* vals, const void* levels,
   return level_run<RealOps<double>, true>(vals, levels, items, rows, upd, norm, diag_ptr,
                                           diag, tau, count, n_levels, max_items, batch, stride,
                                           stream);
+}
+
+extern "C" int glu_level_run_robust_batched_c64(void* vals, const void* levels,
+                                                const void* items, const void* rows,
+                                                const void* upd, const void* norm,
+                                                const void* diag_ptr, const void* diag,
+                                                const void* tau, void* count, int n_levels,
+                                                int max_items, int batch, int stride,
+                                                void* stream) {
+  return level_run<ComplexOps<float, float2>, true>(vals, levels, items, rows, upd, norm,
+                                                    diag_ptr, diag, tau, count, n_levels,
+                                                    max_items, batch, stride, stream);
+}
+
+extern "C" int glu_level_run_robust_batched_c128(void* vals, const void* levels,
+                                                 const void* items, const void* rows,
+                                                 const void* upd, const void* norm,
+                                                 const void* diag_ptr, const void* diag,
+                                                 const void* tau, void* count, int n_levels,
+                                                 int max_items, int batch, int stride,
+                                                 void* stream) {
+  return level_run<ComplexOps<double, double2>, true>(vals, levels, items, rows, upd, norm,
+                                                      diag_ptr, diag, tau, count, n_levels,
+                                                      max_items, batch, stride, stream);
 }

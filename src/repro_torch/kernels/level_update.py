@@ -9,12 +9,13 @@ hand-written kernel in ``csrc/level_run.cu``: one cooperative launch for
 the whole run, one grid barrier a level, per-row counting sorts and sums in
 a fixed order (deterministic, and the plain version's bits).  A CPU tensor
 runs the plain version ``ref.level_run_ref``.  Any other device raises.
-With ``tau`` and ``count`` (real values only) it launches the robust
-instantiation: static pivoting, each level's column diagonals bumped at
-the start of that level (``ref.perturb_diags``'s rule) and the bumps added
-into ``count``.  A (B, n) value array is a batch of matrices on one run,
-the counterpart of the JAX package's batched level steps: one launch, a
-batch axis of the same kernel.
+With ``tau`` (in the values' real dtype) and ``count`` it launches the
+robust instantiation: static pivoting, each level's column diagonals
+bumped at the start of that level (``ref.perturb_diags``'s rule, the
+phase kept for complex values) and the bumps added into ``count``.  A
+(B, n) value array is a batch of matrices on one run, the counterpart of
+the JAX package's batched level steps: one launch, a batch axis of the
+same kernel.
 
 ``segmented_accumulate(col_vals, contribs, didx_local)`` is the TPU
 kernel's own function, ``col_vals (D, C) + scatter(contribs (D, R) at
@@ -36,7 +37,7 @@ SLOTS = 1024   # kSlots in csrc/level_run.cu: slots of one work item
 
 _TYPES = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
           torch.complex128: "c128"}
-_ROBUST_TYPES = (torch.float32, torch.float64)
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 _INT32_MAX = np.iinfo(np.int32).max
 
 
@@ -281,12 +282,9 @@ def _entry(dtype, robust: bool, batched: bool):
     key = (dtype, robust, batched)
     fn = _fns.get(key)
     if fn is None:
-        if dtype not in (_ROBUST_TYPES if robust else _TYPES):
-            raise TypeError(
-                f"level_run takes float32 or float64 values with static "
-                f"pivoting, got {dtype}" if robust else
-                f"level_run takes float32, float64, complex64 or complex128 "
-                f"values, got {dtype}")
+        if dtype not in _TYPES:
+            raise TypeError(f"level_run takes float32, float64, complex64 or "
+                            f"complex128 values, got {dtype}")
         name = ("glu_level_run" + ("_robust" if robust else "")
                 + ("_batched" if batched else "") + "_" + _TYPES[dtype])
         fn = _fns[key] = getattr(_build.load_library(), name)
@@ -301,7 +299,7 @@ def level_run(vals: torch.Tensor, run: LevelRun, tau=None,
     ``level_update_batched_body`` and ``level_update_planar_batched_body``):
     one launch for the whole batch, each matrix's bits those of a launch
     on it alone.  With ``tau`` (the static-pivot threshold in the values'
-    dtype: 0-d, or (B,) for a batch) and ``count`` (int32, 0-d or (B,))
+    real dtype: 0-d, or (B,) for a batch) and ``count`` (int32, 0-d or (B,))
     each level first bumps its column diagonals below ``tau`` and adds the
     number it bumped into ``count``, per matrix."""
     dev = vals.device
@@ -338,11 +336,13 @@ def level_run(vals: torch.Tensor, run: LevelRun, tau=None,
                          f"work indices beyond int32")
     stream = torch.cuda.current_stream(dev).cuda_stream
     if robust:
-        if tau.dtype != vals.dtype or tau.device != dev \
+        if tau.dtype != _REAL.get(vals.dtype, vals.dtype) \
+                or tau.device != dev \
                 or count.dtype != torch.int32 or count.device != dev \
                 or not (tau.is_contiguous() and count.is_contiguous()):
-            raise ValueError("level_run needs tau in the values' dtype and "
-                             "count as int32, contiguous, on their device")
+            raise ValueError("level_run needs tau in the values' real dtype "
+                             "and count as int32, contiguous, on their "
+                             "device")
         rc = fn(vals.data_ptr(), *run.ptrs, *run.diag_ptrs, tau.data_ptr(),
                 count.data_ptr(), run.n_levels, run.max_items, *batch, stream)
     else:

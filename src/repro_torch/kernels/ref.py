@@ -102,31 +102,44 @@ def _level_div(a, b):
 
 
 def perturb_diags(vals, diag_idx, tau):
-    """Static pivot perturbation (SuperLU_DIST-style), in place on the real
-    value array ``vals``: any diagonal ``vals[diag_idx]`` with
-    ``|d| < tau`` becomes ``tau * d / |d|`` (``sign(d) * tau``; an exact
-    zero becomes ``+tau``).  ``tau`` is a 0-d tensor of the values' dtype.
-    Returns ``(vals, n_bumped)`` with the count as a 0-d int32 tensor on the
+    """Static pivot perturbation (SuperLU_DIST-style), in place on the value
+    array ``vals``: any diagonal ``vals[diag_idx]`` with ``|d| < tau``
+    becomes ``tau * d / |d|``, magnitude tau and phase kept (real values:
+    ``sign(d) * tau``; an exact zero becomes ``+tau``).  ``tau`` is a 0-d
+    tensor of the values' real dtype.  Complex values follow the
+    reference's planar rule (``_perturb_diags_planar_body``): ``|d|`` is
+    ``hypot(re, im)``, the phase is ``re / |d|`` and ``im / |d|`` each
+    times tau, and an exact zero becomes ``(+tau, 0)``.  Returns
+    ``(vals, n_bumped)`` with the count as a 0-d int32 tensor on the
     device.  The reference's ``_perturb_diags_body`` (its ``diag_idx`` is
     padded; here every index is real).  A batch, (B, n) values with a (B,)
     ``tau``, bumps each matrix against its own threshold and returns (B,)
     counts (the reference's ``perturb_diags_batched``), elementwise as one
     matrix alone."""
     d = vals[..., diag_idx]
-    mag = d.abs()
     tau = tau[..., None]
+    if d.is_complex():
+        re, im = torch.view_as_real(d).unbind(-1)
+        mag = torch.hypot(re, im)
+        pos = mag > 0
+        safe = torch.where(pos, mag, torch.ones_like(mag))
+        bumped = torch.complex(
+            torch.where(pos, re / safe, torch.ones_like(re)) * tau,
+            torch.where(pos, im / safe, torch.zeros_like(im)) * tau)
+    else:
+        mag = d.abs()
+        pos = mag > 0
+        bumped = torch.where(pos, d / torch.where(pos, mag, torch.ones_like(mag)),
+                             torch.ones_like(d)) * tau
     tiny = mag < tau
-    pos = mag > 0
-    phase = torch.where(pos, d / torch.where(pos, mag, torch.ones_like(mag)),
-                        torch.ones_like(d))
-    vals[..., diag_idx] = torch.where(tiny, phase * tau, d)
+    vals[..., diag_idx] = torch.where(tiny, bumped, d)
     return vals, tiny.sum(-1, dtype=torch.int32)
 
 
 def level_run_ref(vals, run, tau=None, count=None):
     """Plain version of K1 ``level_run``: the run's levels in order, in
-    place on ``vals``.  With ``tau`` and ``count`` (static pivoting, real
-    values) each level first bumps its column diagonals with
+    place on ``vals``.  With ``tau`` and ``count`` (static pivoting; tau in
+    the values' real dtype) each level first bumps its column diagonals with
     :func:`perturb_diags` and adds the bumps into ``count``, as the robust
     kernel does after each level's grid barrier.  Each level adds its contributions
     ``-((v[lidx] / v[ldiag]) * v[uidx])`` (complex: ``-pmul(pdiv(l, d), u)``)

@@ -295,10 +295,10 @@ def test_batched_errors(cases):
         g.solve_batched(bs[0])                           # rank 1
     with pytest.raises(RuntimeError, match="batched"):
         g.solve(bs[0])
-    with pytest.raises(NotImplementedError, match="rhs_pattern"):
-        g.solve_batched(bs, rhs_pattern=[0])
-    with pytest.raises(NotImplementedError, match="solve_multi"):
-        g.solve_multi(bs)
+    with pytest.raises(ValueError, match="outside rhs_pattern"):
+        g.solve_batched(bs, rhs_pattern=[0])        # bs is dense
+    with pytest.raises(RuntimeError, match="batched"):
+        g.solve_multi(bs)          # needs a single-matrix factorization
     with pytest.raises(ValueError):
         g._solver.solve_batched(g._vals_batch, bs[:2])
 

@@ -530,3 +530,168 @@ def test_transient_sweep_on_card(cuda):
                                atol=1e-9)
     assert graph.max_residual < 1e-8
     assert graph.n_batched_factorizations == graph.newton_iters.sum()
+
+
+# -- complex static pivoting, pruned and many-RHS solves, the AC sweep -----
+
+def _crush_by_magnitude(run, vals, rng, per_level=5):
+    """Up to ``per_level`` of each level's column diagonals scaled to below
+    1e-6 in magnitude, phase kept, the first of them an exact zero; returns
+    how many."""
+    h = run.host
+    picks = []
+    for k in range(run.n_levels):
+        d = h["diag"][h["diag_ptr"][k]:h["diag_ptr"][k + 1]]
+        picks.append(rng.choice(d, size=min(per_level, len(d)), replace=False))
+    picks = torch.from_numpy(np.concatenate(picks)).to(vals.device)
+    scale = torch.from_numpy(rng.uniform(1e-9, 1e-6, len(picks))).to(
+        vals.device, vals.real.dtype)
+    vals[picks] = vals[picks] / vals[picks].abs() * scale
+    vals[picks[0]] = 0.0
+    return len(picks)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_robust_complex_k1_matches_plain(cuda, dtype):
+    """The complex robust instantiation (tau real, phase kept) bit for bit
+    and bump for bump as its plain version on the card, a repeat giving
+    the same bits."""
+    run, vals = random_level_run(np.random.default_rng(6), K1_RUNS["grid64"],
+                                 dtype, cuda)
+    n_crushed = _crush_by_magnitude(run, vals, np.random.default_rng(7))
+    tau = torch.tensor(1e-3, dtype=vals.real.dtype, device=cuda)
+    outs = []
+    for fn in (level_run, level_run, level_run_ref):
+        v = vals.clone()
+        count = torch.zeros((), dtype=torch.int32, device=cuda)
+        fn(v, run, tau, count)
+        torch.cuda.synchronize()
+        outs.append((v, int(count)))
+    (got, n), (again, n2), (want, n_want) = outs
+    assert n == n2 == n_want == n_crushed
+    assert torch.equal(got, want) and torch.equal(again, got)
+    with pytest.raises(ValueError, match="real dtype"):
+        level_run(vals.clone(), run, tau.to(dtype),
+                  torch.zeros((), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_batched_robust_complex_k1_matches_plain(cuda, dtype):
+    """B = 4 with per-matrix real tau: (B,) bump counts and values bit for
+    bit as the plain version; a matrix with nothing to bump counts 0."""
+    run, vals = random_level_run(np.random.default_rng(6), K1_RUNS["grid64"],
+                                 dtype, cuda)
+    vals = torch.stack([vals] * 4)
+    counts = [_crush_by_magnitude(run, vals[b], np.random.default_rng(b),
+                                  per_level=b + 1) if b != 1 else 0
+              for b in range(4)]
+    tau = torch.tensor([1e-3, 1e-3, 1e-3, 1e-12], dtype=vals.real.dtype,
+                       device=cuda)
+    outs = []
+    for fn in (level_run, level_run, level_run_ref):
+        v = vals.clone()
+        count = torch.zeros(4, dtype=torch.int32, device=cuda)
+        fn(v, run, tau, count)
+        torch.cuda.synchronize()
+        outs.append((v, count.tolist()))
+    (got, n), (again, n2), (want, n_want) = outs
+    assert n == n2 == n_want
+    assert n[:3] == counts[:3] and n[3] <= counts[3]
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_complex_static_pivot_graph_equals_eager(cuda):
+    """GLU(complex128, static_pivot) with bumps in the flat levels, the K1
+    run and the dense tail: the replays' factors, solutions and bump
+    counts equal the eager steps', single and batched."""
+    A = ac_jacobian(300, avg_degree=4.5, seed=11)
+    rng = np.random.default_rng(4)
+    b = rng.normal(size=A.n) + 1j * rng.normal(size=A.n)
+    out = _graph_and_eager(A, torch.complex128, b, static_pivot=0.3,
+                           mc64="none")
+    for got, want in zip(out[True][1], out[False][1]):
+        assert torch.equal(got[0], want[0])
+        assert got[1].tobytes() == want[1].tobytes()
+    n = out[True][0].solve_info["n_perturbed"]
+    assert n == out[False][0].solve_info["n_perturbed"] > 0
+    batch = np.asarray(A.data)[None] * (1 + 0.05 * rng.uniform(-1, 1,
+                                                               (3, A.nnz)))
+    kw = dict(dtype=torch.complex128, static_pivot=0.3, mc64="none")
+    g, ge = GLU(A, **kw), GLU(A, jit_schedule=False, **kw)
+    for _ in range(2):
+        g.factorize_batched(batch)
+    ge.factorize_batched(batch)
+    assert g.solve_info["n_perturbed"].tolist() == \
+        ge.solve_info["n_perturbed"].tolist()
+    assert torch.equal(g.factorized_values_batched(),
+                       ge.factorized_values_batched())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_pruned_and_multi_solves_on_card(cuda, dtype):
+    """Pruned replays equal full replays bit for bit with exact zeros off
+    the reach, and the pruned steps one by one; solve_multi rows equal
+    single solves; solve_batched with a pattern equals the unpruned
+    batched solve."""
+    cplx = dtype.is_complex
+    A = (ac_jacobian(300, avg_degree=4.0, seed=0) if cplx
+         else circuit_jacobian(300, avg_degree=4.0, seed=0))
+    rng = np.random.default_rng(8)
+    g, ge = GLU(A, dtype=dtype), GLU(A, dtype=dtype, jit_schedule=False)
+    g.factorize()
+    ge.factorize()
+    vals, sv = g._vals, g._solver
+    for pat in ([7], [3, 150, 299]):
+        b = np.zeros(A.n, dtype=np.complex128 if cplx else np.float64)
+        b[pat] = rng.normal(size=len(pat))
+        x_full, x = g.solve(b), g.solve(b)           # warm-up, then replays
+        x_pruned = g.solve(b, rhs_pattern=pat)
+        x_pruned = g.solve(b, rhs_pattern=pat)
+        assert g.solve_info["solve_dispatches"] == 1
+        assert np.array_equal(x, x_pruned) and np.array_equal(x_full, x)
+        assert x_pruned.tobytes() == ge.solve(b, rhs_pattern=pat).tobytes()
+        bp = (b * g.Dr)[g._inv_row]
+        pp = g.row_map[np.asarray(pat)]
+        xp = sv.solve(vals, bp, rhs_pattern=pp).cpu().numpy()
+        _, _, _, breach = sv.schedule_for_pattern(pp)
+        assert (xp[np.setdiff1d(np.arange(A.n), breach)] == 0).all()
+    B = rng.normal(size=(16, A.n)) + (1j * rng.normal(size=(16, A.n))
+                                      if cplx else 0.0)
+    for _ in range(2):
+        X = g.solve_multi(B)
+    assert g.solve_info["solve_dispatches"] == 1
+    for k in range(16):
+        assert X[k].tobytes() == g.solve(B[k]).tobytes(), k
+    batch = np.asarray(A.data)[None] * (1 + 0.05 * rng.uniform(-1, 1,
+                                                               (8, A.nnz)))
+    bs = np.zeros((8, A.n), dtype=B.dtype)
+    bs[:, [3, 150]] = rng.normal(size=(8, 2))
+    g.factorize_batched(batch)
+    full = g.solve_batched(bs)
+    for _ in range(2):
+        pruned = g.solve_batched(bs, rhs_pattern=[3, 150])
+    assert np.array_equal(full, pruned)
+
+
+def test_ac_sweep_on_card(cuda):
+    """The AC sweep on the card: one batched factorization, replays and
+    eager steps give the same voltages bit for bit, the CPU run's to
+    1e-9, backward error within the reference's bar."""
+    from repro_torch.circuit import ac_sweep, rc_grid_circuit
+
+    ckt = rc_grid_circuit(8, 8, with_diodes=True, seed=3)
+    ckt.add_ac_current_source(5, 0, 1.0)
+    freqs = np.logspace(0, 6, 25)
+    k1, k3 = level_run.launches, dense_lu_planar.launches
+    graph = ac_sweep(ckt, freqs)
+    assert level_run.launches > k1 or dense_lu_planar.launches > k3
+    eager = ac_sweep(ckt, freqs, jit_schedule=False)
+    cpu = ac_sweep(ckt, freqs, device="cpu")
+    assert graph.voltages.tobytes() == eager.voltages.tobytes()
+    np.testing.assert_allclose(graph.voltages, cpu.voltages, rtol=1e-9,
+                               atol=1e-9)
+    assert graph.n_batched_factorizations == 1 and graph.op_converged
+    assert graph.max_backward_error <= 1e-10
+    pivot = ac_sweep(ckt, freqs, static_pivot=1e-10)
+    np.testing.assert_allclose(pivot.voltages, cpu.voltages, rtol=1e-9,
+                               atol=1e-9)

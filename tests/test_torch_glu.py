@@ -153,24 +153,29 @@ def test_ported_options_run(pair, option):
     assert info["n_dispatches"] == 1 + info["n_groups"]
 
 
-# the batched methods are ported: they refuse values that are not (B, nnz)
-# and a solve with no batched factorization; solve_multi is not ported
+# the batched and many-RHS methods refuse values that are not (B, nnz), a
+# solve with no batched factorization and right-hand sides not (K, n)
 @pytest.mark.parametrize("method,exc", [
     ("factorize_batched", ValueError), ("solve_batched", RuntimeError),
-    ("solve_multi", NotImplementedError), ("refactorize_solve", ValueError)],
+    ("solve_multi", ValueError), ("refactorize_solve", ValueError)],
     ids=["factorize_batched", "solve_batched", "solve_multi",
          "refactorize_solve"])
 def test_batched_methods_raise(method, exc):
     g = repro_torch.GLU(torch_circuit_jacobian(40, seed=1), device="cpu")
+    args = {"refactorize_solve": [np.zeros((2, 40))] * 2,
+            "solve_multi": [np.zeros(40)]}.get(method, [np.zeros((2, 40))])
     with pytest.raises(exc):
-        getattr(g, method)(*[np.zeros((2, 40))] * (2 if method ==
-                                                  "refactorize_solve" else 1))
+        getattr(g, method)(*args)
 
 
 def test_rhs_pattern_raises():
+    """A pattern index out of range, or a right-hand side nonzero outside
+    the pattern (the pruned solve would drop it), raises."""
     g = repro_torch.GLU(torch_circuit_jacobian(40, seed=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="rhs_pattern"):
-        g.solve(np.zeros(40), rhs_pattern=[0])
+    with pytest.raises(ValueError, match="outside rhs_pattern"):
+        g.solve(np.ones(40), rhs_pattern=[0])
+    with pytest.raises(ValueError, match="out of range"):
+        g.solve(np.zeros(40), rhs_pattern=[40])
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
