@@ -110,7 +110,25 @@ Phases, in order; any failure exits non-zero before the result line:
     solves; with ``static_pivot`` 1e-10 (the complex robust batched K1 in
     the graph, the same voltages) and 0.99 (bumps fire), (F,) bump counts
     equal to the steps one by one, and the robust batched K1 on the path's
-    recorded run against its plain version and the library route.
+    recorded run against its plain version and the library route;
+15. the paper's evidence on grid64 and rajat12_like (plans from the
+    cache): (a) on the host, the seconds and edge counts of
+    ``levelize_relaxed`` and the relaxed, U-pattern (GLU1.0), exact and
+    double-U (GLU2.0) detectors, ``upattern ∪ doubleu ⊇ exact`` and
+    ``relaxed ⊇ exact``, the relaxed levels equal to the plan's, the
+    levels' modes and ``level_stats`` maxima; (b) Table III on the card:
+    the factorizer as planned, with ``disable_modes`` ``("flat",)``,
+    ``("panel",)`` and ``("segmented", "panel")``, and with
+    ``mode_override="flat"``, each with the counters at 0: its steps, K1
+    and K2 launches per factorization, replay and step times, device
+    kernels and busy share, a solve's residual < 1e-9, the replay bit for
+    bit the steps one by one, factors within 1e-10 of the default's;
+    grid64's ``noflat`` K1 run (160 levels) held bit for bit against its
+    plain version and timed as a kernel entry (``"variant": "noflat"``);
+    (c) ``GLU(verify="full")``: a clean report that includes the CUDA-graph
+    audit, its host seconds, factors and solutions bit for bit those of
+    ``GLU(verify="off")``, and ``AUDIT_DISPATCH`` with
+    ``jit_schedule=False``.
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -118,7 +136,8 @@ times the complex robust K1 on its recorded run with the diagonals crushed
 below tau.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
-and matrix, over all matrices (the batched ones with ``batch``); the last
+and matrix, over all matrices (the batched ones with ``batch``, phase 15's
+with ``variant``); the last
 line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -436,13 +455,14 @@ def launch_counts():
 
 def record_kernel_inputs(g, a_data, batched: bool = False):
     """Factorize ``a_data`` ((B, nnz) with ``batched``) with ``g``'s steps
-    one by one (``g`` has ``jit_schedule=False``), recording each kernel's
-    input: K1's value array just before each run (with the run, and tau and
-    the count buffer under static pivoting), each dense tile (or batch of
-    tiles) for K2 and K3."""
+    one by one (``g``, a ``GLU`` or a ``TorchFactorizer``, has
+    ``jit_schedule=False``), recording each kernel's input: K1's value
+    array just before each run (with the run, and tau and the count buffer
+    under static pivoting), each dense tile (or batch of tiles) for K2 and
+    K3."""
     import repro_torch.core.factorize as factorize_mod
 
-    fz = g._factorizer
+    fz = getattr(g, "_factorizer", g)
     assert fz._graph is None
     rec = {"k1": [], "k2": [], "k3": []}
     real = {"k1": fz._step["run"], "k1_robust": factorize_mod.level_run,
@@ -1953,6 +1973,220 @@ def drive_ac_sweep(dev, clock, card):
     return report, ent
 
 
+
+# phase 15: the matrices of the detection, ablation and verification runs,
+# and the paper's Table III variants of the factorizer
+PHASE15_MATRICES = ("grid64", "rajat12_like")
+MODE_VARIANTS = (("default", {}),
+                 ("noflat", dict(disable_modes=("flat",))),
+                 ("nopanel", dict(disable_modes=("panel",))),
+                 ("nok1modes", dict(disable_modes=("segmented", "panel"))),
+                 ("allflat", dict(mode_override="flat")))
+# factors of a variant against the default variant's: relative, max-norm
+MODE_FACTOR_TOL = 1e-10
+
+
+def _edge_keys(n, src, dst):
+    return np.unique(np.asarray(src, dtype=np.int64) * n + dst)
+
+
+def drive_detection(name):
+    """Phase 15 (a) for one matrix, on this machine's host (numpy, not the
+    card): the paper's detectors on the plan's filled pattern (from the
+    plan cache), their seconds and edge counts, the set relations
+    ``upattern ∪ doubleu ⊇ exact`` and ``relaxed ⊇ exact``, the relaxed
+    levels against the plan's, the levels' modes (A flat, B segmented,
+    C panel) and ``level_stats`` maxima."""
+    from repro_torch.core import (
+        dependencies_doubleu,
+        dependencies_exact,
+        dependencies_relaxed,
+        dependencies_upattern,
+        level_stats,
+        levelize_relaxed,
+        plan_factorization,
+    )
+
+    sp, _, from_cache = plan_factorization(make_matrix(name))
+    P, n = sp.pattern, sp.n
+    secs, keys = {}, {}
+    for fn in (levelize_relaxed, dependencies_relaxed, dependencies_upattern,
+               dependencies_exact, dependencies_doubleu):
+        t0 = time.perf_counter()
+        out = fn(P)
+        secs[fn.__name__] = time.perf_counter() - t0
+        if fn is levelize_relaxed:
+            lv = out
+        else:
+            keys[fn.__name__.split("_")[1]] = _edge_keys(n, *out)
+    exact = keys["exact"]
+    assert np.setdiff1d(exact, np.union1d(keys["upattern"],
+                                          keys["doubleu"])).size == 0, name
+    assert np.setdiff1d(exact, keys["relaxed"]).size == 0, name
+    assert np.array_equal(lv.levels, sp.levelization.levels), name
+    modes = [s.mode for s in sp.fplan.segments]
+    stats = level_stats(P, lv)
+    rep = dict(matrix=name, clock="host (numpy), not the card",
+               plan_from_cache=from_cache, n=n, nnz_filled=P.nnz,
+               levels=lv.num_levels, seconds=secs,
+               edges={k: int(len(v)) for k, v in keys.items()},
+               modes={m: modes.count(m) for m in ("flat", "segmented",
+                                                   "panel")},
+               level_stats_max=dict(columns=int(stats[:, 0].max()),
+                                    subcolumns=int(stats[:, 1].max()),
+                                    updates=int(stats[:, 2].max())))
+    log(f"{name} detection (host numpy): " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in secs.items()) + f"; edges {rep['edges']}"
+        f"; upattern ∪ doubleu ⊇ exact and relaxed ⊇ exact ok; relaxed "
+        f"levels equal the plan's ({lv.num_levels}); modes {rep['modes']}; "
+        f"level_stats maxima {rep['level_stats_max']}")
+    return rep
+
+
+def drive_modes(dev, clock, card, name):
+    """Phase 15 (b) for one matrix: the paper's Table III on the card.
+    Each variant of :data:`MODE_VARIANTS` is a ``TorchFactorizer`` on the
+    cached plan (the replays) and its twin with ``jit_schedule=False`` (the
+    steps one by one), driven with every launch counter at 0: step kinds,
+    K1 and K2 launches per factorization (read from one replay), replay and
+    step times with CUDA events (values on the card), device kernels and
+    busy share per factorization (torch.profiler), the residual of a solve
+    of the system the factors describe, the replay bit for bit the steps
+    one by one, and the factors within ``MODE_FACTOR_TOL`` of the default
+    variant's.  For grid64's ``noflat`` variant K1 runs a new shape (the
+    flat levels joined to the run): it is held bit for bit against its
+    plain version on the path's recorded input and timed as a kernel
+    entry.  Returns the rows and that entry (or None)."""
+    from repro_torch import GLU
+    from repro_torch.core import TorchFactorizer, plan_factorization
+
+    A = make_matrix(name)
+    sp, _, _ = plan_factorization(A)
+    g = GLU.from_plan(sp, A)                 # the scaled permuted values
+    vals = np.asarray(g._A_perm.data)
+    S = g._A_perm.to_scipy()
+    bp_host = np.random.default_rng(SEED + 15).normal(size=A.n)
+    bp = torch.as_tensor(bp_host, device=dev)
+    rows, entry, v_default = [], None, None
+    for label, opts in MODE_VARIANTS:
+        reset_counts()
+        f = TorchFactorizer(sp.fplan, device=dev, **opts)
+        fe = TorchFactorizer(sp.fplan, device=dev, jit_schedule=False, **opts)
+        f.factorize(vals)                    # warm-up (steps) and capture
+        first = launch_counts()
+        reset_counts()
+        v = f.factorize(vals).clone()        # one replay
+        torch.cuda.synchronize(dev)
+        k1, k2, k3 = launch_counts()
+        steps = f.step_kinds
+        assert f.last_n_dispatches == 1, (name, label)
+        assert (k1, k2 + k3) == (steps.count("run"), steps.count("dense")), \
+            (name, label, k1, k2, steps)
+        assert first[0] == k1 and first[1] + first[2] == k2 + k3
+        ve = fe.factorize(vals).clone()
+        assert torch.equal(v, ve), (name, label)
+        if v_default is None:
+            v_default = v
+        rel = ((v - v_default).abs().max() / v_default.abs().max()).item()
+        assert rel <= MODE_FACTOR_TOL, (name, label, rel)
+        xp = g._solver.solve(v, bp).cpu().numpy()
+        res = float(np.abs(S @ xp - bp_host).max() / np.abs(bp_host).max())
+        assert np.isfinite(xp).all() and res < 1e-9, (name, label, res)
+        replay_ms = clock.ms(f.run, reps=20)
+        steps_ms = clock.ms(fe.run, reps=5)
+        for _ in range(4):          # the profiler may lose a replay's window
+            prof = _profile(dev, f.run)
+            if "kernels" in prof:
+                break
+        eager, _ = _profile_until(dev, fe.run, {
+            "dense_lu_kernels": steps.count("dense"),
+            "level_run_kernels": steps.count("run")})
+        row = dict(variant=label, options={k: list(v) if isinstance(v, tuple)
+                                           else v for k, v in opts.items()},
+                   steps=len(steps) + 1, step_kinds=dict(
+                       flat=steps.count("flat"), run=steps.count("run"),
+                       dense=steps.count("dense")),
+                   k1_levels=f.kinds.count("pallas"), k1_launches=k1,
+                   k2_launches=k2, k3_launches=k3,
+                   kernels_disabled_reason=f.kernels_disabled_reason,
+                   replay_ms=replay_ms, steps_ms=steps_ms,
+                   replay_kernels=prof.get("kernels", "not measured"),
+                   replay_busy_ms=prof.get("device_busy_ms", "not measured"),
+                   steps_kernels=eager.get("kernels"),
+                   steps_busy_ms=eager.get("device_busy_ms"),
+                   factor_rel_diff=rel, residual=res,
+                   replay_equals_steps=True)
+        if "device_busy_ms" in prof:
+            row["replay_busy_share"] = prof["device_busy_ms"] / replay_ms
+        rows.append(row)
+        log(f"{name} {label}: {row['steps']} steps ({row['step_kinds']}, "
+            f"{row['k1_levels']} K1 levels), K1 {k1} and K2 {k2} launches a "
+            f"factorization; replay {replay_ms:.4f} ms, steps one by one "
+            f"{steps_ms:.4f} ms; device kernels {row['replay_kernels']} a "
+            f"replay ({row['steps_kernels']} one by one), busy share "
+            f"{row.get('replay_busy_share', 'not measured')}; residual "
+            f"{res:.3e}; replay "
+            f"bit-identical to the steps; factors within {rel:.2e} of the "
+            f"default's")
+        if name == "grid64" and label == "noflat":
+            rec = record_kernel_inputs(fe, vals)["k1"]
+            runs = [gr.arrays[0] for gr in fe._groups if gr.kind == "run"]
+            entry = _k1_entry(dev, clock, rec, dict(
+                matrix=name, planes=1, k1_launches=k1,
+                k1_levels=row["k1_levels"],
+                k1_updates=sum(r.n_updates for r in runs),
+                k1_rows=sum(len(r.host["rows"]) for r in runs)))
+            entry.update(variant="noflat", matrix=name)
+        del f, fe
+    return dict(matrix=name, card=card, variants=rows), entry
+
+
+def drive_verify(dev, name):
+    """Phase 15 (c) for one matrix: ``GLU(verify="full")`` on the card.
+    The report must be clean and hold the graph audit (run, not skipped);
+    verification seconds on the host are the build's excess over
+    ``GLU(verify="off")``'s; factors and solutions bit for bit those of the
+    unverified ``GLU``; with ``jit_schedule=False`` the audit flags
+    ``AUDIT_DISPATCH``."""
+    from repro_torch import GLU
+    from repro_torch.analysis import audit_factorize, audit_trisolve
+
+    A = make_matrix(name)
+    b = np.random.default_rng(SEED + 16).normal(size=A.n)
+    t0 = time.perf_counter()
+    go = GLU(A)
+    t_off = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gv = GLU(A, verify="full")
+    t_full = time.perf_counter() - t0
+    rep = gv.verify_report
+    assert rep.ok and not rep.skipped, str(rep)
+    assert {"audit_factorize", "audit_trisolve", "exec_schedule",
+            "trisolve_schedule", "races"} <= set(rep.checks), rep.checks
+    new = newton_values(A, np.random.default_rng(SEED + 17))
+    for vals in (None, new):
+        xo = go.factorize(vals).solve(b)
+        xv = gv.factorize(vals).solve(b)
+        assert torch.equal(go.factorized_values(), gv.factorized_values())
+        assert xo.tobytes() == xv.tobytes()
+    summary = gv.solve_info["verify_report"]
+    assert summary["ok"] and summary["skipped"] == {}, summary
+    ge = GLU(A, jit_schedule=False)
+    dispatch = (audit_factorize(ge._factorizer).codes
+                | audit_trisolve(ge._solver).codes)
+    assert dispatch == {"AUDIT_DISPATCH"}, dispatch
+    out = dict(matrix=name, checks=rep.checks, n_checks=len(rep.checks),
+               violations=len(rep.violations), glu_build_off_s=t_off,
+               glu_build_full_s=t_full, verify_s=t_full - t_off,
+               bits_equal_off=True, eager_audit_codes=sorted(dispatch),
+               clock="host")
+    log(f"{name} GLU(verify='full'): {rep}; build {t_full:.3f} s against "
+        f"{t_off:.3f} s unverified (verification {t_full - t_off:.3f} s on "
+        f"the host); factors and solutions bit-identical to verify='off'; "
+        f"jit_schedule=False flagged {sorted(dispatch)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -2056,6 +2290,19 @@ def main() -> int:
     ac_report, robust = drive_ac_sweep(dev, clock, card)
     entries.append(robust)
     log(json.dumps({"ac_sweep_report": ac_report}))
+
+    # 15. dependency detection (host), the mode ablation and GLU(verify=
+    # "full") on the card
+    log(json.dumps({"detection_report": [drive_detection(name)
+                                         for name in PHASE15_MATRICES]}))
+    for name in PHASE15_MATRICES:
+        modes_report, noflat = drive_modes(dev, clock, card, name)
+        if noflat is not None:
+            entries.append(noflat)
+        log(json.dumps({"modes_report": modes_report}))
+    assert any(e.get("variant") == "noflat" for e in entries)
+    log(json.dumps({"verify_report": [drive_verify(dev, name)
+                                      for name in PHASE15_MATRICES]}))
 
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",

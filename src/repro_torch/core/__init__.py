@@ -1,7 +1,17 @@
 # GLU3.0 core in PyTorch: host planning (numpy, the JAX package's planner
 # copied), level-scheduled numeric factorization and triangular solves.
 from .api import GLU, resolve_value_dtype
-from .dependency import Levelization, levelize_relaxed, longest_path_levels
+from .dependency import (
+    Levelization,
+    dependencies_doubleu,
+    dependencies_exact,
+    dependencies_relaxed,
+    dependencies_upattern,
+    level_stats,
+    levelize,
+    levelize_relaxed,
+    longest_path_levels,
+)
 from .factorize import (
     TorchFactorizer,
     factorize_numpy,
@@ -34,6 +44,12 @@ __all__ = [
     "GLU",
     "resolve_value_dtype",
     "Levelization",
+    "dependencies_doubleu",
+    "dependencies_exact",
+    "dependencies_relaxed",
+    "dependencies_upattern",
+    "level_stats",
+    "levelize",
     "levelize_relaxed",
     "longest_path_levels",
     "TorchFactorizer",

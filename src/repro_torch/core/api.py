@@ -68,8 +68,8 @@ class GLU:
     ``"planar"``: K1 and K3 run on their re/im planes and callers see
     native complex.  ``layout="native"`` with a complex dtype, the JAX
     package's route off the kernels, raises ``NotImplementedError`` (the
-    planar storage gives the same interface on the kernels), as do
-    ``mesh`` and ``verify`` other than ``"off"``.  The batched methods
+    planar storage gives the same interface on the kernels), as does
+    ``mesh``.  The batched methods
     (``factorize_batched``, ``solve_batched``, ``refactorize_solve``)
     factor and solve B matrices on the pattern in lockstep;
     ``solve_multi`` solves K right-hand sides against one factorization.
@@ -87,6 +87,19 @@ class GLU:
     threshold eps of the static pivot guard, ``|diag| < eps * max|A|``
     bumped just before each level divides by it (complex values keep
     their phase: ``tau * d / |d|``).
+
+    ``mode_override`` ("flat", "segmented" or "panel") runs every level in
+    that mode, the paper's kernel-mode ablation
+    (:class:`~.factorize.TorchFactorizer`; ``disable_modes`` is the
+    factorizer's alone, as in the JAX package).  ``verify``: static plan
+    verification (:mod:`repro_torch.analysis`).  ``"off"`` (default) runs
+    none; ``"plan"`` verifies the symbolic plan against the pattern
+    (levelization against the exact dependency set, every index array);
+    ``"full"`` also walks the built factorization and solve schedules as
+    executed and, on the card, audits their CUDA-graph replays.  A
+    violation raises :class:`~repro_torch.analysis.PlanVerificationError`
+    at construction; the report's summary lands in
+    ``solve_info["verify_report"]``.
 
     The JAX package's level-fusion options (``fuse_levels``,
     ``fuse_buckets``, ``bucket_waste``) have no counterpart: every level is
@@ -114,6 +127,7 @@ class GLU:
         mesh=None,
         verify: str = "off",
         device=None,
+        mode_override: Optional[str] = None,
     ):
         _check_slice(dtype, layout, mesh, verify)
         plan, scaling, from_cache = plan_factorization(
@@ -124,7 +138,8 @@ class GLU:
                     refine_tol=refine_tol, dense_tail=dense_tail,
                     dense_tail_density=dense_tail_density, device=device,
                     static_pivot=static_pivot, jit_schedule=jit_schedule,
-                    executable_cache=executable_cache)
+                    executable_cache=executable_cache,
+                    mode_override=mode_override, verify=verify)
 
     @classmethod
     def from_plan(
@@ -144,6 +159,7 @@ class GLU:
         mesh=None,
         verify: str = "off",
         device=None,
+        mode_override: Optional[str] = None,
     ) -> "GLU":
         """Build a GLU around a prebuilt :class:`SymbolicPlan`, skipping all
         symbolic work.  ``A`` must carry the plan's pattern, and the MC64
@@ -163,7 +179,8 @@ class GLU:
                     refine_tol=refine_tol, dense_tail=dense_tail,
                     dense_tail_density=dense_tail_density, device=device,
                     static_pivot=static_pivot, jit_schedule=jit_schedule,
-                    executable_cache=executable_cache)
+                    executable_cache=executable_cache,
+                    mode_override=mode_override, verify=verify)
         return self
 
     def _setup(self, plan: SymbolicPlan, scaling: MC64Scaling, A: CSC,
@@ -171,7 +188,8 @@ class GLU:
                refine_tol: Optional[float],
                dense_tail: bool, dense_tail_density: float, device,
                static_pivot: Optional[float], jit_schedule: bool,
-               executable_cache) -> None:
+               executable_cache, mode_override: Optional[str],
+               verify: str) -> None:
         self.device = resolve_device(device)
         self.dtype = resolve_value_dtype(dtype, self.device)
         self.n = A.n
@@ -206,7 +224,7 @@ class GLU:
             self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail,
             dense_tail_density=dense_tail_density, layout=layout,
             static_pivot=static_pivot, jit_schedule=jit_schedule,
-            executable_cache=executable_cache)
+            executable_cache=executable_cache, mode_override=mode_override)
         self.layout = self._factorizer.layout
         self._solver = TorchTriangularSolver(
             self.plan, device=dev, jit_schedule=jit_schedule,
@@ -232,6 +250,14 @@ class GLU:
                            else 4.0 * float(torch.finfo(self.dtype).eps))
         self._info: Optional[dict] = None
         self._stats_pending = False
+        self.verify = verify
+        self.verify_report = None
+        if verify != "off":
+            # lazy: the analysis package imports core, not the other way
+            from ..analysis import verify_glu
+
+            self.verify_report = verify_glu(self, verify)
+            self.verify_report.raise_if_violated()
 
     # -- numeric phase (repeatable) -----------------------------------------
     def _scaled(self, data: np.ndarray) -> np.ndarray:
@@ -500,7 +526,9 @@ class GLU:
                 "kernels_disabled_reason":
                     self._factorizer.kernels_disabled_reason,
                 "n_devices": 1, "batch_spec": None,
-                "n_perturbed_global": None, "verify_report": None}
+                "n_perturbed_global": None,
+                "verify_report": (None if self.verify_report is None
+                                  else self.verify_report.summary())}
 
     # -- diagnostics ----------------------------------------------------------
     @property
@@ -562,4 +590,6 @@ def _check_slice(dtype, layout, mesh, verify):
     """Refuse what this package does not run before any planning work."""
     ported_layout(layout, dtype)
     _not_ported("mesh", mesh, None)
-    _not_ported("verify", verify, "off")
+    if verify not in ("off", "plan", "full"):
+        raise ValueError(
+            f"verify must be 'off', 'plan' or 'full', got {verify!r}")

@@ -51,7 +51,7 @@ from ..kernels.ops import add_in_rounds_, perturb_diags, round_order
 from ..sparse.csc import csc_transpose_pattern
 from ..sparse.layout import ValueLayout, resolve_layout
 from .executor import CapturedSchedule, resolve_executable_cache
-from .plan import MODE_PANEL, MODE_SEGMENTED, FactorizePlan
+from .plan import MODE_FLAT, MODE_PANEL, MODE_SEGMENTED, FactorizePlan
 from .symbolic import FilledPattern
 
 __all__ = ["factorize_numpy", "factorize_numpy_fast", "TorchFactorizer",
@@ -376,16 +376,41 @@ def _level_cut(plan: FactorizePlan, dense_tail: bool, density: float):
     return found if found is not None else (plan.num_levels, None)
 
 
-def _schedule_kinds(plan: FactorizePlan, level_cut: int, has_tail: bool):
+_MODES = (MODE_FLAT, MODE_SEGMENTED, MODE_PANEL)
+
+
+def _schedule_kinds(plan: FactorizePlan, level_cut: int, has_tail: bool,
+                    mode_override: Optional[str] = None,
+                    disable_modes: tuple = ()):
     """One kind per level in the reference's vocabulary ("flat", "pallas"),
-    then "dense" for the tail."""
+    then "dense" for the tail.  A level's mode is ``mode_override`` or its
+    plan mode; a disabled mode runs as flat, a disabled flat as segmented
+    (the reference's routing, ``core/factorize.py:862-864``); SEGMENTED and
+    PANEL levels with updates go to K1."""
     kinds = []
     for seg in plan.segments:
         if seg.level >= level_cut:
             break  # replaced by the dense trailing block
-        kinds.append("pallas" if seg.mode in (MODE_SEGMENTED, MODE_PANEL)
+        mode = mode_override or seg.mode
+        if mode in disable_modes:
+            mode = MODE_FLAT if mode != MODE_FLAT else MODE_SEGMENTED
+        kinds.append("pallas" if mode in (MODE_SEGMENTED, MODE_PANEL)
                      and seg.n_upd else "flat")
     return tuple(kinds) + (("dense",) if has_tail else ())
+
+
+def _kernels_disabled_reason(device, mode_override, disable_modes):
+    """Why K1 is off the path, as the reference's ``pallas_disabled_reason``
+    (``core/factorize.py:772-777``); None when the kernels run."""
+    if mode_override is not None and mode_override not in (MODE_SEGMENTED,
+                                                           MODE_PANEL):
+        return (f"mode_override={mode_override!r} routes every level off "
+                "the K1 path")
+    if MODE_SEGMENTED in disable_modes and MODE_PANEL in disable_modes:
+        return "disable_modes removes every K1-eligible mode"
+    if device.type != "cuda":
+        return "device='cpu' runs the plain PyTorch versions of the kernels"
+    return None
 
 
 class _Schedule:
@@ -497,6 +522,15 @@ class TorchFactorizer:
     executable_cache: where the built steps are cached: ``"default"`` (the
         process-wide cache), an :class:`~.executor.ExecutableCache`, or
         ``None`` (a private one).
+    mode_override / disable_modes: the paper's kernel-mode ablation (Table
+        III), as in the JAX package: ``mode_override`` ("flat",
+        "segmented" or "panel") runs every level in that mode;
+        ``disable_modes`` sends a disabled SEGMENTED or PANEL level to the
+        flat step and a disabled FLAT level to a K1 run.  A level runs in
+        K1 when its mode is SEGMENTED or PANEL and it has updates; the
+        rest are flat steps.  ``kernels_disabled_reason`` says why K1 is
+        off the path (``mode_override="flat"``, or both K1 modes
+        disabled), as the reference's ``pallas_disabled_reason`` does.
 
     The steps, in the JAX package's order: one per flat level, one per
     maximal run of consecutive K1 levels (the counterpart of the JAX
@@ -533,19 +567,35 @@ class TorchFactorizer:
         static_pivot: Optional[float] = None,
         jit_schedule: bool = True,
         executable_cache="default",
+        mode_override: Optional[str] = None,
+        disable_modes: tuple = (),
     ):
+        if mode_override is not None and mode_override not in _MODES:
+            raise ValueError(f"mode_override must be one of {_MODES} or "
+                             f"None, got {mode_override!r}")
+        disable_modes = tuple(disable_modes)
+        if not set(disable_modes) <= set(_MODES):
+            raise ValueError(f"disable_modes takes modes of {_MODES}, "
+                             f"got {disable_modes!r}")
         self.plan = plan
         self.device = resolve_device(device)
         self.dtype = value_dtype(dtype)
         self.layout = ported_layout(layout, self.dtype)
         self.static_pivot = static_pivot
         self.jit_schedule = bool(jit_schedule)
-        self.kernels_disabled_reason = (
-            None if self.device.type == "cuda" else
-            "device='cpu' runs the plain PyTorch versions of the kernels")
+        self.kernels_disabled_reason = _kernels_disabled_reason(
+            self.device, mode_override, disable_modes)
+        # what twin() passes on: the same schedule key, hence the same
+        # cached steps
+        self._options = dict(
+            dtype=self.dtype, device=self.device, dense_tail=dense_tail,
+            dense_tail_density=dense_tail_density, layout=layout,
+            static_pivot=static_pivot, jit_schedule=self.jit_schedule,
+            mode_override=mode_override, disable_modes=disable_modes)
         self.nnz = plan.nnz
         level_cut, c_star = _level_cut(plan, dense_tail, dense_tail_density)
-        self._kinds = _schedule_kinds(plan, level_cut, c_star is not None)
+        self._kinds = _schedule_kinds(plan, level_cut, c_star is not None,
+                                      mode_override, disable_modes)
         self._exec_cache = resolve_executable_cache(executable_cache)
         self._sched = self._exec_cache.get_or_build(
             self._schedule_key(),
@@ -582,6 +632,13 @@ class TorchFactorizer:
         value layout, and the device they live on."""
         return ("factorize", self.plan.digest, self._kinds, str(self.dtype),
                 self.layout.name, self.nnz, str(self.device))
+
+    def twin(self) -> "TorchFactorizer":
+        """A new factorizer with this one's plan and options: it shares the
+        built steps through the executable cache and owns its own buffers
+        and graphs (the graph audit replays one)."""
+        return TorchFactorizer(self.plan, executable_cache=self._exec_cache,
+                               **self._options)
 
     @property
     def kinds(self) -> tuple:

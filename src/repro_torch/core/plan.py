@@ -148,6 +148,15 @@ class FactorizePlan:
         """2 flops per MAC update + 1 per normalisation division."""
         return 2 * len(self.lidx) + len(self.norm_idx)
 
+    def verify(self, pattern=None, **kwargs):
+        """Run the static plan sanitizer
+        (:func:`repro_torch.analysis.verify_plan`) on this plan and return
+        the :class:`~repro_torch.analysis.VerifyReport`.  The plan's own
+        filled pattern is the default reference."""
+        from ..analysis import verify_plan   # lazy: analysis imports core
+
+        return verify_plan(self, pattern, **kwargs)
+
 
 def _mode_for_level(n_cols: int, n_upd: int, panel_threshold: int) -> str:
     """Paper Fig. 10 mode criteria: wide levels are type A (flat

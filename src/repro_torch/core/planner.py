@@ -155,6 +155,15 @@ class SymbolicPlan:
                 and np.array_equal(np.asarray(A.indices, dtype=np.int64),
                                    self.orig_indices))
 
+    def verify(self, **kwargs):
+        """Run the static plan sanitizer
+        (:func:`repro_torch.analysis.verify_plan`) on this plan and return
+        the :class:`~repro_torch.analysis.VerifyReport`.  Keyword arguments
+        (``reach_trials``, ``seed``, ...) pass through."""
+        from ..analysis import verify_plan   # lazy: analysis imports core
+
+        return verify_plan(self, **kwargs)
+
 
 def plan_key(
     n: int,

@@ -695,3 +695,86 @@ def test_ac_sweep_on_card(cuda):
     pivot = ac_sweep(ckt, freqs, static_pivot=1e-10)
     np.testing.assert_allclose(pivot.voltages, cpu.voltages, rtol=1e-9,
                                atol=1e-9)
+
+
+# -- plan verification and the mode ablation on the card --------------------
+
+def test_glu_verify_full_audits_the_graphs(cuda):
+    """``GLU(verify="full")`` runs the graph audit (not skipped), finds
+    nothing, and leaves the GLU's factors and solutions bit for bit those
+    of an unverified one."""
+    A = circuit_jacobian(300, avg_degree=4.0, seed=0)
+    b = np.random.default_rng(1).normal(size=A.n)
+    gv = GLU(A, verify="full")
+    rep = gv.verify_report
+    assert rep.ok and not rep.skipped, str(rep)
+    assert {"audit_factorize", "audit_trisolve"} <= set(rep.checks)
+    go = GLU(A)
+    new = np.asarray(A.data) * np.random.default_rng(2).uniform(
+        0.95, 1.05, size=A.nnz)
+    for vals in (None, new):
+        xv = gv.factorize(vals).solve(b)
+        xo = go.factorize(vals).solve(b)
+        assert torch.equal(gv.factorized_values(), go.factorized_values())
+        assert xv.tobytes() == xo.tobytes()
+    assert gv.solve_info["verify_report"]["skipped"] == {}
+
+
+def test_graph_audit_flags_eager_dispatch(cuda):
+    from repro_torch.analysis import audit_factorize, audit_trisolve
+
+    g = GLU(circuit_jacobian(200, avg_degree=6.0, seed=0), jit_schedule=False)
+    assert audit_factorize(g._factorizer).codes == {"AUDIT_DISPATCH"}
+    assert audit_trisolve(g._solver).codes == {"AUDIT_DISPATCH"}
+
+
+def _variant(A, **opts):
+    """The matrix's plan, scaled values, and a variant's factorizer with
+    replays and its twin with the steps one by one."""
+    from repro_torch.core import TorchFactorizer
+
+    g = GLU(A)
+    vals = np.asarray(g._A_perm.data)
+    f = TorchFactorizer(g.plan, device="cuda", **opts)
+    fe = TorchFactorizer(g.plan, device="cuda", jit_schedule=False, **opts)
+    return g, vals, f, fe
+
+
+def test_noflat_k1_run_matches_plain(cuda):
+    """With ``disable_modes=("flat",)`` the flat levels join the K1 run, a
+    new shape for K1: held bit for bit against its plain version on the
+    value array the path hands it."""
+    A = circuit_jacobian(200, avg_degree=6.0, seed=0)
+    _, vals, _, fe = _variant(A, disable_modes=("flat",))
+    assert fe.step_kinds.count("flat") == 0 and "run" in fe.step_kinds
+    rec = []
+    real = fe._step["run"]
+
+    def record(v, run, *robust):
+        rec.append((v.clone(), run))
+        return real(v, run, *robust)
+
+    fe._step["run"] = record
+    fe.factorize(vals)
+    fe._step["run"] = real
+    assert rec
+    for v0, run in rec:
+        _check_run(run, v0)
+
+
+@pytest.mark.parametrize("opts", [dict(disable_modes=("flat",)),
+                                  dict(mode_override="flat")],
+                         ids=["noflat", "allflat"])
+def test_mode_variant_replays_equal_steps(cuda, opts):
+    A = circuit_jacobian(200, avg_degree=6.0, seed=0)
+    g, vals, f, fe = _variant(A, **opts)
+    rng = np.random.default_rng(5)
+    default = GLU(A)
+    for _ in range(3):
+        new = vals * rng.uniform(0.95, 1.05, size=len(vals))
+        got = f.factorize(new).clone()
+        want = fe.factorize(new)
+        assert torch.equal(got, want)
+        ref = default._factorizer.factorize(new)
+        torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10)
+    assert f.last_n_dispatches == 1

@@ -126,7 +126,8 @@ def test_float32_solve():
     # JAX package's resolve_layout
     (dict(layout="planar"), ValueError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(verify="plan"), NotImplementedError),
+    # verify runs ("off", "plan", "full"); any other value is refused
+    (dict(verify="bogus"), ValueError),
     # complex values run on re/im planes; their native layout is not ported
     (dict(dtype=torch.complex128, layout="native"), NotImplementedError),
     (dict(dtype=np.complex64, layout="native"), NotImplementedError),

@@ -81,19 +81,21 @@ print(json.dumps(out))
 '''
 
 
-def run_tree(tree: Path) -> dict:
+def run_tree(tree: Path, child: str = CHILD) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree / "src"),
                REPRO_TORCH_BUILD_DIR=str(tree / "build" / "torch_kernels"))
-    r = subprocess.run([sys.executable, "-c", CHILD], env=env, cwd=tree,
+    r = subprocess.run([sys.executable, "-c", child], env=env, cwd=tree,
                        capture_output=True, text=True, timeout=600)
     if r.returncode:
         raise RuntimeError(f"{tree}: rc {r.returncode}\n{r.stderr[-3000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def main() -> int:
+def main(child: str = CHILD, doc: str = __doc__) -> int:
+    """Run ``child`` in the trees of ``sys.argv`` in turns and print the
+    table of its numbers."""
     if len(sys.argv) != 3:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     parent, change = (Path(a).resolve() for a in sys.argv[1:])
     card = subprocess.run(
@@ -103,10 +105,10 @@ def main() -> int:
     results = {"parent": [], "change": []}
     for label, tree in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
-        res = run_tree(tree)
+        res = run_tree(tree, child)
         results[label].append(res)
         print(json.dumps({"tree": label, "ms": res}))
-    print(f"{'kernel':<20} {'parent ms':>22} {'change ms':>22}")
+    print(f"{'key':<20} {'parent':>22} {'change':>22}")
     for key in results["parent"][0]:
         p = [r[key] for r in results["parent"]]
         c = [r[key] for r in results["change"]]
