@@ -128,7 +128,28 @@ Phases, in order; any failure exits non-zero before the result line:
     (c) ``GLU(verify="full")``: a clean report that includes the CUDA-graph
     audit, its host seconds, factors and solutions bit for bit those of
     ``GLU(verify="off")``, and ``AUDIT_DISPATCH`` with
-    ``jit_schedule=False``.
+    ``jit_schedule=False``;
+16. (a) scenario-sharded sweeps: ``make_sweep_mesh()`` over the machine's
+    cards (one card: ``n_devices == 1``), then grid64 and rajat12_like at
+    B = 16 and B = 7 (padded) on an emulated mesh of the card repeated 4
+    times, rajat12_ac at B = 8 frequencies and grid64 with
+    ``static_pivot=0.6`` at B = 4 on 2: every row bit for bit the
+    unsharded batch's, one factorization and one solve replay a shard,
+    ``n_perturbed_global`` the padded batch's bumps; per-call times of
+    both, labelled "emulated (one card)", and the peak device memory;
+    ``transient_sweep(mesh=)`` of 4 copies of the 64 × 64 grid bit for bit
+    the unsharded sweep; (b) grid64 through ``write_matrix_market`` and
+    ``read_matrix_market`` (same pattern and values), solved to residual
+    < 1e-9; (c) the on-disk ``PlanCache``: grid64 cold then warm from a
+    second cache on the directory (``disk_hits == 1``, same digest), and
+    rajat12_like's plan from phase 4 written and read back, against its
+    build seconds; (d) ``multi_domain_circuit()`` (n = 6,400) solved to
+    residual < 1e-9, and a one-node ``rhs_pattern`` in a 400-node domain:
+    levels and device kernels kept, pruned and full replay times, bit for
+    bit; (e) ``leftlooking_numpy`` on grid64's filled pattern within 1e-10
+    of the card's factors, with its host seconds; (f) ``python -m
+    repro_torch.launch.simulate --nx 16 --ny 16 --t-end 0.02 --dt 0.005``
+    in a subprocess: exit 0, residual < 1e-9.
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -145,9 +166,11 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2187,6 +2210,385 @@ def drive_verify(dev, name):
     return out
 
 
+# -- phase 16: sharded sweeps, Matrix Market, the on-disk plan cache, the
+# multi-domain chip, the left-looking baseline and the CLI -----------------
+
+# (matrix, B, shards, static_pivot): each sharded batch against the
+# unsharded one on the card; the shards are the card repeated (emulated)
+SHARDED = [("grid64", 16, 4, None), ("grid64", 7, 4, None),
+           ("rajat12_like", 16, 4, None), ("rajat12_like", 7, 4, None),
+           ("rajat12_ac", 8, 2, None), ("grid64", 4, 2, PIVOT_EPS_BUMPS)]
+SHARDED_SWEEP = dict(nx=64, ny=64, t_end=0.05, dt=5e-3, refine=1,
+                     scales=np.linspace(0.9, 1.1, 4), shards=4)
+# the multi-domain chip's one-node excitation: the middle of the first
+# 400-node domain (the 1,600-node domain comes first)
+MULTI_DOMAIN_NODE = 1600 + 200
+CLI_ARGS = ["--nx", "16", "--ny", "16", "--t-end", "0.02", "--dt", "0.005"]
+
+
+def drive_sharded(dev, clock, card):
+    """Phase 16 (a): the machine's own mesh, then each ``SHARDED`` batch
+    on an emulated mesh of the card repeated: every row bit for bit the
+    unsharded batch's (factors and solutions), one factorization replay
+    and one solve replay a shard, K1 and K2/K3 launched once a shard and
+    run; per-call times of both, labelled emulated; then
+    ``transient_sweep(mesh=)`` against the unsharded sweep."""
+    from repro_torch import GLU
+    from repro_torch.distributed import make_scenario_sharding, make_sweep_mesh
+
+    own = make_sweep_mesh()
+    out = dict(card=card, own_mesh_devices=len(own.devices),
+               own_mesh_sharding=None if make_scenario_sharding(own) is None
+               else make_scenario_sharding(own).n_shards, cases=[])
+    g_own = GLU(make_matrix("grid64"), mesh=own)
+    assert g_own.n_devices == (1 if len(own.devices) == 1
+                               else len(own.devices)), g_own.n_devices
+    out["own_mesh_n_devices"] = g_own.n_devices
+    log(f"sharded: make_sweep_mesh() holds {len(own.devices)} card(s) -> "
+        f"GLU.n_devices {g_own.n_devices}")
+    del g_own
+    rng = np.random.default_rng(SEED + 20)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, B, k, eps in SHARDED:
+        A = make_matrix(name)
+        cplx = np.iscomplexobj(A.data)
+        dtype = torch.complex128 if cplx else torch.float64
+        mesh = make_sweep_mesh(devices=[dev] * k)
+        g = GLU(A, dtype=dtype, mesh=mesh, static_pivot=eps)
+        g0 = GLU(A, dtype=dtype, static_pivot=eps)
+        batch = batch_values(name, A, B, rng)
+        bs = rng.normal(size=(B, A.n)) + (1j * rng.normal(size=(B, A.n))
+                                          if cplx else 0.0)
+        g.refactorize_solve(batch, bs)          # warm-up: capture the graphs
+        g0.refactorize_solve(batch, bs)
+        steps = g._factorizer.step_kinds
+        reset_counts()
+        x = g.refactorize_solve(batch, bs)
+        torch.cuda.synchronize(dev)
+        k1, k2, k3 = launch_counts()
+        info = g.solve_info
+        x0 = g0.refactorize_solve(batch, bs)
+        assert x.tobytes() == x0.tobytes(), (name, B, k)
+        assert torch.equal(g.factorized_values_batched(),
+                           g0.factorized_values_batched()), (name, B, k)
+        assert info["n_devices"] == k and info["n_dispatches"] == 1 \
+            and info["solve_dispatches"] == 1, info
+        assert info["batch_spec"] == "PartitionSpec('data',)", info
+        assert k1 == k * steps.count("run") and \
+            k2 + k3 == k * steps.count("dense"), (name, k1, k2, k3, steps)
+        for key in ("pivot_growth", "min_diag"):
+            assert np.asarray(info[key]).shape == (B,), (key, info[key])
+            np.testing.assert_array_equal(info[key], g0.solve_info[key])
+        case = dict(matrix=name, batch=B, shards=k, static_pivot=eps,
+                    padded_to=-(-B // k) * k, k1_launches=k1,
+                    k2_launches=k2, k3_launches=k3)
+        if eps is not None:
+            n_pert = info["n_perturbed"]
+            np.testing.assert_array_equal(n_pert, g0.solve_info["n_perturbed"])
+            pad = case["padded_to"] - B
+            assert info["n_perturbed_global"] == int(
+                n_pert.sum() + pad * n_pert[-1]), info
+            assert n_pert.sum() > 0, n_pert
+            case["n_perturbed"] = n_pert.tolist()
+            case["n_perturbed_global"] = info["n_perturbed_global"]
+        ms = clock.median_ms(lambda: g.refactorize_solve(batch, bs))
+        ms0 = clock.median_ms(lambda: g0.refactorize_solve(batch, bs))
+        prof = {key: {k: v for k, v in _profile(
+                    dev, lambda: gg.refactorize_solve(batch, bs)).items()
+                    if k != "top"} for key, gg in (("sharded", g),
+                                                   ("unsharded", g0))}
+        case.update(sharded_ms=ms, unsharded_ms=ms0, profile=prof,
+                    timing="emulated (one card)")
+        res = _residuals(A, batch, x, bs)
+        case["max_residual"] = max(res)
+        out["cases"].append(case)
+        log(f"sharded {name} B={B} on {k} shards (padded to "
+            f"{case['padded_to']}): rows bit-identical to the unsharded "
+            f"batch (factors, solutions); per shard one factorization and "
+            f"one solve replay; K1 {k1}, K2 {k2}, K3 {k3} launches a call; "
+            f"max residual {max(res):.3e}; refactorize_solve "
+            f"{ms:.3f} ms sharded against {ms0:.3f} ms unsharded, "
+            f"emulated (one card); one call's device kernels and busy time "
+            f"{prof['sharded']} sharded, {prof['unsharded']} unsharded"
+            + ("" if eps is None else
+               f"; n_perturbed {case['n_perturbed']}, n_perturbed_global "
+               f"{case['n_perturbed_global']}"))
+        del g, g0
+    out["peak_memory_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    log(f"sharded: peak device memory {out['peak_memory_mib']:.1f} MiB")
+    out["mixed"] = drive_mixed_mesh(dev)
+    out["sweep"] = drive_sharded_sweep(dev)
+    return out
+
+
+def drive_mixed_mesh(dev):
+    """Phase 16 (a): grid64 at B = 8 and B = 7 on a mesh that mixes the
+    card with the CPU (and, on a host of several cards, the first and the
+    last card), so that row blocks, gathers, the exact sum and the
+    refinement's lockstep cross devices: every row within 1e-9 of the
+    unsharded batch on the card (the CPU shards run the plain versions)."""
+    from repro_torch import GLU
+    from repro_torch.distributed import make_sweep_mesh
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    devices = [dev, "cpu", last, "cpu"]
+    A = make_matrix("grid64")
+    rng = np.random.default_rng(SEED + 24)
+    g = GLU(A, mesh=make_sweep_mesh(devices=devices), static_pivot=PIVOT_EPS)
+    g0 = GLU(A, static_pivot=PIVOT_EPS)
+    out = dict(devices=[str(d) for d in g.mesh.devices], cases=[])
+    for B in (8, 7):
+        batch = batch_values("grid64", A, B, rng)
+        bs = rng.normal(size=(B, A.n))
+        x = g.refactorize_solve(batch, bs, refine=1)
+        x0 = g0.refactorize_solve(batch, bs, refine=1)
+        info, info0 = g.solve_info, g0.solve_info
+        err = float(np.abs(x - x0).max() / np.abs(x0).max())
+        ferr = compare(g.factorized_values_batched(),
+                       g0.factorized_values_batched(), 1e-10)
+        assert x.shape == (B, A.n) and err < 1e-9, err
+        assert info["n_devices"] == 4 and info["n_perturbed"].shape == (B,)
+        np.testing.assert_array_equal(info["n_perturbed"],
+                                      info0["n_perturbed"])
+        assert info["n_perturbed_global"] == int(
+            info["n_perturbed"].sum() + (8 - B) * info["n_perturbed"][-1])
+        assert info["refine_iters"].shape == (B,)
+        out["cases"].append(dict(batch=B, max_rel_err=err,
+                                 factor_err=ferr,
+                                 n_perturbed_global=info["n_perturbed_global"]))
+        log(f"mixed mesh {out['devices']}: grid64 B={B}, refined solutions "
+            f"within {err:.3e} and factors within {ferr:.3e} of the "
+            f"unsharded batch on the card, n_perturbed_global "
+            f"{info['n_perturbed_global']}")
+    return out
+
+
+def drive_sharded_sweep(dev):
+    """Phase 16 (a): ``transient_sweep`` of copies of the 64 x 64 grid on
+    an emulated mesh of the card, bit for bit the unsharded sweep."""
+    from repro_torch.circuit import rc_grid_circuit, transient_sweep
+    from repro_torch.distributed import make_sweep_mesh
+
+    c = SHARDED_SWEEP
+    ckt = rc_grid_circuit(c["nx"], c["ny"], with_diodes=True, seed=0)
+    kw = dict(t_end=c["t_end"], dt=c["dt"], refine=c["refine"],
+              scales=c["scales"])
+    want = transient_sweep(ckt, **kw)
+    mesh = make_sweep_mesh(devices=[dev] * c["shards"])
+    got = transient_sweep(ckt, mesh=mesh, **kw)
+    assert got.n_devices == c["shards"] and want.n_devices == 1
+    assert got.voltages.tobytes() == want.voltages.tobytes()
+    assert np.array_equal(got.newton_iters, want.newton_iters)
+    assert got.max_residual < 1e-8
+    log(f"sharded transient_sweep: {len(kw['scales'])} copies of the "
+        f"{c['nx']} x {c['ny']} grid on {c['shards']} emulated shards, "
+        f"{len(got.times)} steps, {got.n_batched_factorizations} batched "
+        f"factorizations: voltages bit-identical to the unsharded sweep; "
+        f"loop {got.solve_seconds:.3f} s against {want.solve_seconds:.3f} s "
+        f"unsharded, emulated (one card)")
+    return dict(copies=len(kw["scales"]), shards=c["shards"],
+                steps=len(got.times),
+                n_batched_factorizations=got.n_batched_factorizations,
+                sharded_loop_s=got.solve_seconds,
+                unsharded_loop_s=want.solve_seconds,
+                max_residual=got.max_residual, timing="emulated (one card)")
+
+
+def drive_matrix_market(tmp):
+    """Phase 16 (b): grid64 through ``write_matrix_market`` and
+    ``read_matrix_market``: the same pattern and values, then factorized
+    and solved on the card."""
+    from repro_torch import GLU
+    from repro_torch.sparse import read_matrix_market, write_matrix_market
+
+    A = make_matrix("grid64")
+    path = Path(tmp) / "grid64.mtx"
+    t0 = time.perf_counter()
+    write_matrix_market(path, A)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A2 = read_matrix_market(path)
+    t_read = time.perf_counter() - t0
+    assert A2.n == A.n and np.array_equal(A2.indptr, A.indptr) \
+        and np.array_equal(A2.indices, A.indices) \
+        and np.asarray(A2.data).tobytes() == np.asarray(A.data).tobytes()
+    b = np.random.default_rng(SEED + 21).normal(size=A2.n)
+    g = GLU(A2)
+    x = g.factorize().solve(b)
+    res = g.residual(b, x)
+    assert res < 1e-9, res
+    log(f"matrix market: grid64 ({A.nnz} entries, "
+        f"{path.stat().st_size} bytes) written in {t_write:.3f} s, read in "
+        f"{t_read:.3f} s, same pattern and values; solved on the card to "
+        f"residual {res:.3e}")
+    return dict(nnz=A.nnz, bytes=path.stat().st_size, write_s=t_write,
+                read_s=t_read, residual=res, clock="host")
+
+
+def drive_plan_cache(tmp):
+    """Phase 16 (c): grid64 planned cold into a fresh on-disk
+    ``PlanCache`` and warm from a second one on the same directory; the
+    rajat12_like plan built in phase 4 written and read back."""
+    from repro_torch import GLU
+    from repro_torch.core import PlanCache, plan_factorization
+
+    d = Path(tmp) / "plans"
+    A = make_matrix("grid64")
+    t0 = time.perf_counter()
+    cold, _, hit_cold = plan_factorization(A, cache=PlanCache(directory=d))
+    t_cold = time.perf_counter() - t0
+    warm_cache = PlanCache(directory=d)
+    t0 = time.perf_counter()
+    warm, _, hit_warm = plan_factorization(A, cache=warm_cache)
+    t_warm = time.perf_counter() - t0
+    assert not hit_cold and hit_warm and warm_cache.stats.disk_hits == 1
+    n_arrays = _same_plan_arrays(cold, warm)
+    # the plan read from disk factorizes to the cold plan's bits on the card
+    a_data = newton_values(A, np.random.default_rng(SEED + 23))
+    f_cold = GLU(A, plan_cache=PlanCache()).factorize(a_data)
+    f_warm = GLU(A, plan_cache=warm_cache)
+    assert f_warm.plan_from_cache and warm_cache.stats.disk_hits == 1
+    f_warm.factorize(a_data)
+    assert torch.equal(f_warm.factorized_values(), f_cold.factorized_values())
+    log(f"plan cache: grid64 cold {t_cold:.3f} s (plan and write), warm "
+        f"{t_warm:.3f} s from disk (disk_hits "
+        f"{warm_cache.stats.disk_hits}); all {n_arrays} plan arrays equal "
+        f"the cold plan's, and its factors on the card are the cold plan's "
+        f"bit for bit")
+    R = make_matrix("rajat12_like")
+    plan, _, hit = plan_factorization(R)       # phase 4's, from memory
+    assert hit
+    build_s = plan.build_seconds["total"]
+    free = shutil.disk_usage(d).free
+    log(f"plan cache: {free / 2**30:.1f} GiB free where the plans go")
+    put_cache = PlanCache(directory=d)
+    t0 = time.perf_counter()
+    put_cache.put(plan.key, plan)
+    t_put = time.perf_counter() - t0
+    get_cache = PlanCache(directory=d)
+    t0 = time.perf_counter()
+    back = get_cache.get(plan.key)
+    t_get = time.perf_counter() - t0
+    assert back is not None and get_cache.stats.disk_hits == 1
+    n_arrays = _same_plan_arrays(plan, back)
+    size = (d / f"{plan.key}.plan.npz").stat().st_size
+    log(f"plan cache: rajat12_like written in {t_put:.3f} s and read back "
+        f"in {t_get:.3f} s ({size / 2**20:.1f} MiB, disk_hits 1, all "
+        f"{n_arrays} plan arrays equal) against its {build_s:.1f} s build")
+    return dict(grid64_cold_s=t_cold, grid64_warm_s=t_warm,
+                rajat12_write_s=t_put, rajat12_read_s=t_get,
+                rajat12_build_s=build_s, rajat12_file_mib=size / 2**20,
+                free_gib=free / 2**30, clock="host")
+
+
+def _same_plan_arrays(p, q) -> int:
+    """Asserts that two plans hold equal fields, arrays and scalars alike
+    (the digest is a stored string, so it alone proves nothing); returns
+    the number of fields."""
+    from repro_torch.convert import plan_to_arrays
+
+    a, b = plan_to_arrays(p), plan_to_arrays(q)
+    assert a.keys() == b.keys(), sorted(set(a) ^ set(b))
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        assert x.dtype == y.dtype and np.array_equal(x, y), k
+    return len(a)
+
+
+def drive_multi_domain(dev, clock):
+    """Phase 16 (d): ``multi_domain_circuit()`` factorized and solved on
+    the card, then a one-node ``rhs_pattern`` in a 400-node domain: the
+    pruned replay bit for bit the full one, its levels and device kernels,
+    and both replays' times."""
+    from repro_torch import GLU
+    from repro_torch.sparse import multi_domain_circuit
+
+    A = multi_domain_circuit()
+    t0 = time.perf_counter()
+    g = GLU(A)
+    t_plan = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 22)
+    b = rng.normal(size=A.n)
+    x = g.factorize().solve(b)
+    res = g.residual(b, x)
+    assert res < 1e-9, res
+    node = MULTI_DOMAIN_NODE
+    b1 = np.zeros(A.n)
+    b1[node] = 1.0
+    x_full = g.solve(b1)
+    g.solve(b1, rhs_pattern=[node])                 # warm-up, capture
+    x_pruned = g.solve(b1, rhs_pattern=[node])      # a replay
+    assert g.solve_info["solve_dispatches"] == 1
+    assert np.array_equal(x_pruned, x_full)
+    sv, vals = g._solver, g._vals
+    pp = g.row_map[[node]]
+    fwd, bwd, fr, br = sv.schedule_for_pattern(pp)
+    bp = torch.as_tensor((b1 * g.Dr)[g._inv_row], device=dev)
+    full_ms = clock.ms(lambda: sv.solve(vals, bp), reps=10)
+    ms = clock.ms(lambda: sv.solve(vals, bp, rhs_pattern=pp), reps=10)
+    kern = _profile(dev, lambda: sv.solve(vals, bp, rhs_pattern=pp))
+    full_kern = _profile(dev, lambda: sv.solve(vals, bp))
+    out = dict(n=A.n, nnz=A.nnz, nnz_filled=g.nnz_filled, plan_s=t_plan,
+               residual=res, node=node, fwd_reach=len(fr), bwd_reach=len(br),
+               levels_kept=[len(fwd), len(bwd)],
+               levels_full=[len(sv.fwd_levels), len(sv.bwd_levels)],
+               kernels=kern.get("kernels"), full_kernels=full_kern.get("kernels"),
+               pruned_ms=ms, full_ms=full_ms)
+    log(f"multi_domain_circuit: n={A.n}, nnz {A.nnz} ({g.nnz_filled} "
+        f"filled), planned in {t_plan:.1f} s, residual {res:.3e}; one-node "
+        f"rhs_pattern at node {node}: reach {len(fr)} / {len(br)} of {A.n}, "
+        f"levels kept {len(fwd)} / {len(bwd)} of {len(sv.fwd_levels)} / "
+        f"{len(sv.bwd_levels)}, device kernels a solve {out['kernels']} "
+        f"(full {out['full_kernels']}); pruned replay {ms:.4f} ms against "
+        f"the full replay {full_ms:.4f} ms, bit-identical")
+    return out
+
+
+def drive_leftlooking():
+    """Phase 16 (e): the paper's Algorithm 1 (``leftlooking_numpy``) on
+    grid64's filled pattern against the port's factors on the card."""
+    from repro_torch import GLU
+    from repro_torch.core import leftlooking_numpy
+
+    g = GLU(make_matrix("grid64"))
+    vals0 = g.pattern.filled_csc(g._A_perm).data
+    t0 = time.perf_counter()
+    ll = leftlooking_numpy(g.pattern, vals0)
+    t_ll = time.perf_counter() - t0
+    f = g.factorize().factorized_values().cpu().numpy()
+    diff = float(np.abs(ll - f).max())
+    assert np.allclose(ll, f, rtol=1e-10, atol=1e-10), diff
+    log(f"leftlooking_numpy: grid64's filled pattern ({g.nnz_filled} "
+        f"entries) in {t_ll:.3f} s on the host, within {diff:.3e} of the "
+        f"card's factors")
+    return dict(nnz_filled=g.nnz_filled, host_s=t_ll, max_abs_diff=diff,
+                clock="host")
+
+
+def drive_cli():
+    """Phase 16 (f): ``python -m repro_torch.launch.simulate`` in a
+    subprocess on the card: exit 0, its two lines, residual < 1e-9."""
+    import os
+    import re
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.simulate", *CLI_ARGS]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                         env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 2 and lines[0].startswith("nodes: 256"), lines
+    res = float(re.search(r"max residual (\S+)", lines[1]).group(1))
+    assert res < 1e-9, res
+    log(f"cli: {' '.join(cmd[1:])} -> exit 0 in {wall:.1f} s: "
+        f"{lines[0]} | {lines[1]}")
+    return dict(args=CLI_ARGS, lines=lines, max_residual=res, wall_s=wall,
+                clock="host")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -2303,6 +2705,18 @@ def main() -> int:
     assert any(e.get("variant") == "noflat" for e in entries)
     log(json.dumps({"verify_report": [drive_verify(dev, name)
                                       for name in PHASE15_MATRICES]}))
+
+    # 16. sharded sweeps, Matrix Market, the on-disk plan cache, the
+    # multi-domain chip, the left-looking baseline and the CLI
+    log(json.dumps({"sharded_report": drive_sharded(dev, clock, card)}))
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        log(json.dumps({"matrix_market_report": drive_matrix_market(tmp)}))
+        log(json.dumps({"plan_cache_report": drive_plan_cache(tmp)}))
+    log(json.dumps({"multi_domain_report": drive_multi_domain(dev, clock)}))
+    log(json.dumps({"leftlooking_report": drive_leftlooking()}))
+    log(json.dumps({"cli_report": drive_cli()}))
 
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",

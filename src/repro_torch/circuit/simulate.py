@@ -42,6 +42,7 @@ import torch
 
 from ..core.api import GLU
 from ..core.factorize import ported_layout
+from ..distributed import check_mesh
 from ..sparse.csc import CSC
 from .ladder import RUNGS, LadderConfig, RefactorizationLadder
 from .mna import Circuit
@@ -337,14 +338,12 @@ def transient_sweep(
     climbs re-scale -> bump -> replan on unhealthy diagnostics, with the
     worst copy of the batch as the rebuild's scaling representative (one
     shared plan, so one representative picks the scaling).  ``device`` and
-    ``jit_schedule`` are as in :func:`transient`.  ``mesh`` (sharding the
-    batch over several devices) is not ported and raises
-    ``NotImplementedError``.
+    ``jit_schedule`` are as in :func:`transient`.  ``mesh`` (a
+    :class:`~repro_torch.distributed.SweepMesh`) shards the batch of every
+    ``refactorize_solve`` over the mesh's devices (see ``GLU``'s
+    ``mesh``); the voltages are the unsharded sweep's bit for bit and
+    ``n_devices`` says how many devices the batch ran on.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "transient_sweep(mesh=...) (the batch sharded over several "
-            "devices) is not ported to the PyTorch package yet")
     dtype = dtype or torch.float64
     scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
     ckts = perturbed_copies(ckt, scales)
@@ -357,7 +356,8 @@ def transient_sweep(
     vals0, _ = ckts[0].assemble(v0, v0, dt, 0.0)
     glu_kwargs = dict(ordering=ordering, dtype=dtype, refine=refine or 0,
                       refine_tol=refine_tol, static_pivot=static_pivot,
-                      mc64=mc64, jit_schedule=jit_schedule, device=device)
+                      mc64=mc64, jit_schedule=jit_schedule, device=device,
+                      mesh=mesh)
     ladder = _make_ladder(escalation, ladder_config)
     glu = GLU(CSC(pat.n, pat.indptr, pat.indices, vals0), **glu_kwargs)
     n_plan_hits = int(glu.plan_from_cache)
@@ -468,6 +468,7 @@ def transient_sweep(
         plan_cache_hits=n_plan_hits,
         n_full_rebuilds=0 if ladder is None else ladder.n_full_rebuilds,
         ladder_counts=counts,
+        n_devices=glu.n_devices if B > 1 else 1,
     )
 
 
@@ -536,14 +537,13 @@ def ac_sweep(
     ``layout``: ``"auto"`` (default) or ``"planar"``, the complex values'
     storage on the kernels; ``"native"`` (the JAX package's route off the
     kernels) raises ``NotImplementedError`` before any work.  ``device`` and
-    ``jit_schedule`` are as in :func:`transient`.  ``mesh`` (the frequency
-    axis sharded over several devices) is not ported and raises
-    ``NotImplementedError``.
+    ``jit_schedule`` are as in :func:`transient`.  ``mesh`` shards the
+    frequency axis of the batched AC refactorize/solve over the mesh's
+    devices (see ``GLU``'s ``mesh``); the single-matrix DC operating-point
+    loop stays unsharded on the mesh's first device.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "ac_sweep(mesh=...) (the frequency axis sharded over several "
-            "devices) is not ported to the PyTorch package yet")
+    if check_mesh(mesh) is not None and device is None:
+        device = mesh.devices[0]
     ported_layout(layout, torch.complex128)
     freqs = np.atleast_1d(np.asarray(freqs, dtype=np.float64))
     pat = ckt.pattern()
@@ -617,7 +617,7 @@ def ac_sweep(
     ac_kwargs = dict(ordering=ordering, dtype=torch.complex128, refine=refine,
                      refine_tol=refine_tol, static_pivot=static_pivot,
                      mc64=mc64, layout=layout, jit_schedule=jit_schedule,
-                     device=device)
+                     device=device, mesh=mesh)
     glu = GLU(CSC(pat.n, pat.indptr, pat.indices, vals_ac[0]),
               **(ac_kwargs if ladder is None else ladder.glu_kwargs(ac_kwargs)))
     n_plan_hits += int(glu.plan_from_cache)
@@ -686,4 +686,5 @@ def ac_sweep(
         n_full_rebuilds=0 if ladder is None else ladder.n_full_rebuilds,
         ladder_counts=(_empty_ladder_counts() if ladder is None
                        else dict(ladder.counts)),
+        n_devices=glu.n_devices if len(freqs) > 1 else 1,
     )

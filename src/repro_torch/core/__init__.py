@@ -16,6 +16,7 @@ from .factorize import (
     TorchFactorizer,
     factorize_numpy,
     factorize_numpy_fast,
+    leftlooking_numpy,
     split_lu,
 )
 from .ordering import (
@@ -55,6 +56,7 @@ __all__ = [
     "TorchFactorizer",
     "factorize_numpy",
     "factorize_numpy_fast",
+    "leftlooking_numpy",
     "split_lu",
     "fill_reducing_ordering",
     "max_product_matching",

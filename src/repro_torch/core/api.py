@@ -30,6 +30,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import (batch_blocks, check_mesh, gather_rows,
+                           make_scenario_sharding, map_blocks)
 from ..sparse.csc import CSC
 from .factorize import TorchFactorizer, ported_layout, value_dtype
 from .planner import MC64Scaling, SymbolicPlan, compute_scaling, plan_factorization
@@ -51,12 +53,6 @@ def resolve_value_dtype(dtype, device) -> torch.dtype:
     return requested
 
 
-def _not_ported(name: str, value, default) -> None:
-    if value != default:
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported to the PyTorch package yet")
-
-
 class GLU:
     """Refactorize-and-solve on one sparsity pattern.
 
@@ -68,8 +64,8 @@ class GLU:
     ``"planar"``: K1 and K3 run on their re/im planes and callers see
     native complex.  ``layout="native"`` with a complex dtype, the JAX
     package's route off the kernels, raises ``NotImplementedError`` (the
-    planar storage gives the same interface on the kernels), as does
-    ``mesh``.  The batched methods
+    planar storage gives the same interface on the kernels).  The batched
+    methods
     (``factorize_batched``, ``solve_batched``, ``refactorize_solve``)
     factor and solve B matrices on the pattern in lockstep;
     ``solve_multi`` solves K right-hand sides against one factorization.
@@ -101,6 +97,23 @@ class GLU:
     at construction; the report's summary lands in
     ``solve_info["verify_report"]``.
 
+    ``mesh`` (a :class:`~repro_torch.distributed.SweepMesh`, see
+    ``make_sweep_mesh``) shards the batched calls: the batch (scenario)
+    axis splits into contiguous row blocks over the mesh's devices, each
+    shard runs the whole schedule on its block (one replay a shard on the
+    card), and rows come back with the unsharded batch's bits.  A batch
+    the shard count does not divide is padded with copies of its last
+    scenario, whose rows are masked out of results and every per-matrix
+    diagnostic; B = 1 and the single-matrix calls stay unsharded.  The
+    ``GLU`` lives on the mesh's first device (``device`` may name it and
+    nothing else) and returns results there.  A mesh that repeats a
+    device runs its shards one after another on it (emulation).
+    ``solve_info`` reports ``n_devices`` (1 unsharded), ``batch_spec`` and
+    ``n_perturbed_global`` (the static-pivot bumps summed over the padded
+    batch, None unless a sharded batch ran with the guard on), and
+    ``n_dispatches``/``solve_dispatches`` count a shard's dispatches (1 a
+    shard for a replay).
+
     The JAX package's level-fusion options (``fuse_levels``,
     ``fuse_buckets``, ``bucket_waste``) have no counterpart: every level is
     its own step here.  The other options mean what they mean in the JAX
@@ -129,7 +142,7 @@ class GLU:
         device=None,
         mode_override: Optional[str] = None,
     ):
-        _check_slice(dtype, layout, mesh, verify)
+        _check_slice(dtype, layout, verify, mesh)
         plan, scaling, from_cache = plan_factorization(
             A, ordering=ordering, symbolic=symbolic, mc64=mc64,
             panel_threshold=panel_threshold, cache=plan_cache)
@@ -139,7 +152,7 @@ class GLU:
                     dense_tail_density=dense_tail_density, device=device,
                     static_pivot=static_pivot, jit_schedule=jit_schedule,
                     executable_cache=executable_cache,
-                    mode_override=mode_override, verify=verify)
+                    mode_override=mode_override, verify=verify, mesh=mesh)
 
     @classmethod
     def from_plan(
@@ -165,7 +178,7 @@ class GLU:
         symbolic work.  ``A`` must carry the plan's pattern, and the MC64
         matching of its values must reproduce ``plan.row_perm``; raises
         ``ValueError`` otherwise."""
-        _check_slice(dtype, layout, mesh, verify)
+        _check_slice(dtype, layout, verify, mesh)
         if not plan.matches_pattern(A):
             raise ValueError("matrix pattern differs from the plan's pattern")
         scaling = compute_scaling(A, mc64)
@@ -180,7 +193,7 @@ class GLU:
                     dense_tail_density=dense_tail_density, device=device,
                     static_pivot=static_pivot, jit_schedule=jit_schedule,
                     executable_cache=executable_cache,
-                    mode_override=mode_override, verify=verify)
+                    mode_override=mode_override, verify=verify, mesh=mesh)
         return self
 
     def _setup(self, plan: SymbolicPlan, scaling: MC64Scaling, A: CSC,
@@ -189,8 +202,10 @@ class GLU:
                dense_tail: bool, dense_tail_density: float, device,
                static_pivot: Optional[float], jit_schedule: bool,
                executable_cache, mode_override: Optional[str],
-               verify: str) -> None:
-        self.device = resolve_device(device)
+               verify: str, mesh=None) -> None:
+        self.mesh = mesh
+        self._shard = make_scenario_sharding(mesh)
+        self.device = _mesh_device(mesh, device)
         self.dtype = resolve_value_dtype(dtype, self.device)
         self.n = A.n
         self.symbolic_plan = plan
@@ -224,14 +239,16 @@ class GLU:
             self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail,
             dense_tail_density=dense_tail_density, layout=layout,
             static_pivot=static_pivot, jit_schedule=jit_schedule,
-            executable_cache=executable_cache, mode_override=mode_override)
+            executable_cache=executable_cache, mode_override=mode_override,
+            shard=self._shard)
         self.layout = self._factorizer.layout
         self._solver = TorchTriangularSolver(
             self.plan, device=dev, jit_schedule=jit_schedule,
             executable_cache=executable_cache)
         self._vals: Optional[torch.Tensor] = None
-        self._vals_batch: Optional[torch.Tensor] = None
+        self._vals_batch = None       # a tensor, or a sharded batch
         self._batch_size: Optional[int] = None
+        self._batch_pad = 0           # pad rows after the batch's B
         # A's values on the device for refinement: the factorizer's static
         # input buffer, and |A|, refreshed on the first refined solve after
         # each factorization; a batched factorization has its own pair
@@ -414,14 +431,24 @@ class GLU:
         if data.ndim != 2 or data.shape[1] != len(self._data_perm):
             raise ValueError(f"expected (B, {len(self._data_perm)}) values, "
                              f"got shape {data.shape}")
-        a_vals = self._factorizer.load_batched(self._scaled(data))
+        scaled = self._scaled(data)
+        B = data.shape[0]
+        self._batch_pad = 0
+        if self._shard is not None and B > 1:
+            # pad with copies of the LAST scenario (a factorizable system,
+            # so the pad rows never poison diagnostics with inf/NaN); they
+            # are masked out of results and diagnostics
+            self._batch_pad = self._shard.pad(B) - B
+            if self._batch_pad:
+                scaled = np.concatenate(
+                    [scaled, np.repeat(scaled[-1:], self._batch_pad, axis=0)])
+        a_vals = self._factorizer.load_batched(scaled)
         if self._a_vals_batch is not a_vals:
             self._a_vals_batch = a_vals
-            self._a_abs_batch = torch.empty_like(a_vals,
-                                                 dtype=a_vals.real.dtype)
+            self._a_abs_batch = map_blocks(a_vals, _empty_abs)
         self._a_abs_batch_stale = True
         self._vals_batch = self._factorizer.run_batched()
-        self._batch_size = data.shape[0]
+        self._batch_size = B
         self._vals = None
         self._n_pert = self._factorizer.last_n_perturbed
         self._stats_pending = True
@@ -434,7 +461,8 @@ class GLU:
         dtype: a copy."""
         if self._vals_batch is None:
             raise RuntimeError("call factorize_batched() first")
-        return self._vals_batch.clone()
+        return gather_rows(self._vals_batch, self.device,
+                           self._batch_size).clone()
 
     def solve_batched(self, b_batch, refine: Optional[int] = None,
                       rhs_pattern=None) -> np.ndarray:
@@ -456,16 +484,27 @@ class GLU:
         k = self.refine_default if refine is None else int(refine)
         pat = self._map_rhs_pattern(rhs_pattern, b)
         bp = (b * self.Dr[None, :])[:, self._inv_row]
+        if self._batch_pad:
+            # zero right-hand sides for the pad rows: their solution is
+            # exactly zero and their backward error 0/0 counts as
+            # converged, so refinement never iterates for them
+            bp = np.concatenate(
+                [bp, np.zeros((self._batch_pad, self.n), dtype=bp.dtype)])
         abs_steps = 0
         if k > 0:
             if self._a_abs_batch_stale:
-                torch.abs(self._a_vals_batch, out=self._a_abs_batch)
+                for a, out in zip(batch_blocks(self._a_vals_batch),
+                                  batch_blocks(self._a_abs_batch)):
+                    torch.abs(a, out=out)
                 self._a_abs_batch_stale = False
                 abs_steps = 1
             xp, rinfo = self._solver.solve_refined_batched(
                 self._vals_batch, bp, self._spmv_rows, self._spmv_cols,
                 self._a_vals_batch, self._a_abs_batch, max_iter=k,
                 tol=self.refine_tol, rhs_pattern=pat)
+            if self._batch_pad:
+                rinfo = {key: (v[:B] if isinstance(v, np.ndarray) else v)
+                         for key, v in rinfo.items()}
         else:
             xp = self._solver.solve_batched(self._vals_batch, bp,
                                             rhs_pattern=pat)
@@ -473,7 +512,7 @@ class GLU:
                      "backward_error": None, "converged": None,
                      "host_syncs": 0}
         self._set_solve_info(rinfo, abs_steps)
-        return xp.cpu().numpy()[:, self.col_map] * self.Dc[None, :]
+        return xp[:B].cpu().numpy()[:, self.col_map] * self.Dc[None, :]
 
     def refactorize_solve(self, a_data_batch, b_batch,
                           refine: Optional[int] = None,
@@ -518,6 +557,8 @@ class GLU:
         return self._info.get("converged")
 
     def _base_info(self, batched: bool = False) -> dict:
+        fz = self._factorizer
+        shard = fz.last_shard if batched else None
         return {"batched": batched, "pivot_growth": None, "min_diag": None,
                 "n_perturbed": None, "refine_iters": None,
                 "backward_error": None, "converged": None,
@@ -525,8 +566,10 @@ class GLU:
                 "solve_dispatches": None, "layout": self.layout.name,
                 "kernels_disabled_reason":
                     self._factorizer.kernels_disabled_reason,
-                "n_devices": 1, "batch_spec": None,
-                "n_perturbed_global": None,
+                "n_devices": 1 if shard is None else shard.n_shards,
+                "batch_spec": None if shard is None else shard.spec,
+                "n_perturbed_global": (None if shard is None
+                                       else fz.last_n_perturbed_global),
                 "verify_report": (None if self.verify_report is None
                                   else self.verify_report.summary())}
 
@@ -549,22 +592,36 @@ class GLU:
         device here, like the growth and the smallest diagonal.  After a
         batched factorization (``batched`` True) ``pivot_growth``,
         ``min_diag``, ``n_perturbed`` and the refinement fields are (B,)
-        arrays."""
+        arrays, the pad rows of a sharded batch left out.  ``n_devices``,
+        ``batch_spec`` and ``n_perturbed_global`` describe a sharded
+        batch (see the class docstring)."""
         if self._info is None:
             return None
         if self._stats_pending:
             from ..kernels.ops import factor_stats
 
-            vals, a_vals = ((self._vals_batch, self._a_vals_batch)
-                            if self._vals is None else (self._vals, self._a_vals))
+            if self._vals is None:
+                B = self._batch_size
+                vals, a_vals = (gather_rows(self._vals_batch, self.device, B),
+                                gather_rows(self._a_vals_batch, self.device, B))
+                n_pert = (None if self._n_pert is None
+                          else gather_rows(self._n_pert, self.device, B))
+            else:
+                vals, a_vals, n_pert = self._vals, self._a_vals, self._n_pert
             growth, min_diag = factor_stats(vals, self._factorizer._diag_idx,
                                             a_vals.abs().amax(-1))
-            n_pert = self._n_pert
+            glob = self._info["n_perturbed_global"]
             self._info.update(
                 pivot_growth=_host(growth), min_diag=_host(min_diag),
-                n_perturbed=None if n_pert is None else _host(n_pert))
+                n_perturbed=None if n_pert is None else _host(n_pert),
+                n_perturbed_global=None if glob is None else _host(glob))
             self._stats_pending = False
         return dict(self._info)
+
+    @property
+    def n_devices(self) -> int:
+        """Shard count batched calls split over (1 = unsharded)."""
+        return 1 if self._shard is None else self._shard.n_shards
 
     @property
     def nnz_filled(self) -> int:
@@ -586,10 +643,28 @@ def _host(t: torch.Tensor):
     return t.item() if t.dim() == 0 else t.cpu().numpy()
 
 
-def _check_slice(dtype, layout, mesh, verify):
+def _empty_abs(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(t, dtype=t.real.dtype)
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The GLU's device: the mesh's first device, which ``device`` may
+    name; without a mesh, :func:`resolve_device` of ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    first = mesh.devices[0]
+    if device is not None:
+        want = torch.device(device)
+        if want.type != first.type or want.index not in (None, first.index):
+            raise ValueError(f"device={device!r} is not the mesh's first "
+                             f"device {first}")
+    return resolve_device(first)
+
+
+def _check_slice(dtype, layout, verify, mesh):
     """Refuse what this package does not run before any planning work."""
     ported_layout(layout, dtype)
-    _not_ported("mesh", mesh, None)
+    check_mesh(mesh)
     if verify not in ("off", "plan", "full"):
         raise ValueError(
             f"verify must be 'off', 'plan' or 'full', got {verify!r}")

@@ -146,7 +146,9 @@ class CapturedSchedule:
     ``fn`` into the graph without running it; every later call replays.
     Intermediates of the captured work live in the graph's private memory
     pool.  A capture that fails raises: there is no fallback to the eager
-    steps.
+    steps.  The warm-up and the capture run on a side stream of
+    ``device``, so each card of a sharded sweep captures its own work
+    whatever card is current.
 
     Launch counts: the kernel wrappers count a launch only where one
     happens, so an eager call counts its launches, the capture counts none
@@ -180,7 +182,10 @@ class CapturedSchedule:
             main.wait_stream(side)
             before = [k.captured for k in COUNTED]
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # the capture stream must be this device's: torch.cuda.graph's
+            # default is one stream made on whichever card came first, and
+            # a capture there records nothing of another card's work
+            with torch.cuda.graph(graph, stream=side):
                 self.fn()
             self.launches = {k: k.captured - b
                              for k, b in zip(COUNTED, before) if k.captured > b}

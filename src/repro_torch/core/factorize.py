@@ -4,6 +4,8 @@ executor.
 * ``factorize_numpy``      — paper Alg. 2 (hybrid right-looking), sequential
                              host oracle, verbatim loop structure.
 * ``factorize_numpy_fast`` — the same math with a CSR view of the pattern.
+* ``leftlooking_numpy``    — paper Alg. 1 (Gilbert-Peierls left-looking),
+                             the sequential baseline.
 * ``TorchFactorizer``      — the GLU3.0 executor: level-scheduled, three
                              adaptive modes; each run of consecutive
                              SEGMENTED/PANEL levels is one launch of kernel
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import ShardedBatch, psum_exact
 from ..kernels.dense_lu import BLOCK, dense_lu, dense_lu_planar
 from ..kernels.level_update import LevelRun, level_run
 from ..kernels.ops import add_in_rounds_, perturb_diags, round_order
@@ -54,8 +57,8 @@ from .executor import CapturedSchedule, resolve_executable_cache
 from .plan import MODE_FLAT, MODE_PANEL, MODE_SEGMENTED, FactorizePlan
 from .symbolic import FilledPattern
 
-__all__ = ["factorize_numpy", "factorize_numpy_fast", "TorchFactorizer",
-           "split_lu", "value_dtype", "ported_layout"]
+__all__ = ["factorize_numpy", "factorize_numpy_fast", "leftlooking_numpy",
+           "TorchFactorizer", "split_lu", "value_dtype", "ported_layout"]
 
 
 # --------------------------------------------------------------------------
@@ -117,6 +120,29 @@ def factorize_numpy_fast(As: FilledPattern, vals: np.ndarray) -> np.ndarray:
             ks, ke = int(indptr[k]), int(indptr[k + 1])
             pos = ks + np.searchsorted(indices[ks:ke], lrows)
             vals[pos] -= lvals * vals[up]
+    return vals
+
+
+def leftlooking_numpy(As: FilledPattern, vals: np.ndarray) -> np.ndarray:
+    """Paper Algorithm 1: Gilbert-Peierls left-looking LU (baseline)."""
+    n, indptr, indices = As.n, As.indptr, As.indices
+    vals = np.array(vals, dtype=_oracle_dtype(vals), copy=True)
+    for j in range(n):
+        s, e = int(indptr[j]), int(indptr[j + 1])
+        rows = indices[s:e]
+        dp = s + int(np.searchsorted(rows, j))
+        # triangular solve: for k < j with As(k, j) != 0 ascending
+        for p in range(s, dp):
+            k = int(indices[p])
+            akj = vals[p]
+            ks, ke = int(indptr[k]), int(indptr[k + 1])
+            kdp = ks + int(np.searchsorted(indices[ks:ke], k))
+            lrows = indices[kdp + 1 : ke]
+            if len(lrows) == 0:
+                continue
+            pos = s + np.searchsorted(rows, lrows)
+            vals[pos] -= vals[kdp + 1 : ke] * akj
+        vals[dp + 1 : e] /= vals[dp]
     return vals
 
 
@@ -554,6 +580,20 @@ class TorchFactorizer:
     dense tails one batched K2/K3 launch, the flat levels one step each;
     one replay on the card.  It owns (B, nnz_A) and (B, nnz + 1) buffers
     and a graph for the latest B; ``last_n_perturbed`` is then (B,).
+
+    ``shard`` (a :class:`~repro_torch.distributed.ScenarioSharding`)
+    splits a batched factorization whose B the shard count divides into
+    contiguous row blocks, one a shard.  Each shard is a factorizer of its
+    own on its device (its schedule, cached under the shard's slot
+    ``shard_slot``, its buffers and its graph), and runs the whole
+    schedule on its block: every shard's replay is launched before any
+    host read, so distinct cards overlap.  The batch then comes back as a
+    :class:`~repro_torch.distributed.ShardedBatch`, ``last_n_perturbed``
+    too, ``last_n_dispatches`` counts a shard's dispatches (1 for a
+    replay), ``last_shard`` is the sharding and
+    ``last_n_perturbed_global`` the exact sum of every row's bumps (pad
+    rows included) on the first shard's device.  Unbatched calls and
+    batches that the shard count does not divide run unsharded.
     """
 
     def __init__(
@@ -569,6 +609,8 @@ class TorchFactorizer:
         executable_cache="default",
         mode_override: Optional[str] = None,
         disable_modes: tuple = (),
+        shard=None,
+        shard_slot: Optional[tuple] = None,
     ):
         if mode_override is not None and mode_override not in _MODES:
             raise ValueError(f"mode_override must be one of {_MODES} or "
@@ -591,7 +633,14 @@ class TorchFactorizer:
             dtype=self.dtype, device=self.device, dense_tail=dense_tail,
             dense_tail_density=dense_tail_density, layout=layout,
             static_pivot=static_pivot, jit_schedule=self.jit_schedule,
-            mode_override=mode_override, disable_modes=disable_modes)
+            mode_override=mode_override, disable_modes=disable_modes,
+            shard=shard)
+        self.shard = shard
+        self._slot = shard_slot
+        self._shards = None           # each shard's factorizer, when first used
+        self._sharded_in = None       # the loaded sharded batch's inputs
+        self.last_shard = None
+        self.last_n_perturbed_global = None
         self.nnz = plan.nnz
         level_cut, c_star = _level_cut(plan, dense_tail, dense_tail_density)
         self._kinds = _schedule_kinds(plan, level_cut, c_star is not None,
@@ -629,9 +678,10 @@ class TorchFactorizer:
     def _schedule_key(self):
         """The cache key of the built steps, after the reference's runner
         key (``core/factorize.py:945``): plan digest, group kinds, dtype,
-        value layout, and the device they live on."""
+        value layout, the device they live on and the shard slot (None
+        unsharded), so each shard owns its index tensors."""
         return ("factorize", self.plan.digest, self._kinds, str(self.dtype),
-                self.layout.name, self.nnz, str(self.device))
+                self.layout.name, self.nnz, str(self.device), self._slot)
 
     def twin(self) -> "TorchFactorizer":
         """A new factorizer with this one's plan and options: it shares the
@@ -687,6 +737,7 @@ class TorchFactorizer:
         self.last_n_dispatches = self._dispatch(
             self._graph, self.a_values, self._buf, self._count)
         self.last_n_perturbed = self._count
+        self.last_shard = self.last_n_perturbed_global = None
         return self._buf[: self.nnz]
 
     def _dispatch(self, graph, a_values, vals, count) -> int:
@@ -720,30 +771,74 @@ class TorchFactorizer:
             self._batch = st
         return st
 
-    def load_batched(self, a_vals_batch) -> torch.Tensor:
+    def _shard_executors(self) -> list:
+        """One factorizer a shard, on its device with this one's options,
+        its schedule cached under its own slot: built at the first sharded
+        batch."""
+        if self._shards is None:
+            desc = self.shard.descriptor
+            opts = dict(self._options, shard=None)
+            self._shards = [
+                TorchFactorizer(self.plan, executable_cache=self._exec_cache,
+                                shard_slot=(desc, i), **dict(opts, device=d))
+                for i, d in enumerate(self.shard.devices)]
+        return self._shards
+
+    def load_batched(self, a_vals_batch):
         """Copy (B, nnz_A) A values, one matrix a row (host or device),
-        into the static input buffer of batch size B; returns it."""
+        into the static input buffer of batch size B; returns it.  Under a
+        sharding that divides B, each row block goes to its shard's buffer
+        on its device, and the buffers come back as a
+        :class:`~repro_torch.distributed.ShardedBatch`."""
         a = torch.as_tensor(a_vals_batch, dtype=self.dtype)
         if a.dim() != 2 or a.shape[1] != len(self.plan.a_scatter):
             raise ValueError(f"expected (B, {len(self.plan.a_scatter)}) "
                              f"values, got shape {tuple(a.shape)}")
-        st = self._bind_batch(a.shape[0])
-        st["a_values"].copy_(a)
-        return st["a_values"]
+        if self.shard is None or a.shape[0] % self.shard.n_shards:
+            self._sharded_in = None
+            st = self._bind_batch(a.shape[0])
+            st["a_values"].copy_(a)
+            return st["a_values"]
+        parts = [f.load_batched(block) for f, block in
+                 zip(self._shard_executors(), self.shard.split(a))]
+        sb = self._sharded_in
+        if sb is None or any(p is not q for p, q in zip(parts, sb.parts)):
+            sb = self._sharded_in = ShardedBatch(self.shard, parts)
+        return sb
 
-    def run_batched(self) -> torch.Tensor:
+    def run_batched(self):
         """Factorize the loaded batch: every step once for the whole batch
         (one K1 launch per run, one batched K2/K3 launch for the dense
         tails), one graph replay on the card.  Returns the (B, nnz)
         factored values, a view of the static buffer; row b equals
-        :meth:`factorize` of matrix b bit for bit."""
+        :meth:`factorize` of matrix b bit for bit.  A sharded batch runs
+        one replay a shard, all launched before any host read, and comes
+        back as a :class:`~repro_torch.distributed.ShardedBatch` of the
+        shards' views."""
+        if self._sharded_in is not None:
+            return self._run_sharded()
         st = self._batch
         if st is None:
             raise RuntimeError("call load_batched() first")
         self.last_n_dispatches = self._dispatch(
             st["graph"], st["a_values"], st["buf"], st["count"])
         self.last_n_perturbed = st["count"]
+        self.last_shard = self.last_n_perturbed_global = None
         return st["buf"][:, : self.nnz]
+
+    def _run_sharded(self) -> ShardedBatch:
+        subs = self._shards
+        out = ShardedBatch(self.shard, [f.run_batched() for f in subs])
+        self.last_n_dispatches = max(f.last_n_dispatches for f in subs)
+        self.last_shard = self.shard
+        if self.static_pivot is None:
+            self.last_n_perturbed = self.last_n_perturbed_global = None
+        else:
+            counts = [f.last_n_perturbed for f in subs]
+            self.last_n_perturbed = ShardedBatch(self.shard, counts)
+            self.last_n_perturbed_global = psum_exact(
+                [c.sum() for c in counts])
+        return out
 
     def factorize_batched(self, a_vals_batch) -> torch.Tensor:
         """Factorize B matrices on this plan in lockstep: (B, nnz_A) values

@@ -29,6 +29,7 @@ plan arrays, byte for byte, as the JAX package's planner.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -286,25 +287,40 @@ class PlanCacheStats:
     misses: int = 0
     evictions: int = 0
     builds: int = 0       # symbolic builds performed on behalf of this cache
+    disk_hits: int = 0    # hits served by reading a persisted plan
 
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
 
 
 class PlanCache:
-    """Content-addressed in-memory LRU of :class:`SymbolicPlan` artifacts.
+    """Content-addressed LRU of :class:`SymbolicPlan` artifacts.
 
-    ``capacity`` bounds the entry count (plans for big matrices hold the
-    full update-triple arrays, so the default stays small).
+    ``capacity`` bounds the in-memory entry count (plans for big matrices
+    hold the full update-triple arrays, so the default stays small).  With a
+    ``directory``, every stored plan is also written to
+    ``<directory>/<key>.plan.npz`` (``convert.plan_to_arrays``: plain
+    arrays, no pickle) and an in-memory miss falls through to disk, read
+    back with ``allow_pickle=False``: a warm start for repeated processes.
+    A file that does not read back (corrupt, or of another
+    ``PLAN_FORMAT_VERSION``) is a miss.  The JAX package's pickled
+    ``<key>.plan`` files in a shared directory are never opened.
+    Evictions only drop the memory copy; persisted plans stay on disk.
     """
 
-    def __init__(self, capacity: int = 8):
+    def __init__(self, capacity: int = 8, directory: Optional[str] = None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = int(capacity)
+        self.directory = None if directory is None else os.fspath(directory)
+        if self.directory is not None:
+            os.makedirs(self.directory, exist_ok=True)
         self._plans: OrderedDict[str, SymbolicPlan] = OrderedDict()
         self._lock = threading.Lock()
         self.stats = PlanCacheStats()
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.directory, f"{key}.plan.npz")
 
     def get(self, key: str) -> Optional[SymbolicPlan]:
         with self._lock:
@@ -313,18 +329,38 @@ class PlanCache:
                 self._plans.move_to_end(key)
                 self.stats.hits += 1
                 return plan
+            if self.directory is not None:
+                plan = _read_plan(self._path(key), key)
+                if plan is not None:
+                    self._insert(key, plan)
+                    self.stats.hits += 1
+                    self.stats.disk_hits += 1
+                    return plan
             self.stats.misses += 1
             return None
 
     def put(self, key: str, plan: SymbolicPlan) -> None:
         with self._lock:
-            self._plans[key] = plan
-            self._plans.move_to_end(key)
-            while len(self._plans) > self.capacity:
-                self._plans.popitem(last=False)
-                self.stats.evictions += 1
+            self._insert(key, plan)
+            if self.directory is not None:
+                from ..convert import plan_to_arrays
+
+                path = self._path(key)
+                tmp = path + ".tmp"
+                with open(tmp, "wb") as f:
+                    np.savez(f, format_version=PLAN_FORMAT_VERSION,
+                             **plan_to_arrays(plan))
+                os.replace(tmp, path)
+
+    def _insert(self, key: str, plan: SymbolicPlan) -> None:
+        self._plans[key] = plan
+        self._plans.move_to_end(key)
+        while len(self._plans) > self.capacity:
+            self._plans.popitem(last=False)
+            self.stats.evictions += 1
 
     def clear(self) -> None:
+        """Drop all in-memory entries (persisted plans stay on disk)."""
         with self._lock:
             self._plans.clear()
 
@@ -333,6 +369,24 @@ class PlanCache:
 
     def __contains__(self, key: str) -> bool:
         return key in self._plans
+
+
+def _read_plan(path: str, key: str) -> Optional[SymbolicPlan]:
+    """The plan persisted at ``path``, or None when there is none or it
+    does not read back as this format's plan for ``key``."""
+    if not os.path.exists(path):
+        return None
+    from ..convert import symbolic_plan_from_arrays
+
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            d = {k: z[k] for k in z.files}
+        if int(d.pop("format_version")) != PLAN_FORMAT_VERSION \
+                or str(d["key"]) != key:
+            return None
+        return symbolic_plan_from_arrays(d)
+    except Exception:
+        return None
 
 
 _default_cache = PlanCache()

@@ -42,6 +42,16 @@ one would have added an exact zero.  The pruned solve is the full solve's
 bits on the reach, exact zeros off it.  Pruned sweeps are cached per
 pattern (an LRU of ``SPARSE_SCHEDULE_CAP``, with their graphs and
 buffers) and shared between solvers through the executable cache.
+
+Scenario sharding: a batched solve on factors held as a
+:class:`~repro_torch.distributed.ShardedBatch` splits its
+right-hand sides into the same row blocks and runs each block on its
+shard's solver (its sweeps, pruned ones too, buffers and graphs on its
+device).  Every shard's replay is launched before any host read, and a
+refined solve steps its chunks in lockstep over the shards with one global
+stopping test, as the JAX package's sharded loop does; rows never
+interact, so every row has the unsharded batch's bits.  Single and
+many-RHS solves stay unsharded.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import ShardedBatch
 from ..kernels.ops import add_in_rounds_, masked_correction, round_order, spmv
 from .executor import CapturedSchedule, resolve_executable_cache
 from .plan import FactorizePlan
@@ -231,7 +242,12 @@ class TorchTriangularSolver:
     ``last_n_dispatches`` counts the latest call's dispatches: replays plus
     reads on the graph path, host-issued steps plus reads otherwise (and
     for the card's first call of each kind, which runs the steps eagerly
-    while it warms up the graph).
+    while it warms up the graph); a sharded batch counts a shard's.
+
+    Batched solves on a :class:`~repro_torch.distributed.ShardedBatch` of
+    factors run on one solver a shard (its ``shard_slot`` keys its cached
+    sweeps), see the module docstring; their solution comes back on this
+    solver's device.
     """
 
     # pruned schedules kept per rhs pattern (with their graphs and buffers):
@@ -239,13 +255,16 @@ class TorchTriangularSolver:
     SPARSE_SCHEDULE_CAP = 32
 
     def __init__(self, plan: FactorizePlan, device=None,
-                 jit_schedule: bool = True, executable_cache="default"):
+                 jit_schedule: bool = True, executable_cache="default",
+                 shard_slot=None):
         self.plan = plan
         self.device = resolve_device(device)
         self.jit_schedule = bool(jit_schedule)
+        self._shards = None          # each shard's solver, when first used
+        self._copies: dict = {}      # tensors of another device, copied here
         self._cache = resolve_executable_cache(executable_cache)
         self._key = ("trisolve", plan.digest, plan.n, len(plan.fwd_ptr),
-                     len(plan.bwd_ptr), str(self.device))
+                     len(plan.bwd_ptr), str(self.device), shard_slot)
         self._sweeps = self._cache.get_or_build(
             self._key, lambda: _Sweeps(plan, self.device))
         # pattern key -> (schedule_for_pattern's entry, its _Sweeps)
@@ -345,8 +364,39 @@ class TorchTriangularSolver:
         replay on the card); a buffer as in :meth:`solve`.  A
         ``rhs_pattern`` is the batch's union support."""
         _check_batch(vals, b, self.plan.n)
+        if isinstance(vals, ShardedBatch):
+            subs = self._shard_solvers(vals)
+            outs = [s.solve_batched(v, blk, rhs_pattern) for s, v, blk in
+                    zip(subs, vals.parts, vals.sharding.split(b))]
+            self.last_n_dispatches = max(s.last_n_dispatches for s in subs)
+            return torch.cat([x.to(self.device) for x in outs])
         return self._solve("solve_batched", vals, b, (vals.shape[0], self.plan.n),
                            rhs_pattern)
+
+    def _shard_solvers(self, vals: ShardedBatch) -> list:
+        """One solver a shard of ``vals``'s sharding, on its device, its
+        sweeps cached under its own slot: built at the first sharded
+        solve."""
+        sh = vals.sharding
+        if self._shards is None or self._shards[0] != sh:
+            self._shards = (sh, [
+                TorchTriangularSolver(self.plan, device=d,
+                                      jit_schedule=self.jit_schedule,
+                                      executable_cache=self._cache,
+                                      shard_slot=(sh.descriptor, i))
+                for i, d in enumerate(sh.devices)])
+        return self._shards[1]
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on this solver's device: a copy made once and kept (the
+        graphs bind its address) when it lies on another."""
+        if t.device == self.device:
+            return t
+        key = (t.data_ptr(), t.dtype, tuple(t.shape), t.device)
+        c = self._copies.get(key)
+        if c is None:
+            c = self._copies[key] = (t, t.to(self.device))
+        return c[1]
 
     def solve_multi(self, vals: torch.Tensor, b,
                     rhs_pattern=None) -> torch.Tensor:
@@ -394,6 +444,20 @@ class TorchTriangularSolver:
         ``refine_iters``, ``backward_error`` and ``converged`` are (B,)
         arrays."""
         _check_batch(vals, b, self.plan.n)
+        if isinstance(vals, ShardedBatch):
+            subs = self._shard_solvers(vals)
+            refs = [s._refinement("refine_batched", v, blk, (v.shape[0], s.plan.n),
+                                  s._local(a_rows), s._local(a_cols), av, aa,
+                                  tol, rhs_pattern)
+                    for s, v, blk, av, aa in zip(
+                        subs, vals.parts, vals.sharding.split(b),
+                        a_vals.parts, a_abs.parts)]
+            reads, syncs = _refine_lockstep(refs, max_iter, tol, sync_every)
+            self.last_n_dispatches = max(r.n_disp for r in refs) + syncs
+            berr = np.concatenate([r[0] for r in reads])
+            iters = np.concatenate([r[1] for r in reads])
+            x = torch.cat([r.x.to(self.device) for r in refs])
+            return x, _refine_info(berr, iters, tol, syncs)
         return self._solve_refined("refine_batched", vals, b,
                                    (vals.shape[0], self.plan.n), a_rows,
                                    a_cols, a_vals, a_abs, max_iter, tol,
@@ -413,12 +477,36 @@ class TorchTriangularSolver:
 
     def _solve_refined(self, slot, vals, b, shape, a_rows, a_cols, a_vals,
                        a_abs, max_iter, tol, rhs_pattern, sync_every):
-        n = self.plan.n
-        dev = vals.device
+        ref = self._refinement(slot, vals, b, shape, a_rows, a_cols, a_vals,
+                               a_abs, tol, rhs_pattern)
+        [(berr_h, iters_h)], syncs = _refine_lockstep([ref], max_iter, tol,
+                                                      sync_every)
+        self.last_n_dispatches = ref.n_disp + syncs
+        if not shape[:-1]:
+            berr_h, iters_h = float(berr_h), int(iters_h)
+        return ref.x, _refine_info(berr_h, iters_h, tol, syncs)
+
+    def _refinement(self, slot, vals, b, shape, a_rows, a_cols, a_vals,
+                    a_abs, tol, rhs_pattern) -> "_Refinement":
+        """A refined solve's buffers and steps, bound to these tensors."""
         first, pid = self._sweeps_for(rhs_pattern)
-        full = self._sweeps
         bound = self._bind((slot, pid), (vals, a_rows, a_cols, a_vals, a_abs),
                            shape)
+        return _Refinement(self, bound, first, vals, b, shape, a_rows, a_cols,
+                           a_vals, a_abs, tol)
+
+
+class _Refinement:
+    """One refined solve on one device: ``head`` dispatches ``x =
+    solve(b)`` and its residual, ``chunk(k)`` k refinement sweeps,
+    ``read`` the stopping test's counters (one device-to-host read).
+    ``n_disp`` counts the dispatches issued."""
+
+    def __init__(self, solver, bound, first, vals, b, shape, a_rows, a_cols,
+                 a_vals, a_abs, tol):
+        n = solver.plan.n
+        dev = vals.device
+        full = solver._sweeps
         lead = tuple(shape[:-1])
         real = vals.real.dtype
 
@@ -453,28 +541,46 @@ class TorchTriangularSolver:
                 iters.add_(berr > tol)
                 residual()
 
-        steps = full.n_steps
-        n_disp = self._dispatch(bound, "head", head, first.n_steps + 1)
-        syncs = 0
-        done = 0
-        berr_h = iters_h = None
-        while done < max_iter:
-            k = min(max(1, int(sync_every)), max_iter - done)
-            n_disp += self._dispatch(bound, ("chunk", k, float(tol)),
-                                     lambda: chunk(k), k * (steps + 2))
-            done += k
-            berr_h, iters_h = _read_back(stat)
-            syncs += 1
-            if np.all(berr_h <= tol):
-                break
-        if berr_h is None:                      # max_iter == 0
-            berr_h, iters_h = _read_back(stat)
-            syncs += 1
-        self.last_n_dispatches = n_disp + syncs
-        if not lead:
-            berr_h, iters_h = float(berr_h), int(iters_h)
-        return x, {"refine_iters": iters_h, "backward_error": berr_h,
-                   "converged": berr_h <= tol, "host_syncs": syncs}
+        self.x, self.stat = x, stat
+        self._solver, self._bound, self._tol = solver, bound, float(tol)
+        self._chunk, self._steps = chunk, full.n_steps
+        self.n_disp = solver._dispatch(bound, "head", head, first.n_steps + 1)
+
+    def chunk(self, k: int) -> None:
+        self.n_disp += self._solver._dispatch(
+            self._bound, ("chunk", k, self._tol), lambda: self._chunk(k),
+            k * (self._steps + 2))
+
+    def read(self):
+        return _read_back(self.stat)
+
+
+def _refine_lockstep(refs, max_iter: int, tol: float, sync_every: int):
+    """Step refined solves together: every one's chunk of ``sync_every``
+    sweeps is dispatched before any is read, and all stop when every
+    row of every one meets ``tol`` (or after ``max_iter`` sweeps).
+    Returns each one's last ``(berr, iters)`` read and the reads a solve
+    took."""
+    syncs = done = 0
+    reads = None
+    while done < max_iter:
+        k = min(max(1, int(sync_every)), max_iter - done)
+        for ref in refs:
+            ref.chunk(k)
+        done += k
+        reads = [ref.read() for ref in refs]
+        syncs += 1
+        if all(np.all(berr <= tol) for berr, _ in reads):
+            break
+    if reads is None:                       # max_iter == 0
+        reads = [ref.read() for ref in refs]
+        syncs += 1
+    return reads, syncs
+
+
+def _refine_info(berr, iters, tol: float, syncs: int) -> dict:
+    return {"refine_iters": iters, "backward_error": berr,
+            "converged": berr <= tol, "host_syncs": syncs}
 
 
 def _check_batch(vals, b, n: int) -> None:

@@ -16,8 +16,10 @@ from .gen import (
     grid_laplacian,
     ill_conditioned_jacobian,
     make_suite_matrix,
+    multi_domain_circuit,
     rc_ladder,
 )
+from .io import read_matrix_market, write_matrix_market
 
 __all__ = [
     "CSC",
@@ -33,6 +35,9 @@ __all__ = [
     "grid_laplacian",
     "ill_conditioned_jacobian",
     "make_suite_matrix",
+    "multi_domain_circuit",
+    "read_matrix_market",
+    "write_matrix_market",
     "rc_ladder",
     "ValueLayout",
     "resolve_layout",

@@ -11,7 +11,9 @@ matrices with the same structural character:
   rows/columns (supply rails, clock nets),
 * large, irregular level structure after fill-in.
 
-The same seed gives the same bytes as the JAX package's generators.
+``sparse/io.py`` reads real MatrixMarket files when present, so UFL
+matrices drop in unchanged.  The same seed gives the same bytes as the JAX
+package's generators.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ __all__ = [
     "rc_ladder",
     "circuit_jacobian",
     "asic_like",
+    "multi_domain_circuit",
     "ill_conditioned_jacobian",
     "ac_jacobian",
     "SUITES",
@@ -145,6 +148,34 @@ def asic_like(n: int, seed: int = 0) -> CSC:
     cols = np.concatenate([c0, b, a, a, b])
     vals = np.concatenate([v0, -g, -g, g + 0.25, g + 0.25])
     return csc_from_coo(nn, rows, cols, vals)
+
+
+def multi_domain_circuit(
+    domain_sizes: tuple = (1600,) + (400,) * 12,
+    seed: int = 0,
+) -> CSC:
+    """Multi-power-domain chip: structurally decoupled subcircuits sharing
+    one MNA system (isolated supply domains, replicated macros, chiplets).
+
+    Block-diagonal of :func:`asic_like` blocks: one symbolic plan and one
+    numeric factorization cover the whole chip, but the reach of a
+    localized excitation stays inside its domain.  This is the matrix class
+    where sparse-RHS pruning of the triangular solves wins: a 1-hot
+    right-hand side touches about one block of the factors instead of all
+    of them.  The default mixes one large domain with many small ones, as
+    real floorplans do.
+    """
+    rows, cols, vals = [], [], []
+    off = 0
+    for k, m in enumerate(domain_sizes):
+        B = asic_like(int(m), seed=seed + 13 * k)
+        r, c, v = B.to_coo()
+        rows.append(r + off)
+        cols.append(c + off)
+        vals.append(v)
+        off += B.n
+    return csc_from_coo(off, np.concatenate(rows), np.concatenate(cols),
+                        np.concatenate(vals))
 
 
 def ill_conditioned_jacobian(

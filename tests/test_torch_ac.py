@@ -177,14 +177,16 @@ def test_ac_sweep_flags_unconverged_op_point():
                                                max_newton=60, use_pallas=True))
 
 
-@pytest.mark.parametrize("option", [dict(layout="native"), dict(mesh=object())],
-                         ids=["native", "mesh"])
-def test_ac_sweep_refuses_before_planning(option):
-    """``layout="native"`` and ``mesh`` raise before any planning work."""
+@pytest.mark.parametrize("option,exc", [
+    (dict(layout="native"), NotImplementedError),
+    (dict(mesh=object()), TypeError)], ids=["native", "mesh"])
+def test_ac_sweep_refuses_before_planning(option, exc):
+    """``layout="native"`` and a ``mesh`` that is no ``SweepMesh`` raise
+    before any planning work."""
     cache = PlanCache()
     old = set_default_plan_cache(cache)
     try:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(exc):
             tcirc.ac_sweep(_lowpass(tcirc), [10.0], device="cpu", **option)
     finally:
         set_default_plan_cache(old)

@@ -778,3 +778,146 @@ def test_mode_variant_replays_equal_steps(cuda, opts):
         ref = default._factorizer.factorize(new)
         torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10)
     assert f.last_n_dispatches == 1
+
+
+# -- scenario-sharded sweeps on the card ---------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_sharded_batch_equals_unsharded(cuda, dtype):
+    """An emulated 2-shard mesh of the card: every row of a sharded batch
+    (B = 6, and B = 5 padded to 6) equals the unsharded batch's bit for
+    bit, factors, unrefined and refined solutions, with one factorization
+    replay and one solve replay a shard."""
+    from repro_torch.distributed import make_sweep_mesh
+
+    cplx = dtype.is_complex
+    A = (ac_jacobian if cplx else circuit_jacobian)(300, avg_degree=4.0,
+                                                   seed=0)
+    rng = np.random.default_rng(3)
+    mesh = make_sweep_mesh(devices=[cuda] * 2)
+    g = GLU(A, dtype=dtype, mesh=mesh, static_pivot=1e-10)
+    g0 = GLU(A, dtype=dtype, static_pivot=1e-10)
+    assert g.n_devices == 2 and g.device == torch.device("cuda", 0)
+    for B in (6, 5):
+        batch = np.asarray(A.data)[None] * (
+            1.0 + 0.1 * rng.uniform(-1, 1, size=(B, A.nnz)))
+        bs = rng.normal(size=(B, A.n)) + (1j * rng.normal(size=(B, A.n))
+                                          if cplx else 0.0)
+        for _ in range(2):            # the second call replays
+            x = g.refactorize_solve(batch, bs)
+            x0 = g0.refactorize_solve(batch, bs)
+        assert x.tobytes() == x0.tobytes()
+        assert torch.equal(g.factorized_values_batched(),
+                           g0.factorized_values_batched())
+        info = g.solve_info
+        assert info["n_devices"] == 2 and info["n_dispatches"] == 1
+        assert info["solve_dispatches"] == 1
+        np.testing.assert_array_equal(info["n_perturbed"],
+                                      g0.solve_info["n_perturbed"])
+        xr = g.solve_batched(bs, refine=2)
+        assert xr.tobytes() == g0.solve_batched(bs, refine=2).tobytes()
+        np.testing.assert_array_equal(g.solve_info["refine_iters"],
+                                      g0.solve_info["refine_iters"])
+
+
+def test_level_run_refuses_another_devices_run(cuda):
+    """A ``LevelRun`` holds device pointers into its own device's layout:
+    values on another device are refused before any launch."""
+    rng = np.random.default_rng(0)
+    run_cpu, vals_cpu = random_level_run(rng, K1_RUNS["one-level"],
+                                         torch.float64, "cpu")
+    run_gpu, vals_gpu = random_level_run(rng, K1_RUNS["one-level"],
+                                         torch.float64, cuda)
+    before = level_run.launches
+    with pytest.raises(ValueError, match="lie on"):
+        level_run(vals_cpu.to(cuda), run_cpu)
+    with pytest.raises(ValueError, match="lie on"):
+        level_run(vals_gpu.cpu(), run_gpu)
+    if torch.cuda.device_count() > 1:
+        with pytest.raises(ValueError, match="lie on"):
+            level_run(vals_gpu.to("cuda:1"), run_gpu)
+    assert level_run.launches == before
+
+
+def test_sharded_mixed_mesh_moves_rows_between_devices(cuda):
+    """A mesh that mixes the card with the CPU (and, on a host of several
+    cards, the first and the last card): every row's factors, unrefined
+    and refined solutions within 1e-10 / 1e-9 of the unsharded batch on
+    the card (the CPU shards run the plain versions), B = 8 and B = 7
+    padded to 8, and ``n_perturbed_global`` the padded batch's bump count.
+    Each shard's row block, the gathers onto the first device, the exact
+    sum and the refinement's lockstep cross devices here."""
+    from repro_torch.distributed import make_sweep_mesh
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    A = circuit_jacobian(300, avg_degree=4.0, seed=0)
+    rng = np.random.default_rng(4)
+    mesh = make_sweep_mesh(devices=[cuda, "cpu", last, "cpu"])
+    g = GLU(A, mesh=mesh, static_pivot=1e-10)
+    g0 = GLU(A, static_pivot=1e-10)
+    assert g.n_devices == 4 and g.device == torch.device("cuda", 0)
+    for B in (8, 7):
+        batch = np.asarray(A.data)[None] * (
+            1.0 + 0.1 * rng.uniform(-1, 1, size=(B, A.nnz)))
+        bs = rng.normal(size=(B, A.n))
+        for _ in range(2):            # the second call replays
+            x = g.refactorize_solve(batch, bs)
+            x0 = g0.refactorize_solve(batch, bs)
+        assert x.shape == (B, A.n)
+        np.testing.assert_allclose(x, x0, rtol=1e-9, atol=1e-9)
+        f = g.factorized_values_batched()
+        assert f.device == g.device and f.shape[0] == B
+        torch.testing.assert_close(f, g0.factorized_values_batched(),
+                                   rtol=1e-10, atol=1e-10)
+        info = g.solve_info
+        assert info["n_devices"] == 4
+        assert info["batch_spec"] == "PartitionSpec('data',)"
+        n_pert = info["n_perturbed"]
+        assert n_pert.shape == (B,) and info["pivot_growth"].shape == (B,)
+        np.testing.assert_array_equal(n_pert, g0.solve_info["n_perturbed"])
+        assert info["n_perturbed_global"] == int(
+            n_pert.sum() + (8 - B) * n_pert[-1])
+        xr = g.solve_batched(bs, refine=2)
+        np.testing.assert_allclose(xr, g0.solve_batched(bs, refine=2),
+                                   rtol=1e-9, atol=1e-9)
+        assert g.solve_info["refine_iters"].shape == (B,)
+
+
+def test_sharded_over_every_card(cuda):
+    """A mesh of every card of the host (one card repeated twice where
+    there is only one): each shard's graphs are captured and replayed on
+    its own card, and every row of a sharded batch (B = 8, and B = 7
+    padded to 8) and of a sharded ``transient_sweep`` equals the
+    unsharded run on the first card bit for bit."""
+    from repro_torch.circuit import rc_grid_circuit, transient_sweep
+    from repro_torch.distributed import make_sweep_mesh
+
+    n = torch.cuda.device_count()
+    mesh = make_sweep_mesh(devices=[torch.device("cuda", i)
+                                    for i in range(n)] * (2 if n == 1 else 1))
+    k = len(mesh.devices)
+    A = circuit_jacobian(300, avg_degree=4.0, seed=0)
+    rng = np.random.default_rng(5)
+    g = GLU(A, mesh=mesh)
+    g0 = GLU(A, device=mesh.devices[0])
+    for B in (8, 7):
+        batch = np.asarray(A.data)[None] * (
+            1.0 + 0.1 * rng.uniform(-1, 1, size=(B, A.nnz)))
+        bs = rng.normal(size=(B, A.n))
+        for _ in range(2):            # the second call replays
+            x = g.refactorize_solve(batch, bs)
+            x0 = g0.refactorize_solve(batch, bs)
+        assert x.tobytes() == x0.tobytes()
+        assert torch.equal(g.factorized_values_batched(),
+                           g0.factorized_values_batched())
+        info = g.solve_info
+        assert info["n_devices"] == k and info["n_dispatches"] == 1
+        assert info["solve_dispatches"] == 1
+        xr = g.solve_batched(bs, refine=2)
+        assert xr.tobytes() == g0.solve_batched(bs, refine=2).tobytes()
+    ckt = rc_grid_circuit(8, 8, with_diodes=True, seed=0)
+    kw = dict(t_end=0.02, dt=5e-3, refine=1, scales=np.linspace(0.9, 1.1, 4))
+    got = transient_sweep(ckt, mesh=mesh, **kw)
+    want = transient_sweep(ckt, device=mesh.devices[0], **kw)
+    assert got.n_devices == k
+    assert got.voltages.tobytes() == want.voltages.tobytes()

@@ -125,7 +125,8 @@ def test_float32_solve():
     # planar storage needs complex values; real ones are refused as in the
     # JAX package's resolve_layout
     (dict(layout="planar"), ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    # a mesh is a SweepMesh (make_sweep_mesh); anything else is refused
+    (dict(mesh=object()), TypeError),
     # verify runs ("off", "plan", "full"); any other value is refused
     (dict(verify="bogus"), ValueError),
     # complex values run on re/im planes; their native layout is not ported

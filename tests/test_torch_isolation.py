@@ -30,7 +30,9 @@ def test_source_names_neither_jax_nor_reference(rel):
 def test_port_imports_without_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.convert, repro_torch.sparse, repro_torch.circuit, "
-            "repro_torch.analysis, repro_torch.analysis.cli\n"
+            "repro_torch.analysis, repro_torch.analysis.cli, "
+            "repro_torch.distributed, repro_torch.configs, "
+            "repro_torch.launch.simulate\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

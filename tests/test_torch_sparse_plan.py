@@ -126,6 +126,6 @@ def test_plan_cache_hits_on_same_pattern():
     p2, _, hit2 = tcore.plan_factorization(A, cache=cache)
     assert (hit1, hit2) == (False, True) and p1 is p2
     assert cache.stats.snapshot() == dict(hits=1, misses=1, evictions=0,
-                                          builds=1)
+                                          builds=1, disk_hits=0)
     jkey = jcore.plan_key(A.n, A.indptr, A.indices, p1.row_perm)
     assert jkey == p1.key

@@ -83,7 +83,9 @@ def test_perturbed_copies_match_reference():
 
 
 def test_sweep_mesh_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A ``mesh`` that is no ``SweepMesh`` is refused (sharded sweeps:
+    tests/test_torch_sharded_sweep.py)."""
+    with pytest.raises(TypeError, match="mesh"):
         tcirc.transient_sweep(tcirc.rc_grid_circuit(**GRID), t_end=0.005,
                               dt=0.005, scales=SCALES, device="cpu",
                               mesh=object())
