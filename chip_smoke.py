@@ -149,7 +149,27 @@ Phases, in order; any failure exits non-zero before the result line:
     bit; (e) ``leftlooking_numpy`` on grid64's filled pattern within 1e-10
     of the card's factors, with its host seconds; (f) ``python -m
     repro_torch.launch.simulate --nx 16 --ny 16 --t-end 0.02 --dt 0.005``
-    in a subprocess: exit 0, residual < 1e-9.
+    in a subprocess: exit 0, residual < 1e-9;
+17. the LM serving path (plain PyTorch, no kernel of its own): (a)
+    qwen2.5-3b at full width in bfloat16 from the port's seeded init,
+    ``ServeEngine.generate_batch`` at B = 4, prompt 128, 32 new tokens:
+    prefill ms and decode ms a step (CUDA events, medians) beside their
+    bounds, tokens/s, the path's peak device memory (over what earlier
+    phases hold), and one prefill's and one decode step's device kernels
+    and busy time; a second call gives the same tokens; (b) the same model in float32 with TF32 off: a prefill of 62
+    tokens and 2 decode steps within 3e-4 of ``forward_train``'s last three
+    positions (the reference's own bar), the same argmax; (c)
+    ``ServeEngine.run`` on 6 requests, every third extending the previous
+    (as ``launch/serve.py`` builds them): each child served after its
+    parent, each output equal to ``generate_batch`` on its group's spliced
+    prompts (and how many rows equal their prompt alone); (d) the reduced
+    qwen config with the same float32 parameters on the card and on the
+    CPU: logits within 1e-4, the same greedy tokens; (e) phi-3-vision-4.2b
+    (prompt 300 over its 256 patch tokens) and whisper-base (frames of
+    (2, 1500, 512)) at full width in bfloat16: one ``generate_batch`` each,
+    finite logits, prefill and decode ms; (f) ``python -m
+    repro_torch.launch.serve --arch qwen2.5-3b --reduced --batch 4
+    --prompt-len 32 --max-new 16`` in a subprocess: exit 0.
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -2589,6 +2609,433 @@ def drive_cli():
                 clock="host")
 
 
+# -- phase 17: the LM serving path ---------------------------------------------
+# bf16 peak of one H100 SXM (dense tensor-core rate, NVIDIA data sheet)
+PEAK_BF16_OPS_PER_S = 989e12
+LM_ARCH = "qwen2.5-3b"
+LM_SERVE = dict(batch=4, prompt=128, max_new=32, reps=7)
+# (b): teacher-forced prefill + decode against the full-sequence pass; the
+# reference's own bar (tests/test_models.py) at reduced width
+LM_FORCED = dict(batch=2, length=64, decode=2)
+LM_F32_TOL = 3e-4
+# (a): the same in bfloat16 on the serving prompts and 4 forced tokens.
+# The bar lies between the largest sound reading on the card at prompts
+# 8-128 (1.13e-2, max |logit| 0.54-0.62) and the smallest planted-fault
+# reading at prompt 128 (2.54e-2: every step one position late); a decode
+# that skips its cache write read 5.3e-2-5.7e-2 there (NVIDIA H100 80GB
+# HBM3, 700 W).  Every run reads both faults again and holds them above it.
+LM_BF16_FORCED = dict(decode=4)
+LM_BF16_TOL = 2e-2
+# (c): launch/serve.py's requests; (d): card against CPU, float32
+LM_REQUESTS = dict(n=6, prompt=32, max_new=8, batch=4)
+LM_CPU_TOL = 1e-4
+LM_CPU = dict(batch=2, length=24, prompt=16)
+LM_OTHERS = [("phi-3-vision-4.2b", dict(batch=2, prompt=300, max_new=8, reps=3)),
+             ("whisper-base", dict(batch=2, prompt=32, max_new=8, reps=3))]
+LM_CLI_ARGS = ["--arch", "qwen2.5-3b", "--reduced", "--batch", "4",
+               "--prompt-len", "32", "--max-new", "16"]
+
+
+def _lm_extras(cfg, batch, rng):
+    if cfg.frontend == "audio_stub":
+        return {"frames": rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)
+                                     ).astype(np.float32)}
+    if cfg.frontend == "vision_stub":
+        return {"patch_embeds": rng.normal(
+            size=(batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+    return None
+
+
+def _event_ms(fn):
+    """(result, device ms, host ms) of one call: the device's between two
+    CUDA events, the host's the call's own time on its clock (issuing the
+    work; the call does not wait for the card)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop), host
+
+
+def _lm_bounds(model, batch, prompt, slots):
+    """Least times of a prefill and of a decode step as this model computes
+    them, each the larger of its bytes at 3.35 TB/s (every weight the pass
+    uses read once, the KV caches read once) and its matmul operations at
+    the bf16 peak (2 a multiply-add; attention scores and values over the
+    full S x S, or the cache's slots, as computed).  Whisper's encoder and
+    cross-attention keys run in the prefill only, over its frames; the
+    vision stub's projection over its patch tokens."""
+    cfg = model.cfg
+    mats = {n: (p.numel(), p.element_size()) for n, p in model.named_parameters()}
+    size = model.embed.element_size()
+
+    def count(pred):
+        return sum(n for name, (n, _) in mats.items() if pred(name))
+
+    def nbytes(pred):
+        return sum(n * s for name, (n, s) in mats.items() if pred(name))
+
+    enc = count(lambda n: n.startswith("encoder.") and len(model.get_parameter(n).shape) >= 2)
+    cross_kv = count(lambda n: ".cross.wk" in n or ".cross.wv" in n)
+    patch = count(lambda n: n == "patch_proj")
+    head = cfg.padded_vocab * cfg.d_model
+    body = count(lambda n: len(model.get_parameter(n).shape) >= 2) \
+        - enc - cross_kv - patch - mats["embed"][0] - mats.get("lm_head", (0, 0))[0]
+    attn = 4 * cfg.num_layers * cfg.num_heads * cfg.hd  # scores + values, a key
+    E = cfg.encoder_seq
+    pre_ops = (2 * batch * prompt * body + 2 * batch * head
+               + attn * batch * prompt * (prompt + E)
+               + 2 * batch * E * (enc + cross_kv)
+               + 4 * cfg.encoder_layers * cfg.num_heads * cfg.hd * batch * E * E
+               + 2 * batch * min(cfg.frontend_tokens, prompt) * patch)
+    dec_ops = 2 * batch * (body + head) + attn * batch * (slots + E)
+    all_bytes = nbytes(lambda n: True)
+    # a decode step reads the decoder's weights (the embedding's B rows
+    # unless it is also the head) and the caches
+    dec_bytes = (nbytes(lambda n: not n.startswith("encoder.")
+                        and n != "patch_proj" and ".cross.wk" not in n
+                        and ".cross.wv" not in n)
+                 - (0 if cfg.tie_embeddings else mats["embed"][0] * size)
+                 + cfg.num_layers * batch * size
+                 * (2 * slots * cfg.num_kv_heads + 2 * E * cfg.num_heads) * cfg.hd)
+    return (max(all_bytes / PEAK_BYTES_PER_S, pre_ops / PEAK_BF16_OPS_PER_S) * 1e3,
+            max(dec_bytes / PEAK_BYTES_PER_S, dec_ops / PEAK_BF16_OPS_PER_S) * 1e3,
+            all_bytes, pre_ops)
+
+
+def _time_serving(dev, engine, prompts, max_new, reps):
+    """Prefill ms (median of ``reps`` calls) and decode ms a step (median
+    over one generation's steps), CUDA events, with every call's device
+    and host ms; every logit finite."""
+    max_len = prompts.shape[1] + max_new
+    pre, pre_host = [], []
+    for _ in range(reps):
+        (logits, _), ms, host = _event_ms(lambda: engine.prefill(prompts, max_len))
+        pre.append(ms)
+        pre_host.append(host)
+    assert bool(torch.isfinite(logits).all())
+    logits, cache = engine.prefill(prompts, max_len)
+    dec, dec_host = [], []
+    for _ in range(max_new):
+        tok = logits.argmax(-1, keepdim=True)
+        (logits, cache), ms, host = _event_ms(lambda: engine.decode(tok, cache))
+        dec.append(ms)
+        dec_host.append(host)
+        assert bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize(dev)
+    return dict(prefill_ms=statistics.median(pre), prefill_ms_all=pre,
+                prefill_host_ms_all=pre_host,
+                decode_ms=statistics.median(dec), decode_ms_all=dec,
+                decode_host_ms=statistics.median(dec_host),
+                decode_host_ms_all=dec_host)
+
+
+def _teacher_forced(model, cfg, tokens, P, fault=None):
+    """Prefill over ``tokens[:, :P]`` and one decode step a later token,
+    against ``forward_train`` over all of ``tokens`` at the same positions:
+    (largest |difference|, argmax equal, largest |logit|, smallest top-2
+    gap).  ``fault`` plants a known defect, for the reading a bar must
+    catch: "skip_write" zeroes each step's keys and values after the step
+    (a decode that never wrote its cache), "position" runs every step one
+    position late."""
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    forward_train)
+
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        want = forward_train(model, tokens, cfg)[0][:, P - 1:]
+        logits, cache = forward_prefill(model, tokens[:, :P], cfg, max_len=S + 1)
+        if fault == "position":
+            cache["pos"] += 1
+        steps = [logits]
+        for t in range(P, S):
+            logits, cache = forward_decode(model, tokens[:, t:t + 1], cache, cfg)
+            if fault == "skip_write":
+                for lay in cache["layers"]:
+                    lay["k"][:, cache["pos"] - 1] = 0
+                    lay["v"][:, cache["pos"] - 1] = 0
+            steps.append(logits)
+        steps = torch.stack(steps, 1)
+        top2 = want.topk(2, dim=-1).values
+        return ((steps - want).abs().max().item(),
+                bool(torch.equal(steps.argmax(-1), want.argmax(-1))),
+                want.abs().max().item(),
+                (top2[..., 0] - top2[..., 1]).min().item())
+
+
+def drive_lm_serve(dev, card):
+    """Phase 17 (a): qwen2.5-3b at full width in bfloat16 on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    B, S, new = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["max_new"]
+    rng = np.random.default_rng(SEED)
+    torch.zeros(1, device=dev)       # the allocator exists before its reset
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # what earlier phases still hold (plans, schedules) is not this path's
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    walls, outs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(engine.generate_batch(prompts, new))
+        walls.append(time.perf_counter() - t0)
+    assert outs[0].shape == (B, new) and outs[0].dtype == np.int32
+    assert np.array_equal(outs[0], outs[1]), "a second call gave other tokens"
+    assert ((outs[0] >= 0) & (outs[0] < cfg.padded_vocab)).all()
+    times = _time_serving(dev, engine, prompts, new, LM_SERVE["reps"])
+    pre_ms, dec_ms = times["prefill_ms"], times["decode_ms"]
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    # bfloat16 prefill + decode against the bfloat16 full-sequence pass on
+    # the serving prompts and a few forced tokens, then with planted faults
+    D = LM_BF16_FORCED["decode"]
+    forced_tokens = np.concatenate(
+        [prompts, rng.integers(0, cfg.vocab_size, size=(B, D)).astype(np.int32)], 1)
+    forced = {fault or "sound": _teacher_forced(model, cfg, forced_tokens, S, fault)[0]
+              for fault in (None, "skip_write", "position")}
+    assert forced["sound"] < LM_BF16_TOL, (forced, LM_BF16_TOL)
+    assert min(forced["skip_write"], forced["position"]) > LM_BF16_TOL, \
+        ("the bar no longer catches a planted fault", forced, LM_BF16_TOL)
+    pre_bound, dec_bound, weight_bytes, pre_ops = _lm_bounds(model, B, S, S + new)
+    # one prefill and one decode step under the profiler: device kernels
+    # and busy time (a repeated step rewrites the same cache slot)
+    logits, cache = engine.prefill(prompts, S + new)
+    tok = logits.argmax(-1, keepdim=True)
+    prof_pre = _profile(dev, lambda: engine.prefill(prompts, S + new))
+    prof_dec = _profile(dev, lambda: engine.decode(tok, cache))
+    del logits, cache
+    for prof, ms in ((prof_pre, pre_ms), (prof_dec, dec_ms)):
+        prof.pop("dense_lu_kernels", None)
+        prof.pop("level_run_kernels", None)
+        if "device_busy_ms" in prof:
+            prof["busy_share"] = prof["device_busy_ms"] / ms
+    report = dict(
+        arch=cfg.name, dtype=cfg.dtype, params=cfg.param_count(), batch=B,
+        prompt=S, max_new=new, card=card, init_s=init_s,
+        generate_s=walls, tokens_per_s=B * new / walls[1], **times,
+        prefill_bound_ms=pre_bound, prefill_tflop=pre_ops / 1e12,
+        decode_bound_ms=dec_bound, bf16_forced=dict(
+            prompt=S, decode_steps=D, max_abs_err=forced, tol=LM_BF16_TOL),
+        prefill_profile=prof_pre, decode_profile=prof_dec,
+        weight_gb=weight_bytes / 1e9, peak_mib=peak / 2**20,
+        held_before_mib=base / 2**20,
+        sample=outs[0][0, :16].tolist(), clock="CUDA events (ms), host (s)")
+    log(f"serve {cfg.name} bf16 B={B} prompt {S} +{new}: prefill "
+        f"{pre_ms:.3f} ms (bound {pre_bound:.3f}, {pre_ops / 1e12:.2f} TFLOP), "
+        f"decode {dec_ms:.3f} ms a step (bound {dec_bound:.3f}, "
+        f"{weight_bytes / 1e9:.2f} GB of weights; host {times['decode_host_ms']:.3f} "
+        f"ms a step, {min(times['decode_ms_all']):.3f}-"
+        f"{max(times['decode_ms_all']):.3f} ms over the steps), {B * new / walls[1]:.1f} "
+        f"tok/s (generate {walls[0]:.2f} / {walls[1]:.2f} s), peak "
+        f"{peak / 2**20:.1f} MiB over the {base / 2**20:.1f} MiB held before, "
+        f"init {init_s:.2f} s [{card}]")
+    for what, prof in (("prefill", prof_pre), ("decode step", prof_dec)):
+        log(f"  one {what}: {prof.get('kernels', 'not measured')} device "
+            f"kernels, busy {prof.get('device_busy_ms', 'not measured')} ms "
+            f"(share {prof.get('busy_share', 'not measured')})")
+    log(f"  bf16 prefill {S} + {D} decode steps against forward_train: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in forced.items())
+        + f" (bar {LM_BF16_TOL})")
+    return report, engine
+
+
+def drive_lm_forced(dev):
+    """Phase 17 (b): float32 at full width with TF32 off, prefill + decode
+    against the full-sequence pass."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    B, S, D = LM_FORCED["batch"], LM_FORCED["length"], LM_FORCED["decode"]
+    P = S - D
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    tokens = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    err, same, scale, gap = _teacher_forced(model, cfg, tokens, P)
+    assert err < LM_F32_TOL, (err, LM_F32_TOL)
+    assert same, "float32 prefill/decode argmax differs from forward_train"
+    del model
+    torch.cuda.empty_cache()
+    log(f"serve {cfg.name} float32 (TF32 off): prefill {P} + {D} decode steps "
+        f"within {err:.3e} of forward_train (bar {LM_F32_TOL}; max |logit| "
+        f"{scale:.3f}, smallest top-2 gap {gap:.3e})")
+    return dict(arch=cfg.name, dtype="float32", tf32=False, batch=B, prompt=P,
+                decode_steps=D, max_abs_err=err, tol=LM_F32_TOL,
+                max_abs_logit=scale, min_top2_gap=gap)
+
+
+def drive_lm_requests(engine):
+    """Phase 17 (c): ``ServeEngine.run`` on launch/serve.py's requests."""
+    from repro_torch.serving import Request
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(SEED + 2)
+    n, new = LM_REQUESTS["n"], LM_REQUESTS["max_new"]
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                               size=LM_REQUESTS["prompt"]).astype(np.int32),
+                    max_new=new, parent=i - 1 if i % 3 == 2 else None)
+            for i in range(n)]
+    calls = []
+    plain = engine.generate_batch
+
+    def recording(prompts, max_new):
+        out = plain(prompts, max_new)
+        calls.append((prompts.copy(), out))
+        return out
+
+    engine.generate_batch = recording
+    t0 = time.perf_counter()
+    try:
+        results = engine.run(reqs, batch_size=LM_REQUESTS["batch"])
+    finally:
+        del engine.generate_batch
+    wall = time.perf_counter() - t0
+    assert sorted(results) == list(range(n))
+    assert all(len(r.tokens) == LM_REQUESTS["prompt"] for r in reqs)
+    eff = {}
+    for r in reqs:
+        eff[r.rid] = (r.tokens if r.parent is None else
+                      np.concatenate([eff[r.parent], results[r.parent], r.tokens]))
+    served, alone = {}, 0
+    for k, (prompts, out) in enumerate(calls):
+        # every row the engine served is one request's spliced prompt,
+        # built here from the requests and the parents' results
+        rids = [[i for i, e in eff.items() if np.array_equal(e, row)]
+                for row in prompts]
+        assert all(len(r) == 1 for r in rids), ("a served row is no request's "
+                                                "spliced prompt", k)
+        rids = [r[0] for r in rids]
+        # each row against the same group of spliced prompts generated again
+        again = plain(np.stack([eff[i] for i in rids]), new)
+        for rid, o, a in zip(rids, out, again):
+            served[rid] = k
+            assert np.array_equal(o, results[rid]) and np.array_equal(a, o), rid
+            alone += int(np.array_equal(plain(eff[rid][None], new)[0], o))
+    assert sorted(served) == list(range(n))
+    for r in reqs:
+        if r.parent is not None:
+            assert served[r.rid] > served[r.parent], (r.rid, r.parent)
+    distinct = len(np.unique(np.concatenate([results[i] for i in results])))
+    log(f"serve run: {n} requests in {len(calls)} batches ({wall:.2f} s), "
+        f"children after parents, every served row a spliced prompt, outputs "
+        f"equal to their groups' spliced prompts; {alone} of {n} rows equal "
+        f"to their prompt alone; {distinct} distinct output tokens")
+    return dict(n=n, batches=[len(c[0]) for c in calls], wall_s=wall,
+                rows_equal_alone=alone, distinct_tokens=distinct, clock="host")
+
+
+def drive_lm_cpu_card(dev):
+    """Phase 17 (d): the reduced config, the same float32 parameters on the
+    card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_arrays, lm_params_to_arrays
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    forward_train, init_params)
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(LM_ARCH).reduced()
+    assert cfg.dtype == "float32" and not torch.backends.cuda.matmul.allow_tf32
+    B, S, P = LM_CPU["batch"], LM_CPU["length"], LM_CPU["prompt"]
+    host = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    card = lm_params_from_arrays(cfg, lm_params_to_arrays(host), device=dev)
+    tokens = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+
+    def run(model):
+        with torch.inference_mode():
+            full, _ = forward_train(model, tokens, cfg)
+            logits, cache = forward_prefill(model, tokens[:, :P], cfg, max_len=S)
+            steps = [logits]
+            for t in range(P, S):
+                logits, cache = forward_decode(model, tokens[:, t:t + 1], cache, cfg)
+                steps.append(logits)
+            return full.cpu(), torch.stack(steps, 1).cpu()
+
+    (f_h, s_h), (f_c, s_c) = run(host), run(card)
+    err = max((f_h - f_c).abs().max().item(), (s_h - s_c).abs().max().item())
+    assert err < LM_CPU_TOL, (err, LM_CPU_TOL)
+    assert torch.equal(s_h.argmax(-1), s_c.argmax(-1))
+    gen_h = ServeEngine(cfg, host, device="cpu").generate_batch(tokens[:, :P], S - P)
+    gen_c = ServeEngine(cfg, card, device=dev).generate_batch(tokens[:, :P], S - P)
+    assert np.array_equal(gen_h, gen_c), (gen_h, gen_c)
+    log(f"serve {cfg.name} reduced float32: card within {err:.3e} of the CPU "
+        f"(bar {LM_CPU_TOL}), the same {gen_c.size} greedy tokens")
+    return dict(arch=cfg.name, reduced=True, max_abs_err=err, tol=LM_CPU_TOL,
+                tokens_equal=True)
+
+
+def drive_lm_others(dev, card):
+    """Phase 17 (e): phi-3-vision-4.2b and whisper-base at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    reports = []
+    for arch, spec in LM_OTHERS:
+        cfg = get_config(arch)
+        B, S, new = spec["batch"], spec["prompt"], spec["max_new"]
+        rng = np.random.default_rng(SEED + 4)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        engine = ServeEngine(cfg, model, _lm_extras(cfg, B, rng), device=dev)
+        prompts = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+        t0 = time.perf_counter()
+        out = engine.generate_batch(prompts, new)
+        wall = time.perf_counter() - t0
+        assert out.shape == (B, new)
+        times = _time_serving(dev, engine, prompts, new, spec["reps"])
+        pre_ms, dec_ms = times["prefill_ms"], times["decode_ms"]
+        pre_bound, dec_bound, weight_bytes, _ = _lm_bounds(model, B, S, S + new)
+        log(f"serve {cfg.name} bf16 B={B} prompt {S} +{new}: prefill "
+            f"{pre_ms:.3f} ms (bound {pre_bound:.3f}), decode {dec_ms:.3f} ms "
+            f"a step (bound {dec_bound:.3f}), logits finite, first generate "
+            f"{wall:.2f} s [{card}]")
+        reports.append(dict(arch=cfg.name, dtype=cfg.dtype, params=cfg.param_count(),
+                            batch=B, prompt=S, max_new=new, prefill_ms=pre_ms,
+                            prefill_bound_ms=pre_bound, decode_ms=dec_ms,
+                            decode_bound_ms=dec_bound, first_generate_s=wall,
+                            extras=sorted(engine.extras or {})))
+        del model, engine
+        torch.cuda.empty_cache()
+    return reports
+
+
+def drive_serve_cli():
+    """Phase 17 (f): ``python -m repro_torch.launch.serve`` in a subprocess
+    on the card: exit 0 and the reference's two lines."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LM_CLI_ARGS]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                         env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 2 and lines[0].startswith("generated (4, 16)") \
+        and lines[1].startswith("sample: ["), lines
+    log(f"serve cli: {' '.join(cmd[1:])} -> exit 0 in {wall:.1f} s: "
+        f"{lines[0]} | {lines[1]}")
+    return dict(args=LM_CLI_ARGS, lines=lines, wall_s=wall, clock="host")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -2718,6 +3165,24 @@ def main() -> int:
     log(json.dumps({"leftlooking_report": drive_leftlooking()}))
     log(json.dumps({"cli_report": drive_cli()}))
 
+    log(f"peak device memory (phases 4-16): "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+    # 17. the LM serving path: qwen2.5-3b at full width (bf16), float32
+    # against the full-sequence pass, the request scheduler, card against
+    # CPU, the vlm and audio families, the CLI
+    t17 = time.perf_counter()
+    serve_report, engine = drive_lm_serve(dev, card)
+    serve_report["forced"] = drive_lm_forced(dev)
+    serve_report["requests"] = drive_lm_requests(engine)
+    del engine
+    torch.cuda.empty_cache()
+    serve_report["cpu_card"] = drive_lm_cpu_card(dev)
+    serve_report["others"] = drive_lm_others(dev, card)
+    serve_report["cli"] = drive_serve_cli()
+    serve_report["phase_s"] = time.perf_counter() - t17
+    log(json.dumps({"lm_serve_report": serve_report}))
+
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",
                      "dense_lu_planar", "level_run_batched",
@@ -2729,7 +3194,6 @@ def main() -> int:
                                              "level_run_robust_batched")
                             for d in ("torch.float64", "torch.complex128")}, \
         robust_kinds
-    log(f"peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(f"card: {card}")
     log(json.dumps({"kernels": entries}))

@@ -1,0 +1,375 @@
+"""Config-driven model assembly for the attention-only families (dense,
+vlm, audio): parameter specs, the seeded init, and the reference's entry
+points ``forward_train``, ``forward_prefill`` and ``forward_decode``.
+
+The model is an :class:`LM` module on an explicit device; it holds the
+parameters, and the entry points take it where the JAX package's take its
+parameter tree.  Layers run in order from a ``ModuleList``: the JAX
+package's scan over periodic layer groups is a compile device of XLA, and
+:mod:`repro_torch.convert` alone reads that package's stacked parameter
+layout.
+
+Block layout per layer: norm1 -> attention (full or sliding window) ->
+[whisper: norm_x -> cross-attention] -> norm2 -> MLP, each with a residual.
+Whisper adds an encoder stack over caller-supplied frame embeddings; the
+vision stub projects caller-supplied patch embeddings over the first
+positions of a full-sequence pass.
+
+A config that needs MLA, MoE or the Mamba-2 block raises
+``NotImplementedError`` when its specs or model are built (ROADMAP queue 1
+item 11 (i), (ii)); it never falls back to a dense layer.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import layers as L
+
+__all__ = [
+    "LM", "param_specs", "init_params",
+    "forward_train", "forward_prefill", "forward_decode", "cache_specs",
+    "lm_head_of",
+]
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+def _layer_specs(cfg, i: int) -> dict:
+    if not cfg.is_attn_layer(i):
+        raise NotImplementedError(
+            f"{cfg.name}: layer {i} is a Mamba-2 (SSD) block, which the port "
+            f"does not serve yet (ROADMAP queue 1 item 11 (ii))")
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue 1 "
+            f"item 11 (i))")
+    if cfg.is_moe_layer(i):
+        raise NotImplementedError(
+            f"{cfg.name}: layer {i} is a MoE layer, which the port does not "
+            f"serve yet (ROADMAP queue 1 item 11 (i))")
+    p = {"norm1": L.norm_specs(cfg, cfg.d_model), "attn": L.attention_specs(cfg)}
+    if cfg.encoder_layers:
+        p["norm_x"] = L.norm_specs(cfg, cfg.d_model)
+        p["cross"] = L.cross_attention_specs(cfg)
+    if cfg.d_ff:
+        p["norm2"] = L.norm_specs(cfg, cfg.d_model)
+        p["ffn"] = L.mlp_specs(cfg)
+    return p
+
+
+def _encoder_layer_specs(cfg) -> dict:
+    d = cfg.d_model
+    return {"norm1": L.norm_specs(cfg, d), "attn": L.attention_specs(cfg),
+            "norm2": L.norm_specs(cfg, d), "ffn": L.mlp_specs(cfg)}
+
+
+def param_specs(cfg) -> dict:
+    """``{name: (shape, dtype)}`` in the order and with the names of
+    ``LM(cfg).named_parameters()``; nothing is allocated."""
+    V, d, dt = cfg.padded_vocab, cfg.d_model, cfg.dtype
+    out = {"embed": ((V, d), dt)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ((d, V), dt)
+    if cfg.frontend == "vision_stub":
+        out["patch_proj"] = ((d, d), dt)
+
+    def add(prefix, specs):
+        for name, leaf in specs.items():
+            if isinstance(leaf, dict):
+                add(f"{prefix}{name}.", leaf)
+            else:
+                out[prefix + name] = leaf
+
+    for i in range(cfg.num_layers):
+        add(f"layers.{i}.", _layer_specs(cfg, i))
+    add("final_norm.", L.norm_specs(cfg, d))
+    if cfg.encoder_layers:
+        for j in range(cfg.encoder_layers):
+            add(f"encoder.layers.{j}.", _encoder_layer_specs(cfg))
+        add("encoder.final_norm.", L.norm_specs(cfg, d))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+def _param(shape, dtype: str, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=L.torch_dtype(dtype),
+                                    device=device), requires_grad=False)
+
+
+class Block(nn.Module):
+    """One decoder layer."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.norm1 = L.Norm(cfg, cfg.d_model, device)
+        self.attn = L.Attention(cfg, device)
+        if cfg.encoder_layers:
+            self.norm_x = L.Norm(cfg, cfg.d_model, device)
+            self.cross = L.CrossAttention(cfg, device)
+        if cfg.d_ff:
+            self.norm2 = L.Norm(cfg, cfg.d_model, device)
+            self.ffn = L.MLP(cfg, device)
+
+    def forward(self, x, rope, mask, *, mode, cache=None, index=0, enc_kv=None):
+        x = x + self.attn(self.norm1(x), rope, mask, mode=mode, cache=cache,
+                          index=index)
+        if enc_kv is not None and hasattr(self, "cross"):
+            x = x + self.cross(self.norm_x(x), enc_kv)
+        if hasattr(self, "ffn"):
+            x = x + self.ffn(self.norm2(x))
+        return x
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.norm1 = L.Norm(cfg, cfg.d_model, device)
+        self.attn = L.Attention(cfg, device)
+        self.norm2 = L.Norm(cfg, cfg.d_model, device)
+        self.ffn = L.MLP(cfg, device)
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x), None, None, mode="bidir")
+        return x + self.ffn(self.norm2(x))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.layers = nn.ModuleList(EncoderBlock(cfg, device)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = L.Norm(cfg, cfg.d_model, device)
+
+
+class LM(nn.Module):
+    """The parameters of one config on one device, uninitialised (fill them
+    with :func:`init_params` or :func:`repro_torch.convert.lm_params_from_arrays`).
+    ``device=None`` is the card and raises without one; ``"cpu"`` runs
+    here."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        param_specs(cfg)               # refuses the unported families
+        dev = resolve_device(device)
+        self.cfg = cfg
+        V, d = cfg.padded_vocab, cfg.d_model
+        self.embed = _param((V, d), cfg.dtype, dev)
+        self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.num_layers))
+        self.final_norm = L.Norm(cfg, d, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((d, V), cfg.dtype, dev)
+        if cfg.encoder_layers:
+            self.encoder = Encoder(cfg, dev)
+        if cfg.frontend == "vision_stub":
+            self.patch_proj = _param((d, d), cfg.dtype, dev)
+        self.device = self.embed.device
+
+
+def init_params(cfg, generator: torch.Generator, device=None) -> LM:
+    """A model with the reference's init rule (not its bits): 1-D leaves
+    zeros, ``*scale`` leaves ones, the others normal with std
+    ``min(0.02, 1/sqrt(shape[-2]))``, drawn in float32 from ``generator``
+    (on its own device) in ``named_parameters`` order, then cast."""
+    model = LM(cfg, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+            elif p.ndim == 1:
+                p.zero_()
+            else:
+                std = min(0.02, 1.0 / math.sqrt(max(p.shape[-2], 1)))
+                w = torch.randn(p.shape, generator=generator,
+                                dtype=torch.float32, device=generator.device)
+                p.copy_(w.mul_(std))
+                del w          # one float32 leaf alive at a time
+    return model
+
+
+# ---------------------------------------------------------------------------
+# embedding / frontends
+# ---------------------------------------------------------------------------
+
+def _check(model: LM, cfg):
+    if model.cfg != cfg:
+        raise ValueError(f"the model was built for {model.cfg.name}, not for "
+                         f"the config passed ({cfg.name})")
+
+
+def _tokens(model: LM, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=model.device).long()
+
+
+def _extra(model: LM, extras, key):
+    if not extras or key not in extras:
+        return None
+    return torch.as_tensor(extras[key], device=model.device)
+
+
+def _sinusoidal(positions, d, dtype):
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def _embed(model: LM, tokens, cfg, extras) -> torch.Tensor:
+    x = model.embed[tokens]
+    pe = _extra(model, extras, "patch_embeds")
+    # the patch prefix applies to full-sequence passes, never decode steps
+    if cfg.frontend == "vision_stub" and pe is not None and x.shape[1] > 1:
+        pe = pe.to(x.dtype) @ model.patch_proj
+        n = pe.shape[1]
+        x = pe[:, : x.shape[1]] if n >= x.shape[1] else torch.cat([pe, x[:, n:]], 1)
+    return x
+
+
+def _encode(model: LM, frames, cfg) -> torch.Tensor:
+    """Whisper encoder over caller-supplied frame embeddings (conv stub)."""
+    B, S, _ = frames.shape
+    pos = torch.arange(S, device=frames.device)[None].expand(B, S)
+    x = frames.to(torch.bfloat16) if cfg.dtype == "bfloat16" else frames
+    x = x + _sinusoidal(pos, cfg.d_model, x.dtype)
+    for layer in model.encoder.layers:
+        x = layer(x)
+    return model.encoder.final_norm(x)
+
+
+def _prepare_encdec(model: LM, positions, x, cfg, extras):
+    if not cfg.encoder_layers:
+        return x, None
+    x = x + _sinusoidal(positions, cfg.d_model, x.dtype)
+    enc_out = _encode(model, _extra(model, extras, "frames"), cfg)
+    return x, [layer.cross.encode_cross_kv(enc_out) for layer in model.layers]
+
+
+def _rope(cfg, positions, dtype):
+    hd = cfg.hd
+    rd = int(cfg.rotary_pct * hd) if cfg.rotary_pct < 1.0 else hd
+    return L.rotary_cos_sin(positions, cfg.rope_theta, rd, dtype) if rd else None
+
+
+def _window(cfg) -> int:
+    return cfg.window if cfg.attention == "swa" else 0
+
+
+def lm_head_of(model: LM, cfg):
+    return model.embed.T if cfg.tie_embeddings else model.lm_head
+
+
+def _logits(model: LM, x, cfg):
+    x = model.final_norm(x)
+    return (x @ lm_head_of(model, cfg)).float()
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def _causal_pass(model: LM, tokens, cfg, extras, caches):
+    B, S = tokens.shape
+    positions = torch.arange(S, device=model.device)[None].expand(B, S)
+    x = _embed(model, tokens, cfg, extras)
+    x, enc_kv = _prepare_encdec(model, positions, x, cfg, extras)
+    rope = _rope(cfg, positions, x.dtype)
+    mask = L.causal_mask(S, _window(cfg), model.device)
+    for i, layer in enumerate(model.layers):
+        x = layer(x, rope, mask, mode="causal",
+                  cache=caches[i] if caches else None,
+                  enc_kv=enc_kv[i] if enc_kv else None)
+    return x, enc_kv
+
+
+@torch.no_grad()
+def forward_train(model: LM, tokens, cfg, extras: Optional[dict] = None):
+    """tokens (B, S) -> (logits (B, S, V) float32, aux).  ``aux`` is the
+    MoE auxiliary loss: 0 here, since no ported family has experts.  The
+    full-sequence forward only: no loss and no backward in this slice."""
+    _check(model, cfg)
+    tokens = _tokens(model, tokens)
+    x, _ = _causal_pass(model, tokens, cfg, extras, None)
+    aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    return _logits(model, x, cfg), aux
+
+
+def _new_cache(cfg, B: int, slots: int, device) -> list[dict]:
+    shape = (B, slots, cfg.num_kv_heads, cfg.hd)
+    dt = L.torch_dtype(cfg.dtype)
+    return [{"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+@torch.no_grad()
+def forward_prefill(model: LM, tokens, cfg, extras: Optional[dict] = None,
+                    max_len: Optional[int] = None):
+    """Returns (last-token logits (B, V) float32, cache).  The cache holds
+    ``max(S, max_len)`` slots a layer, or the ``window`` slots of the
+    rolling buffer under SWA; ``{"layers": [{"k", "v"}], "enc_kv", "pos"}``."""
+    _check(model, cfg)
+    tokens = _tokens(model, tokens)
+    B, S = tokens.shape
+    window = _window(cfg)
+    slots = window if window else max(S, max_len or S)
+    caches = _new_cache(cfg, B, slots, model.device)
+    x, enc_kv = _causal_pass(model, tokens, cfg, extras, caches)
+    logits = _logits(model, x[:, -1:], cfg)[:, 0]
+    return logits, {"layers": caches, "enc_kv": enc_kv, "pos": S}
+
+
+@torch.no_grad()
+def forward_decode(model: LM, token, cache, cfg, extras: Optional[dict] = None):
+    """token (B, 1) + cache -> (logits (B, V) float32, new cache): one
+    decode step.  The step's keys and values are written into the cache's
+    buffers in place (the returned cache shares them, with ``pos`` + 1), so
+    the cache passed in is spent.  A full (non-SWA) cache raises."""
+    _check(model, cfg)
+    token = _tokens(model, token)
+    B = token.shape[0]
+    idx = int(cache["pos"])
+    layers = cache["layers"]
+    slots = layers[0]["k"].shape[1]
+    if not _window(cfg) and idx >= slots:
+        raise IndexError(f"the cache holds {slots} positions; position {idx} "
+                         f"does not fit (pass a larger max_len to prefill)")
+    positions = torch.full((B, 1), idx, device=model.device)
+    x = _embed(model, token, cfg, extras)
+    if cfg.encoder_layers:
+        x = x + _sinusoidal(positions, cfg.d_model, x.dtype)
+    rope = _rope(cfg, positions, x.dtype)
+    mask = L.decode_mask(slots, idx, _window(cfg), model.device)
+    enc_kv = cache.get("enc_kv")
+    for i, layer in enumerate(model.layers):
+        x = layer(x, rope, mask, mode="decode", cache=layers[i], index=idx,
+                  enc_kv=enc_kv[i] if enc_kv else None)
+    logits = _logits(model, x, cfg)[:, 0]
+    return logits, {"layers": layers, "enc_kv": enc_kv, "pos": idx + 1}
+
+
+# ---------------------------------------------------------------------------
+# cache specs
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg, batch: int, seq_len: int) -> dict:
+    """Spec tree of a cache holding ``seq_len`` tokens, in the port's cache
+    layout: ``{"layers": [{"k", "v"}], "pos", "enc_kv"}``."""
+    param_specs(cfg)                   # refuses the unported families
+    S = min(seq_len, cfg.window) if cfg.attention == "swa" else seq_len
+    kv = ((batch, S, cfg.num_kv_heads, cfg.hd), cfg.dtype)
+    out = {"layers": [{"k": kv, "v": kv} for _ in range(cfg.num_layers)],
+           "pos": ((), "int32")}
+    enc = ((batch, cfg.encoder_seq, cfg.num_heads, cfg.hd), cfg.dtype)
+    out["enc_kv"] = ([(enc, enc) for _ in range(cfg.num_layers)]
+                     if cfg.encoder_layers else None)
+    return out

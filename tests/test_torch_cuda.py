@@ -921,3 +921,89 @@ def test_sharded_over_every_card(cuda):
     want = transient_sweep(ckt, device=mesh.devices[0], **kw)
     assert got.n_devices == k
     assert got.voltages.tobytes() == want.voltages.tobytes()
+
+
+# -- the LM serving path (chip_smoke.py phase 17 (b) and (d)) ----------------
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_lm_float32_prefill_decode_match_train(cuda, no_tf32):
+    """qwen2.5-3b at full width, cut to 4 layers, in float32 with TF32
+    off: a prefill and two decode steps within 3e-4 of the full-sequence
+    pass at the same positions (the reference's own bar), same argmax."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    forward_train, init_params)
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4,
+                              dtype="float32")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    full, _ = forward_train(model, tokens, cfg)
+    logits, cache = forward_prefill(model, tokens[:, :38], cfg, max_len=40)
+    steps = [logits]
+    for t in (38, 39):
+        logits, cache = forward_decode(model, tokens[:, t:t + 1], cache, cfg)
+        steps.append(logits)
+    steps = torch.stack(steps, 1)
+    want = full[:, 37:]
+    assert (steps - want).abs().max().item() < 3e-4
+    assert torch.equal(steps.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi-3-vision-4.2b",
+                                  "whisper-base"])
+def test_lm_card_matches_cpu(cuda, no_tf32, arch):
+    """The reduced config with the same float32 parameters on the card and
+    on the CPU: logits within 1e-4 and the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_arrays, lm_params_to_arrays
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(arch).reduced()
+    host = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = lm_params_from_arrays(cfg, lm_params_to_arrays(host), device=cuda)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    extras = None
+    if cfg.frontend == "audio_stub":
+        extras = {"frames": rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)
+                                       ).astype(np.float32)}
+    if cfg.frontend == "vision_stub":
+        extras = {"patch_embeds": rng.normal(
+            size=(2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+    want, _ = forward_train(host, tokens, cfg, extras)
+    got, _ = forward_train(card, tokens, cfg, extras)
+    assert (got.cpu() - want).abs().max().item() < 1e-4
+    out_h = ServeEngine(cfg, host, extras, device="cpu").generate_batch(tokens[:, :16], 8)
+    out_c = ServeEngine(cfg, card, extras, device=cuda).generate_batch(tokens[:, :16], 8)
+    np.testing.assert_array_equal(out_c, out_h)
+
+
+def test_lm_serve_bf16_repeats(cuda):
+    """bfloat16 generation on the card: the same tokens twice, and an
+    engine refuses a model that lies on another device."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    engine = ServeEngine(cfg, model)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 12))
+    np.testing.assert_array_equal(engine.generate_batch(prompts, 6),
+                                  engine.generate_batch(prompts, 6))
+    with pytest.raises(ValueError, match="lies on"):
+        ServeEngine(cfg, model, device="cpu")

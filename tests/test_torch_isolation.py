@@ -32,7 +32,8 @@ def test_port_imports_without_jax():
             "repro_torch.convert, repro_torch.sparse, repro_torch.circuit, "
             "repro_torch.analysis, repro_torch.analysis.cli, "
             "repro_torch.distributed, repro_torch.configs, "
-            "repro_torch.launch.simulate\n"
+            "repro_torch.launch.simulate, repro_torch.models, "
+            "repro_torch.serving, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
