@@ -169,7 +169,28 @@ Phases, in order; any failure exits non-zero before the result line:
     (2, 1500, 512)) at full width in bfloat16: one ``generate_batch`` each,
     finite logits, prefill and decode ms; (f) ``python -m
     repro_torch.launch.serve --arch qwen2.5-3b --reduced --batch 4
-    --prompt-len 32 --max-new 16`` in a subprocess: exit 0.
+    --prompt-len 32 --max-new 16`` in a subprocess: exit 0;
+18. MLA attention and the sort-based MoE (plain PyTorch, no kernel of
+    their own): (a) deepseek-v2-lite-16b at full width and depth (27
+    layers) in bfloat16 from the seeded init, the published capacity
+    factor 1.25, ``generate_batch`` at B = 4, prompt 128, 32 new tokens,
+    twice with equal tokens: prefill ms and decode ms a step beside their
+    bounds (bytes with all weights, which the capacity dispatch reads, and
+    with the experts the step's routers chose; matmul operations at the
+    bf16 peak), tokens/s, peak memory, one prefill's and one decode step's
+    device kernels and busy time, the prefill's dropped assignments; (b)
+    the same weights at the dropless capacity factor E / K: bf16 prefill
+    + 4 decode steps on (a)'s prompts within the bar of bf16
+    ``forward_train`` and two planted faults (shared experts skipped,
+    ``krope`` one slot late) above it, a third (a position late) read;
+    (c) float32 at full width and depth (62.8 GB), TF32 off, dropless:
+    within 3e-4 of ``forward_train``, the three faults above it; (d) reduced deepseek, reduced mixtral and reduced
+    deepseek with a capacity that drops, card against CPU in float32:
+    logits within 1e-4, equal aux, drop counts and greedy tokens, drops >
+    0 in the last; (e) mixtral-8x7b at full width and 8 of its 32 layers
+    in bfloat16: prefill and decode ms against their bounds; (f) ``python
+    -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --reduced``:
+    exit 0.
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -186,6 +207,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -2739,26 +2761,44 @@ def _teacher_forced(model, cfg, tokens, P, fault=None):
     against ``forward_train`` over all of ``tokens`` at the same positions:
     (largest |difference|, argmax equal, largest |logit|, smallest top-2
     gap).  ``fault`` plants a known defect, for the reading a bar must
-    catch: "skip_write" zeroes each step's keys and values after the step
-    (a decode that never wrote its cache), "position" runs every step one
-    position late."""
+    catch: "skip_write" zeroes what each step wrote into its cache after
+    the step (a decode that never wrote its cache), "position" runs every
+    step one position late; for the MoE and MLA families "skip_shared"
+    leaves out the shared experts in the prefill and the steps, and
+    "krope_late" moves the prefill's rotated MLA keys one slot later (a
+    cache fill one slot late).  The faults are planted on this model
+    instance by the script; the package is not changed."""
     from repro_torch.models import (forward_decode, forward_prefill,
                                     forward_train)
 
     S = tokens.shape[1]
+    shared = [layer.ffn.shared for layer in model.layers
+              if layer.moe and hasattr(layer.ffn, "shared")]
+    assert fault != "skip_shared" or shared, "no shared experts to skip"
     with torch.inference_mode():
         want = forward_train(model, tokens, cfg)[0][:, P - 1:]
-        logits, cache = forward_prefill(model, tokens[:, :P], cfg, max_len=S + 1)
-        if fault == "position":
-            cache["pos"] += 1
-        steps = [logits]
-        for t in range(P, S):
-            logits, cache = forward_decode(model, tokens[:, t:t + 1], cache, cfg)
-            if fault == "skip_write":
+        if fault == "skip_shared":
+            for m in shared:
+                m.forward = torch.zeros_like
+        try:
+            logits, cache = forward_prefill(model, tokens[:, :P], cfg, max_len=S + 1)
+            if fault == "position":
+                cache["pos"] += 1
+            if fault == "krope_late":
                 for lay in cache["layers"]:
-                    lay["k"][:, cache["pos"] - 1] = 0
-                    lay["v"][:, cache["pos"] - 1] = 0
-            steps.append(logits)
+                    lay["krope"][:, 1:P + 1] = lay["krope"][:, :P].clone()
+                    lay["krope"][:, 0] = 0
+            steps = [logits]
+            for t in range(P, S):
+                logits, cache = forward_decode(model, tokens[:, t:t + 1], cache, cfg)
+                if fault == "skip_write":
+                    for lay in cache["layers"]:
+                        for buf in lay.values():
+                            buf[:, cache["pos"] - 1] = 0
+                steps.append(logits)
+        finally:
+            for m in shared:
+                m.__dict__.pop("forward", None)
         steps = torch.stack(steps, 1)
         top2 = want.topk(2, dim=-1).values
         return ((steps - want).abs().max().item(),
@@ -2939,16 +2979,17 @@ def drive_lm_requests(engine):
                 rows_equal_alone=alone, distinct_tokens=distinct, clock="host")
 
 
-def drive_lm_cpu_card(dev):
-    """Phase 17 (d): the reduced config, the same float32 parameters on the
-    card and on the CPU."""
+def drive_lm_cpu_card(dev, cfg=None):
+    """Phase 17 (d), 18 (d): a reduced config (by default qwen's), the same
+    float32 parameters on the card and on the CPU; for MoE configs the
+    assignments each side dropped at capacity in the prefill, equal."""
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_arrays, lm_params_to_arrays
     from repro_torch.models import (forward_decode, forward_prefill,
                                     forward_train, init_params)
     from repro_torch.serving import ServeEngine
 
-    cfg = get_config(LM_ARCH).reduced()
+    cfg = cfg or get_config(LM_ARCH).reduced()
     assert cfg.dtype == "float32" and not torch.backends.cuda.matmul.allow_tf32
     B, S, P = LM_CPU["batch"], LM_CPU["length"], LM_CPU["prompt"]
     host = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
@@ -2958,25 +2999,32 @@ def drive_lm_cpu_card(dev):
 
     def run(model):
         with torch.inference_mode():
-            full, _ = forward_train(model, tokens, cfg)
+            full, aux = forward_train(model, tokens, cfg)
             logits, cache = forward_prefill(model, tokens[:, :P], cfg, max_len=S)
+            dropped = moe_dropped(model)
             steps = [logits]
             for t in range(P, S):
                 logits, cache = forward_decode(model, tokens[:, t:t + 1], cache, cfg)
                 steps.append(logits)
-            return full.cpu(), torch.stack(steps, 1).cpu()
+            return full.cpu(), torch.stack(steps, 1).cpu(), aux.item(), dropped
 
-    (f_h, s_h), (f_c, s_c) = run(host), run(card)
+    (f_h, s_h, aux_h, drop_h), (f_c, s_c, aux_c, drop_c) = run(host), run(card)
     err = max((f_h - f_c).abs().max().item(), (s_h - s_c).abs().max().item())
     assert err < LM_CPU_TOL, (err, LM_CPU_TOL)
     assert torch.equal(s_h.argmax(-1), s_c.argmax(-1))
+    assert drop_h == drop_c, (drop_h, drop_c)
+    assert abs(aux_h - aux_c) < 1e-5, (aux_h, aux_c)
     gen_h = ServeEngine(cfg, host, device="cpu").generate_batch(tokens[:, :P], S - P)
     gen_c = ServeEngine(cfg, card, device=dev).generate_batch(tokens[:, :P], S - P)
     assert np.array_equal(gen_h, gen_c), (gen_h, gen_c)
-    log(f"serve {cfg.name} reduced float32: card within {err:.3e} of the CPU "
-        f"(bar {LM_CPU_TOL}), the same {gen_c.size} greedy tokens")
-    return dict(arch=cfg.name, reduced=True, max_abs_err=err, tol=LM_CPU_TOL,
-                tokens_equal=True)
+    moe = (f" (capacity factor {cfg.capacity_factor:g}: aux {aux_c:.6f} / "
+           f"{aux_h:.6f}, prefill dropped {drop_c} / {drop_h} assignments)"
+           if cfg.n_experts else "")
+    log(f"serve {cfg.name} reduced float32{moe}: card within {err:.3e} of the "
+        f"CPU (bar {LM_CPU_TOL}), the same {gen_c.size} greedy tokens")
+    return dict(arch=cfg.name, reduced=True, capacity_factor=cfg.capacity_factor,
+                max_abs_err=err, tol=LM_CPU_TOL, aux=aux_c, aux_cpu=aux_h,
+                prefill_dropped=drop_c, tokens_equal=True)
 
 
 def drive_lm_others(dev, card):
@@ -3015,14 +3063,14 @@ def drive_lm_others(dev, card):
     return reports
 
 
-def drive_serve_cli():
-    """Phase 17 (f): ``python -m repro_torch.launch.serve`` in a subprocess
-    on the card: exit 0 and the reference's two lines."""
+def drive_serve_cli(args=LM_CLI_ARGS):
+    """Phase 17 (f), 18 (f): ``python -m repro_torch.launch.serve`` in a
+    subprocess on the card: exit 0 and the reference's two lines."""
     import os
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LM_CLI_ARGS]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
                          env=env, timeout=300)
@@ -3033,7 +3081,361 @@ def drive_serve_cli():
         and lines[1].startswith("sample: ["), lines
     log(f"serve cli: {' '.join(cmd[1:])} -> exit 0 in {wall:.1f} s: "
         f"{lines[0]} | {lines[1]}")
-    return dict(args=LM_CLI_ARGS, lines=lines, wall_s=wall, clock="host")
+    return dict(args=list(args), lines=lines, wall_s=wall, clock="host")
+
+
+# -- phase 18: MLA attention and the sort-based MoE -----------------------------
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_SERVE = dict(batch=4, prompt=128, max_new=32, reps=5)
+# (b): bf16 prefill + 4 decode steps on the served prompts against bf16
+# forward_train, dropless (capacity factor E / K, the reduced configs' own
+# rule: the published 1.25 drops other assignments in a 132-token pass
+# than in a 128-token prefill).  At full depth bf16 routing flips make the
+# sound reading large: 0.35-1.48 of logits up to 4.75 on the card, prompts
+# 8-128, 2 and 4 steps, 2 seeds, where the planted faults read at least
+# 5.31 (shared experts skipped) and 3.30 (krope one slot late), but a
+# position late only 1.50-2.12 (tools/moe_forced_readings.py, NVIDIA H100
+# 80GB HBM3, 700 W).  The bar lies between; it catches gross faults only,
+# and (c) holds the same path in float32 to the reference's bar.
+MOE_BF16_FORCED = dict(decode=4)
+MOE_BF16_TOL = 2.5
+MOE_BF16_FAULTS = ("skip_shared", "krope_late")
+# (c): float32 at full width and depth (62.8 GB of weights), TF32 off,
+# dropless, at the reference's bar, every planted fault above it
+MOE_F32 = dict(batch=2, length=64, decode=2)
+MOE_F32_FAULTS = ("skip_shared", "krope_late", "position")
+# (d): reduced configs, card against CPU; the last one drops assignments
+MOE_CPU = [("deepseek-v2-lite-16b", {}), ("mixtral-8x7b", {}),
+           ("deepseek-v2-lite-16b", {"capacity_factor": 0.25, "moe_groups": 0})]
+# (e): mixtral-8x7b at full width, 8 of its 32 layers (the 32 take 93.4 GB
+# in bf16, more than one 80 GB card)
+MIXTRAL = dict(arch="mixtral-8x7b", layers=8, batch=4, prompt=128, max_new=8,
+               reps=3)
+MOE_CLI_ARGS = ["--arch", "deepseek-v2-lite-16b", "--reduced", "--batch", "4",
+                "--prompt-len", "32", "--max-new", "16"]
+
+
+def moe_dropped(model) -> int:
+    """Assignments the model's MoE layers dropped at capacity in its last
+    call (0 without MoE layers)."""
+    return sum(int(layer.ffn.dropped) for layer in model.layers if layer.moe)
+
+
+def _expert_hits(model, fn):
+    """(fn's result, distinct experts each MoE layer's router chose during
+    ``fn()``), read from the layers' inputs by forward hooks."""
+    hits, hooks = [], []
+
+    def hook(moe, args):
+        x = args[0]
+        top = torch.topk(x.reshape(-1, x.shape[-1]).float() @ moe.router,
+                         moe.cfg.top_k, dim=-1).indices
+        hits.append(int(torch.unique(top).numel()))
+
+    for layer in model.layers:
+        if layer.moe:
+            hooks.append(layer.ffn.register_forward_pre_hook(hook))
+    try:
+        out = fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, hits
+
+
+def _moe_bounds(model, batch, prompt, slots, hits):
+    """Least times of a prefill and of a decode step of an MLA / MoE model
+    as it computes them.  Operations: the matmuls at the bf16 peak (2 a
+    multiply-add), MoE experts over every capacity slot of every group
+    (E * cap rows an expert, as dispatched), MLA's k_nope and v recomputed
+    over all the cache's slots, scores and values over the keys computed.
+    Bytes at 3.35 TB/s, two ways: every weight read once (the capacity
+    dispatch reads every expert, so it is the path's own), and only the
+    weights the step used (the experts its routers chose, ``hits`` per MoE
+    layer); the cache read once by a decode step."""
+    from repro_torch.models import cache_specs
+    from repro_torch.models.layers import MLAttention, moe_capacity
+
+    cfg = model.cfg
+    d, size = cfg.d_model, model.embed.element_size()
+    gated = 3 if cfg.act in ("swiglu", "geglu") else 2
+
+    def layer_ops(layer, n_tok, sq, sk):
+        B = batch
+        a = layer.attn
+        if isinstance(a, MLAttention):
+            H, r, dn, dr, dv = (cfg.num_heads, cfg.kv_lora_rank,
+                                cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                                cfg.v_head_dim)
+            ops = (2 * n_tok * d * (H * (dn + dr) + r + dr + H * dv)
+                   + 2 * B * sk * r * H * (dn + dv)
+                   + 2 * B * H * sq * sk * (dn + dr + dv))
+        else:
+            H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+            ops = 2 * n_tok * d * (2 * H + 2 * KV) * hd + 4 * B * H * sq * sk * hd
+        if layer.moe:
+            G, cap = moe_capacity(cfg, n_tok)
+            f = cfg.moe_d_ff or cfg.d_ff
+            ops += 2 * n_tok * d * cfg.n_experts + 2 * gated * G * cfg.n_experts * cap * d * f
+            if cfg.n_shared_experts:
+                ops += 2 * gated * n_tok * d * cfg.n_shared_experts * f
+        elif hasattr(layer, "ffn"):
+            ops += 2 * gated * n_tok * d * cfg.d_ff
+        return ops
+
+    head = 2 * batch * d * cfg.padded_vocab
+    pre_ops = head + sum(layer_ops(lay, batch * prompt, prompt, prompt)
+                         for lay in model.layers)
+    dec_ops = head + sum(layer_ops(lay, batch, 1, slots) for lay in model.layers)
+    weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                  if n != "embed") + batch * d * size
+    expert = {n: p[0].numel() * p.element_size()
+              for n, p in model.named_parameters() if ".experts." in n}
+    unused = 0
+    moe_layers = [i for i, lay in enumerate(model.layers) if lay.moe]
+    assert len(hits) == len(moe_layers), (len(hits), len(moe_layers))
+    for i, h in zip(moe_layers, hits):
+        per = sum(v for n, v in expert.items() if n.startswith(f"layers.{i}."))
+        unused += (cfg.n_experts - h) * per
+    cache = sum(math.prod(shape) * size for layer in
+                cache_specs(cfg, batch, slots)["layers"] for shape, _ in layer.values())
+    dec_all = weights + cache
+    dec_active = weights - unused + cache
+    ms = lambda b, o: max(b / PEAK_BYTES_PER_S, o / PEAK_BF16_OPS_PER_S) * 1e3  # noqa: E731
+    return dict(prefill_bound_ms=ms(weights, pre_ops), prefill_tflop=pre_ops / 1e12,
+                decode_bound_ms=ms(dec_all, dec_ops),
+                decode_bound_active_ms=ms(dec_active, dec_ops),
+                decode_gflop=dec_ops / 1e9, weight_gb=weights / 1e9,
+                decode_active_gb=dec_active / 1e9, cache_gb=cache / 1e9)
+
+
+def _slots(cache) -> int:
+    """Slots of a layer's cache (mixtral's SWA buffer holds ``window``)."""
+    return next(iter(cache["layers"][0].values())).shape[1]
+
+
+def drive_moe_serve(dev, card):
+    """Phase 18 (a): deepseek-v2-lite-16b at full width and depth in
+    bfloat16, the published capacity factor."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(MOE_ARCH)
+    B, S, new = MOE_SERVE["batch"], MOE_SERVE["prompt"], MOE_SERVE["max_new"]
+    rng = np.random.default_rng(SEED + 5)
+    torch.zeros(1, device=dev)       # the allocator exists before its reset
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    walls, outs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(engine.generate_batch(prompts, new))
+        walls.append(time.perf_counter() - t0)
+    assert outs[0].shape == (B, new) and outs[0].dtype == np.int32
+    assert np.array_equal(outs[0], outs[1]), "a second call gave other tokens"
+    assert ((outs[0] >= 0) & (outs[0] < cfg.padded_vocab)).all()
+    times = _time_serving(dev, engine, prompts, new, MOE_SERVE["reps"])
+    pre_ms, dec_ms = times["prefill_ms"], times["decode_ms"]
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    (logits, cache), pre_hits = _expert_hits(model, lambda: engine.prefill(prompts, S + new))
+    dropped = moe_dropped(model)
+    n_assign = B * S * cfg.top_k * sum(lay.moe for lay in model.layers)
+    tok = logits.argmax(-1, keepdim=True)
+    _, dec_hits = _expert_hits(model, lambda: engine.decode(tok, cache))
+    bounds = _moe_bounds(model, B, S, _slots(cache), dec_hits)
+    prof_pre = _profile(dev, lambda: engine.prefill(prompts, S + new))
+    prof_dec = _profile(dev, lambda: engine.decode(tok, cache))
+    del logits, cache
+    for prof, ms in ((prof_pre, pre_ms), (prof_dec, dec_ms)):
+        prof.pop("dense_lu_kernels", None)
+        prof.pop("level_run_kernels", None)
+        if "device_busy_ms" in prof:
+            prof["busy_share"] = prof["device_busy_ms"] / ms
+    report = dict(
+        arch=cfg.name, dtype=cfg.dtype, params=cfg.param_count(),
+        active_params=cfg.active_param_count(), batch=B, prompt=S, max_new=new,
+        capacity_factor=cfg.capacity_factor, card=card, init_s=init_s,
+        generate_s=walls, tokens_per_s=B * new / walls[1], **times, **bounds,
+        prefill_dropped=dropped, prefill_assignments=n_assign,
+        prefill_experts_hit=pre_hits, decode_experts_hit=dec_hits,
+        prefill_profile=prof_pre, decode_profile=prof_dec,
+        peak_mib=peak / 2**20, held_before_mib=base / 2**20,
+        sample=outs[0][0, :16].tolist(), clock="CUDA events (ms), host (s)")
+    log(f"serve {cfg.name} bf16 B={B} prompt {S} +{new} (27 layers, "
+        f"{cfg.param_count():,} parameters, {cfg.active_param_count():,} active): "
+        f"prefill {pre_ms:.3f} ms (bound {bounds['prefill_bound_ms']:.3f}, "
+        f"{bounds['prefill_tflop']:.2f} TFLOP), decode {dec_ms:.3f} ms a step "
+        f"(bound {bounds['decode_bound_ms']:.3f} with all {bounds['weight_gb']:.2f} "
+        f"GB of weights, {bounds['decode_bound_active_ms']:.3f} with the "
+        f"{bounds['decode_active_gb']:.2f} GB the step used; host "
+        f"{times['decode_host_ms']:.3f} ms a step, {min(times['decode_ms_all']):.3f}-"
+        f"{max(times['decode_ms_all']):.3f} ms over the steps), "
+        f"{B * new / walls[1]:.1f} tok/s (generate {walls[0]:.2f} / {walls[1]:.2f} s), "
+        f"peak {peak / 2**20:.1f} MiB over the {base / 2**20:.1f} MiB held before, "
+        f"init {init_s:.2f} s [{card}]")
+    log(f"  prefill dropped {dropped} of {n_assign} assignments at capacity "
+        f"factor {cfg.capacity_factor}; experts hit a layer: prefill "
+        f"{min(pre_hits)}-{max(pre_hits)}, decode step {min(dec_hits)}-"
+        f"{max(dec_hits)} of {cfg.n_experts}")
+    for what, prof in (("prefill", prof_pre), ("decode step", prof_dec)):
+        log(f"  one {what}: {prof.get('kernels', 'not measured')} device "
+            f"kernels, busy {prof.get('device_busy_ms', 'not measured')} ms "
+            f"(share {prof.get('busy_share', 'not measured')})")
+    del model, engine
+    torch.cuda.empty_cache()
+    return report, prompts
+
+
+def drive_moe_forced(dev, prompts):
+    """Phase 18 (b): bf16 prefill + decode against bf16 ``forward_train``
+    on (a)'s prompts, dropless, sound and with each planted fault."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, capacity_factor=base.n_experts / base.top_k)
+    B, S = prompts.shape
+    D = MOE_BF16_FORCED["decode"]
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    tokens = np.concatenate(
+        [prompts, rng.integers(0, cfg.vocab_size, size=(B, D)).astype(np.int32)], 1)
+    from repro_torch.models import forward_prefill, forward_train
+
+    with torch.inference_mode():
+        forward_train(model, tokens, cfg)
+        train_dropped = moe_dropped(model)
+        forward_prefill(model, tokens[:, :S], cfg)
+        assert train_dropped == moe_dropped(model) == 0, "the dropless capacity dropped"
+    readings = {}
+    for fault in (None, *MOE_BF16_FAULTS, "position"):
+        err, same, scale, gap = _teacher_forced(model, cfg, tokens, S, fault)
+        readings[fault or "sound"] = err
+        if fault is None:
+            sound = dict(argmax_equal=same, max_abs_logit=scale, min_top2_gap=gap)
+    del model
+    torch.cuda.empty_cache()
+    assert readings["sound"] < MOE_BF16_TOL, (readings, MOE_BF16_TOL)
+    assert min(readings[f] for f in MOE_BF16_FAULTS) > MOE_BF16_TOL, \
+        ("the bar no longer catches a planted fault", readings, MOE_BF16_TOL)
+    log(f"  bf16 prefill {S} + {D} decode steps against forward_train "
+        f"(capacity factor {cfg.capacity_factor:.4g}, dropless): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+        + f" (bar {MOE_BF16_TOL}; max |logit| {sound['max_abs_logit']:.3f}, "
+        f"argmax equal {sound['argmax_equal']})")
+    return dict(prompt=S, decode_steps=D, capacity_factor=cfg.capacity_factor,
+                max_abs_err=readings, tol=MOE_BF16_TOL, **sound)
+
+
+def drive_moe_f32(dev):
+    """Phase 18 (c): float32 at full width and depth, TF32 off, dropless,
+    against the full-sequence pass at the reference's bar, sound and with
+    each planted fault."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, dtype="float32",
+                              capacity_factor=base.n_experts / base.top_k)
+    B, S, D = MOE_F32["batch"], MOE_F32["length"], MOE_F32["decode"]
+    torch.cuda.empty_cache()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    tokens = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    err, same, scale, gap = _teacher_forced(model, cfg, tokens, S - D)
+    faults = {f: _teacher_forced(model, cfg, tokens, S - D, f)[0]
+              for f in MOE_F32_FAULTS}
+    del model
+    torch.cuda.empty_cache()
+    assert err < LM_F32_TOL, (err, LM_F32_TOL)
+    assert same, "float32 prefill/decode argmax differs from forward_train"
+    assert min(faults.values()) > LM_F32_TOL, ("a planted fault passes", faults)
+    log(f"serve {cfg.name} float32 (TF32 off, {cfg.num_layers} layers, dropless): "
+        f"prefill {S - D} + {D} decode steps within {err:.3e} of forward_train "
+        f"(bar {LM_F32_TOL}; max |logit| {scale:.3f}, smallest top-2 gap {gap:.3e}); "
+        + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()))
+    return dict(arch=cfg.name, dtype="float32", layers=cfg.num_layers, tf32=False,
+                batch=B, prompt=S - D, decode_steps=D, max_abs_err=err,
+                tol=LM_F32_TOL, max_abs_logit=scale, min_top2_gap=gap,
+                faults=faults)
+
+
+def drive_moe_cpu_card(dev):
+    """Phase 18 (d): reduced deepseek and mixtral, card against CPU; one
+    variant drops assignments at capacity, on both."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch, overrides in MOE_CPU:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
+        out.append(drive_lm_cpu_card(dev, cfg))
+    assert out[-1]["prefill_dropped"] > 0, out[-1]
+    assert all(r["prefill_dropped"] == 0 for r in out[:-1]), out
+    return out
+
+
+def drive_mixtral(dev, card):
+    """Phase 18 (e): mixtral-8x7b at full width and 8 of its 32 layers,
+    bf16, the published capacity factor."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    spec = MIXTRAL
+    cfg = dataclasses.replace(get_config(spec["arch"]), num_layers=spec["layers"])
+    B, S, new = spec["batch"], spec["prompt"], spec["max_new"]
+    rng = np.random.default_rng(SEED + 8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    engine = ServeEngine(cfg, model, device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    t0 = time.perf_counter()
+    out = engine.generate_batch(prompts, new)
+    wall = time.perf_counter() - t0
+    assert out.shape == (B, new)
+    times = _time_serving(dev, engine, prompts, new, spec["reps"])
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    (logits, cache), _ = _expert_hits(model, lambda: engine.prefill(prompts, S + new))
+    dropped = moe_dropped(model)
+    _, dec_hits = _expert_hits(model, lambda: engine.decode(
+        logits.argmax(-1, keepdim=True), cache))
+    bounds = _moe_bounds(model, B, S, _slots(cache), dec_hits)
+    del logits, cache
+    log(f"serve {cfg.name} bf16 ({cfg.num_layers} of 32 layers, "
+        f"{cfg.param_count():,} parameters) B={B} prompt {S} +{new}: prefill "
+        f"{times['prefill_ms']:.3f} ms (bound {bounds['prefill_bound_ms']:.3f}), "
+        f"decode {times['decode_ms']:.3f} ms a step (bound "
+        f"{bounds['decode_bound_ms']:.3f}, {bounds['decode_bound_active_ms']:.3f} "
+        f"with the experts used), prefill dropped {dropped} of "
+        f"{B * S * cfg.top_k * cfg.num_layers}, peak {peak / 2**20:.1f} MiB, "
+        f"first generate {wall:.2f} s [{card}]")
+    report = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+                  params=cfg.param_count(), active_params=cfg.active_param_count(),
+                  batch=B, prompt=S, max_new=new, **times, **bounds,
+                  prefill_dropped=dropped, decode_experts_hit=dec_hits,
+                  peak_mib=peak / 2**20, first_generate_s=wall)
+    del model, engine
+    torch.cuda.empty_cache()
+    return report
 
 
 def main() -> int:
@@ -3182,6 +3584,20 @@ def main() -> int:
     serve_report["cli"] = drive_serve_cli()
     serve_report["phase_s"] = time.perf_counter() - t17
     log(json.dumps({"lm_serve_report": serve_report}))
+
+    # 18. MLA and the sort-based MoE: deepseek-v2-lite-16b at full width
+    # and depth (bf16), its forced and float32 checks, card against CPU
+    # with drops, mixtral-8x7b at full width and 8 layers, the CLI
+    t18 = time.perf_counter()
+    moe_report, prompts = drive_moe_serve(dev, card)
+    moe_report["forced"] = drive_moe_forced(dev, prompts)
+    moe_report["float32"] = drive_moe_f32(dev)
+    moe_report["cpu_card"] = drive_moe_cpu_card(dev)
+    moe_report["mixtral"] = drive_mixtral(dev, card)
+    moe_report["cli"] = drive_serve_cli(MOE_CLI_ARGS)
+    moe_report["phase_s"] = time.perf_counter() - t18
+    log(f"phase 18: {moe_report['phase_s']:.1f} s")
+    log(json.dumps({"moe_serve_report": moe_report}))
 
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",

@@ -100,10 +100,24 @@ class ModelConfig:
     def param_count(self) -> int:
         """Parameter count from the port's :func:`param_specs` (shapes only,
         nothing allocated).  Raises ``NotImplementedError`` for a family
-        the port does not serve yet."""
+        the port does not serve yet (Mamba-2)."""
         from ..models.model import param_specs
 
         return sum(math.prod(shape) for shape, _ in param_specs(self).values())
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: the routed experts' leaves count at
+        ``top_k / n_experts``, the shared experts (under ``shared``) in
+        full, as in the JAX package's count."""
+        if not self.n_experts:
+            return self.param_count()
+        from ..models.model import param_specs
+
+        frac = 1.0 - self.top_k / self.n_experts
+        inactive = sum(int(math.prod(shape) * frac)
+                       for name, (shape, _) in param_specs(self).items()
+                       if ".experts." in name)
+        return self.param_count() - inactive
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests."""

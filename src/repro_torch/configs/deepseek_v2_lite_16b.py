@@ -4,8 +4,7 @@
 MoE with 64 routed experts top-6 + 2 shared experts, moe_d_ff=1408,
 first layer dense (d_ff 10944 ~ brief's d_ff field covers the MoE expert
 width; the dense first layer uses 8 * moe_d_ff).  Full (quadratic) MLA
-attention -> long_500k skipped.  Not served by the port yet (MLA and MoE:
-ROADMAP queue 1 item 11 (i)).
+attention -> long_500k skipped.
 """
 from .base import ModelConfig
 

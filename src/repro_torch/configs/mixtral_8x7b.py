@@ -3,7 +3,7 @@
 32L, GQA 32 q / 8 kv, 8 experts top-2 SwiGLU d_ff=14336, RMSNorm,
 sliding-window attention (brief: SWA; window 4096) -> KV cache bounded by
 the window, decode is O(window): long_500k eligible with a rolling-buffer
-cache.  Not served by the port yet (MoE: ROADMAP queue 1 item 11 (i)).
+cache.
 """
 from .base import ModelConfig
 

@@ -1,6 +1,7 @@
-"""Model layers of the attention-only families in plain PyTorch: norms,
-rotary, GQA / sliding-window attention with a KV cache, cross-attention
-and the four MLPs.
+"""Model layers of the LM families in plain PyTorch: norms, rotary, GQA /
+sliding-window attention with a KV cache, cross-attention, the four MLPs,
+DeepSeek-V2's multi-head latent attention (MLA) with its compressed cache,
+and the sort-based capacity-dispatch MoE.
 
 Conventions, as in the JAX package's layers:
 
@@ -15,9 +16,9 @@ Conventions, as in the JAX package's layers:
 * The products the reference writes as einsums are ``matmul``/``einsum``
   here: no fused attention kernel stands in for them.
 
-MLA, MoE and the Mamba-2 block are not served yet (ROADMAP queue 1 item 11
-(i), (ii)); :func:`repro_torch.models.model.param_specs` refuses a config
-that needs them.
+The Mamba-2 block is not served yet (ROADMAP queue 1 item 11 (ii));
+:func:`repro_torch.models.model.param_specs` refuses a config that needs
+it.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "Norm", "Attention", "CrossAttention", "MLP",
+    "Norm", "Attention", "CrossAttention", "MLP", "MLAttention", "MoE",
     "norm_specs", "attention_specs", "cross_attention_specs", "mlp_specs",
+    "mla_specs", "moe_specs", "moe_capacity", "moe_one_group",
     "apply_norm", "rotary_cos_sin", "rotate", "sdpa",
     "causal_mask", "decode_mask", "torch_dtype",
 ]
@@ -266,12 +268,13 @@ def mlp_specs(cfg, d_ff: Optional[int] = None) -> Specs:
 
 class MLP(_Leaves):
     """swiglu / geglu (gated), gelu, relu2 (``relu(x)**2``); gelu is the
-    tanh form, the reference's default."""
+    tanh form, the reference's default.  ``d_ff`` overrides the config's
+    width (MoE's shared experts)."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, d_ff: Optional[int] = None):
         if cfg.act not in ("swiglu", "geglu", "gelu", "relu2"):
             raise ValueError(f"unknown activation {cfg.act!r}")
-        super().__init__(mlp_specs(cfg), device)
+        super().__init__(mlp_specs(cfg, d_ff), device)
         self.act = cfg.act
 
     def forward(self, x):
@@ -283,3 +286,169 @@ class MLP(_Leaves):
             h = x @ self.w_up
             h = F.gelu(h, approximate="tanh") if self.act == "gelu" else F.relu(h) ** 2
         return h @ self.w_down
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg) -> Specs:
+    d, H, dt = cfg.d_model, cfg.num_heads, cfg.dtype
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return {
+        "wq": ((d, H, dn + dr), dt),
+        "w_dkv": ((d, r + dr), dt),       # down: c_kv and the shared k_rope
+        "w_uk": ((r, H, dn), dt),         # up: k_nope
+        "w_uv": ((r, H, dv), dt),         # up: v
+        "wo": ((H, dv, d), dt),
+        "kv_norm": {"scale": ((r,), "float32")},
+    }
+
+
+class MLAttention(_Leaves):
+    """Multi-head latent attention, ``"causal"`` (fills ``cache`` when one
+    is given) or ``"decode"`` (one token written into ``cache`` at
+    ``index``).  The cache holds the normed latent ``ckv`` (B, slots, r)
+    and the rotated key part ``krope`` (B, slots, dr) that all heads
+    share; every call recomputes k_nope and v from the latents over all
+    its slots, the reference's memory/compute trade.  ``rope`` is the
+    (cos, sin) pair of :func:`rotary_cos_sin` over ``qk_rope_head_dim``."""
+
+    def __init__(self, cfg, device):
+        specs = mla_specs(cfg)
+        norm = specs.pop("kv_norm")
+        super().__init__(specs, device)
+        self.kv_norm = _Leaves(norm, device)
+        self.r, self.dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+        self.scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+    def forward(self, x, rope, mask, *, mode: str = "causal",
+                cache: Optional[dict] = None, index: int = 0):
+        q = _project(x, self.wq)
+        q_nope, q_rope = q[..., :self.dn], rotate(q[..., self.dn:], *rope)
+        dkv = x @ self.w_dkv
+        c_kv = apply_norm(dkv[..., :self.r], self.kv_norm.scale, None, "rmsnorm")
+        k_rope = rotate(dkv[..., None, self.r:], *rope)[:, :, 0]
+        if mode == "decode":
+            cache["ckv"][:, index] = c_kv[:, 0]
+            cache["krope"][:, index] = k_rope[:, 0]
+            c_kv, k_rope = cache["ckv"], cache["krope"]
+        elif cache is not None:
+            cache["ckv"][:, :x.shape[1]] = c_kv
+            cache["krope"][:, :x.shape[1]] = k_rope
+        k_nope, v = _project(c_kv, self.w_uk), _project(c_kv, self.w_uv)
+        scores = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
+                  + torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope)) * self.scale
+        scores = scores.float().masked_fill(~mask, -1e30)
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
+        return _out(torch.einsum("bhqs,bshk->bqhk", w, v), self.wo)
+
+
+# ---------------------------------------------------------------------------
+# MoE (sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg) -> Specs:
+    d, f, E, dt = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts, cfg.dtype
+    p = {"router": ((d, E), "float32"),
+         "experts": {"w_gate": ((E, d, f), dt), "w_up": ((E, d, f), dt),
+                     "w_down": ((E, f, d), dt)}}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_specs(cfg, cfg.n_shared_experts * f)
+    return p
+
+
+def moe_capacity(cfg, N: int) -> tuple[int, int]:
+    """(G, cap) for N tokens: ``moe_groups`` local dispatch groups when
+    they divide N (else one), and each expert's slots in a group,
+    ``max(8, ceil(N/G * K/E * capacity_factor))`` rounded up to 8."""
+    G = cfg.moe_groups or 1
+    if N % G:
+        G = 1
+    cap = int(math.ceil(N // G * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return G, max(8, (cap + 7) // 8 * 8)
+
+
+def moe_one_group(xg, router, w_gate, w_up, w_down, act: str, top_k: int,
+                  cap: int):
+    """Sort-based capacity dispatch of G token groups, each routed, sorted
+    and dropped on its own (the reference's ``_moe_one_group`` under its
+    vmap): xg (G, n, D) -> (out (G, n, D), aux (G,) float32, dropped (G,)
+    assignments past their expert's ``cap`` slots).
+
+    The router and its softmax run in float32; the top-k gates are
+    renormalised.  Assignments are stably sorted by expert; an
+    assignment's rank within its expert decides its slot, and one past
+    capacity lands on a spare row that is never computed on and reads
+    back as zero.  The combine puts the N*K weighted contributions back
+    into assignment order and sums each token's K in a fixed order."""
+    G, n, D = xg.shape
+    E, K = router.shape[1], top_k
+    probs = torch.softmax(xg.float() @ router, dim=-1)            # (G, n, E)
+    top_p, top_i = torch.topk(probs, K, dim=-1)
+    gates = top_p / (top_p.sum(-1, keepdim=True) + 1e-9)
+    eid = top_i.reshape(G, n * K)
+    # Switch-style load-balancing loss: counts of whole assignments, exact
+    # in float32 whatever the order of the adds
+    counts = torch.zeros(G, E, device=xg.device).scatter_add_(
+        1, eid, torch.ones(eid.shape, device=xg.device))
+    aux = E * (probs.mean(1) * counts / (n * K)).sum(-1)
+
+    order = torch.argsort(eid, dim=-1, stable=True)
+    eid_s = eid.gather(1, order)
+    rank = (torch.arange(n * K, device=xg.device)
+            - torch.searchsorted(eid_s, eid_s, side="left"))
+    keep = rank < cap
+    slot = torch.where(keep, eid_s * cap + rank, E * cap)
+    gi = torch.arange(G, device=xg.device)[:, None]
+    # kept slots are distinct: the dispatch writes each once
+    xe = xg.new_zeros(G, E * cap + 1, D)
+    xe[gi, slot] = xg[gi, order // K]
+    xe = xe[:, :E * cap].reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
+    if act in ("swiglu", "geglu"):
+        g = torch.bmm(xe, w_gate)
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = g * torch.bmm(xe, w_up)
+    else:
+        h = F.relu(torch.bmm(xe, w_up))
+    ye = torch.bmm(h, w_down).reshape(E, G, cap, D).transpose(0, 1)
+    ye = torch.cat([ye.reshape(G, E * cap, D), ye.new_zeros(G, 1, D)], 1)
+    contrib = ye[gi, slot] * gates.reshape(G, n * K).gather(1, order).to(
+        xg.dtype)[..., None]
+    per = torch.empty_like(contrib)
+    per[gi, order] = contrib
+    return per.reshape(G, n, K, D).sum(2), aux, (~keep).sum(-1)
+
+
+class MoE(_Leaves):
+    """Routed experts (``experts``: (E, d, f) gate/up, (E, f, d) down) with
+    the float32 ``router``, plus ``n_shared_experts`` always-on experts as
+    one MLP of width ``n_shared_experts * moe_d_ff`` (``shared``).
+    Returns (out, aux); ``dropped`` holds the assignments the last call
+    dropped at capacity, summed over its groups (a 0-d device tensor)."""
+
+    def __init__(self, cfg, device):
+        specs = moe_specs(cfg)
+        experts = specs.pop("experts")
+        shared = specs.pop("shared", None)
+        super().__init__(specs, device)
+        self.experts = _Leaves(experts, device)
+        if shared is not None:
+            self.shared = MLP(cfg, device, d_ff=cfg.n_shared_experts
+                              * (cfg.moe_d_ff or cfg.d_ff))
+        self.cfg = cfg
+        self.dropped = None
+
+    def forward(self, x):
+        B, S, D = x.shape
+        G, cap = moe_capacity(self.cfg, B * S)
+        e = self.experts
+        out, aux, dropped = moe_one_group(
+            x.reshape(G, B * S // G, D), self.router, e.w_gate, e.w_up,
+            e.w_down, self.cfg.act, self.cfg.top_k, cap)
+        self.dropped = dropped.sum()
+        out = out.reshape(B, S, D)
+        if hasattr(self, "shared"):
+            out = out + self.shared(x)
+        return out, aux.mean()

@@ -1,6 +1,7 @@
-"""Config-driven model assembly for the attention-only families (dense,
-vlm, audio): parameter specs, the seeded init, and the reference's entry
-points ``forward_train``, ``forward_prefill`` and ``forward_decode``.
+"""Config-driven model assembly for the LM families without a Mamba-2
+block (dense, moe, vlm, audio): parameter specs, the seeded init, and the
+reference's entry points ``forward_train``, ``forward_prefill`` and
+``forward_decode``.
 
 The model is an :class:`LM` module on an explicit device; it holds the
 parameters, and the entry points take it where the JAX package's take its
@@ -9,15 +10,17 @@ package's scan over periodic layer groups is a compile device of XLA, and
 :mod:`repro_torch.convert` alone reads that package's stacked parameter
 layout.
 
-Block layout per layer: norm1 -> attention (full or sliding window) ->
-[whisper: norm_x -> cross-attention] -> norm2 -> MLP, each with a residual.
-Whisper adds an encoder stack over caller-supplied frame embeddings; the
-vision stub projects caller-supplied patch embeddings over the first
-positions of a full-sequence pass.
+Block layout per layer i: norm1 -> attention (full, sliding window, or
+MLA) -> [whisper: norm_x -> cross-attention] -> norm2 -> MoE if
+``cfg.is_moe_layer(i)`` else MLP (absent when ``d_ff`` is 0), each with a
+residual.  MoE layers add their aux loss along the layers.  Whisper adds
+an encoder stack over caller-supplied frame embeddings; the vision stub
+projects caller-supplied patch embeddings over the first positions of a
+full-sequence pass.
 
-A config that needs MLA, MoE or the Mamba-2 block raises
-``NotImplementedError`` when its specs or model are built (ROADMAP queue 1
-item 11 (i), (ii)); it never falls back to a dense layer.
+A config that needs the Mamba-2 block raises ``NotImplementedError`` when
+its specs or model are built (ROADMAP queue 1 item 11 (ii)); it never
+falls back to a dense layer.
 """
 from __future__ import annotations
 
@@ -46,21 +49,14 @@ def _layer_specs(cfg, i: int) -> dict:
         raise NotImplementedError(
             f"{cfg.name}: layer {i} is a Mamba-2 (SSD) block, which the port "
             f"does not serve yet (ROADMAP queue 1 item 11 (ii))")
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue 1 "
-            f"item 11 (i))")
-    if cfg.is_moe_layer(i):
-        raise NotImplementedError(
-            f"{cfg.name}: layer {i} is a MoE layer, which the port does not "
-            f"serve yet (ROADMAP queue 1 item 11 (i))")
-    p = {"norm1": L.norm_specs(cfg, cfg.d_model), "attn": L.attention_specs(cfg)}
+    p = {"norm1": L.norm_specs(cfg, cfg.d_model),
+         "attn": L.mla_specs(cfg) if cfg.attention == "mla" else L.attention_specs(cfg)}
     if cfg.encoder_layers:
         p["norm_x"] = L.norm_specs(cfg, cfg.d_model)
         p["cross"] = L.cross_attention_specs(cfg)
-    if cfg.d_ff:
+    if cfg.d_ff or cfg.is_moe_layer(i):
         p["norm2"] = L.norm_specs(cfg, cfg.d_model)
-        p["ffn"] = L.mlp_specs(cfg)
+        p["ffn"] = L.moe_specs(cfg) if cfg.is_moe_layer(i) else L.mlp_specs(cfg)
     return p
 
 
@@ -107,27 +103,34 @@ def _param(shape, dtype: str, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One decoder layer."""
+    """Decoder layer ``i``: returns (x, aux), aux the MoE layer's loss or
+    None."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, i: int, device):
         super().__init__()
         self.norm1 = L.Norm(cfg, cfg.d_model, device)
-        self.attn = L.Attention(cfg, device)
+        self.attn = (L.MLAttention(cfg, device) if cfg.attention == "mla"
+                     else L.Attention(cfg, device))
         if cfg.encoder_layers:
             self.norm_x = L.Norm(cfg, cfg.d_model, device)
             self.cross = L.CrossAttention(cfg, device)
-        if cfg.d_ff:
+        self.moe = cfg.is_moe_layer(i)
+        if cfg.d_ff or self.moe:
             self.norm2 = L.Norm(cfg, cfg.d_model, device)
-            self.ffn = L.MLP(cfg, device)
+            self.ffn = L.MoE(cfg, device) if self.moe else L.MLP(cfg, device)
 
     def forward(self, x, rope, mask, *, mode, cache=None, index=0, enc_kv=None):
         x = x + self.attn(self.norm1(x), rope, mask, mode=mode, cache=cache,
                           index=index)
         if enc_kv is not None and hasattr(self, "cross"):
             x = x + self.cross(self.norm_x(x), enc_kv)
-        if hasattr(self, "ffn"):
+        aux = None
+        if self.moe:
+            f, aux = self.ffn(self.norm2(x))
+            x = x + f
+        elif hasattr(self, "ffn"):
             x = x + self.ffn(self.norm2(x))
-        return x
+        return x, aux
 
 
 class EncoderBlock(nn.Module):
@@ -164,7 +167,7 @@ class LM(nn.Module):
         self.cfg = cfg
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = _param((V, d), cfg.dtype, dev)
-        self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, i, dev) for i in range(cfg.num_layers))
         self.final_norm = L.Norm(cfg, d, dev)
         if not cfg.tie_embeddings:
             self.lm_head = _param((d, V), cfg.dtype, dev)
@@ -255,8 +258,13 @@ def _prepare_encdec(model: LM, positions, x, cfg, extras):
 
 
 def _rope(cfg, positions, dtype):
-    hd = cfg.hd
-    rd = int(cfg.rotary_pct * hd) if cfg.rotary_pct < 1.0 else hd
+    """(cos, sin) over the rotated width: MLA rotates its
+    ``qk_rope_head_dim`` slice whole, the other attentions ``rotary_pct``
+    of ``hd``."""
+    if cfg.attention == "mla":
+        rd = cfg.qk_rope_head_dim
+    else:
+        rd = int(cfg.rotary_pct * cfg.hd) if cfg.rotary_pct < 1.0 else cfg.hd
     return L.rotary_cos_sin(positions, cfg.rope_theta, rd, dtype) if rd else None
 
 
@@ -284,30 +292,41 @@ def _causal_pass(model: LM, tokens, cfg, extras, caches):
     x, enc_kv = _prepare_encdec(model, positions, x, cfg, extras)
     rope = _rope(cfg, positions, x.dtype)
     mask = L.causal_mask(S, _window(cfg), model.device)
+    aux = torch.zeros((), dtype=torch.float32, device=model.device)
     for i, layer in enumerate(model.layers):
-        x = layer(x, rope, mask, mode="causal",
-                  cache=caches[i] if caches else None,
-                  enc_kv=enc_kv[i] if enc_kv else None)
-    return x, enc_kv
+        x, a = layer(x, rope, mask, mode="causal",
+                     cache=caches[i] if caches else None,
+                     enc_kv=enc_kv[i] if enc_kv else None)
+        if a is not None:
+            aux = aux + a
+    return x, enc_kv, aux
 
 
 @torch.no_grad()
 def forward_train(model: LM, tokens, cfg, extras: Optional[dict] = None):
     """tokens (B, S) -> (logits (B, S, V) float32, aux).  ``aux`` is the
-    MoE auxiliary loss: 0 here, since no ported family has experts.  The
-    full-sequence forward only: no loss and no backward in this slice."""
+    MoE auxiliary loss summed over the MoE layers (0 without experts).
+    The full-sequence forward only: no loss and no backward yet."""
     _check(model, cfg)
     tokens = _tokens(model, tokens)
-    x, _ = _causal_pass(model, tokens, cfg, extras, None)
-    aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    x, _, aux = _causal_pass(model, tokens, cfg, extras, None)
     return _logits(model, x, cfg), aux
 
 
+def _cache_shapes(cfg, B: int, slots: int) -> dict:
+    """A layer's cache buffers: the latent ``ckv`` and ``krope`` under MLA,
+    else ``k`` and ``v`` (B, slots, KV, hd)."""
+    if cfg.attention == "mla":
+        return {"ckv": (B, slots, cfg.kv_lora_rank),
+                "krope": (B, slots, cfg.qk_rope_head_dim)}
+    kv = (B, slots, cfg.num_kv_heads, cfg.hd)
+    return {"k": kv, "v": kv}
+
+
 def _new_cache(cfg, B: int, slots: int, device) -> list[dict]:
-    shape = (B, slots, cfg.num_kv_heads, cfg.hd)
     dt = L.torch_dtype(cfg.dtype)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
+    return [{name: torch.zeros(shape, dtype=dt, device=device)
+             for name, shape in _cache_shapes(cfg, B, slots).items()}
             for _ in range(cfg.num_layers)]
 
 
@@ -316,14 +335,15 @@ def forward_prefill(model: LM, tokens, cfg, extras: Optional[dict] = None,
                     max_len: Optional[int] = None):
     """Returns (last-token logits (B, V) float32, cache).  The cache holds
     ``max(S, max_len)`` slots a layer, or the ``window`` slots of the
-    rolling buffer under SWA; ``{"layers": [{"k", "v"}], "enc_kv", "pos"}``."""
+    rolling buffer under SWA; ``{"layers": [{"k", "v"} or {"ckv",
+    "krope"}], "enc_kv", "pos"}``."""
     _check(model, cfg)
     tokens = _tokens(model, tokens)
     B, S = tokens.shape
     window = _window(cfg)
     slots = window if window else max(S, max_len or S)
     caches = _new_cache(cfg, B, slots, model.device)
-    x, enc_kv = _causal_pass(model, tokens, cfg, extras, caches)
+    x, enc_kv, _ = _causal_pass(model, tokens, cfg, extras, caches)
     logits = _logits(model, x[:, -1:], cfg)[:, 0]
     return logits, {"layers": caches, "enc_kv": enc_kv, "pos": S}
 
@@ -339,7 +359,7 @@ def forward_decode(model: LM, token, cache, cfg, extras: Optional[dict] = None):
     B = token.shape[0]
     idx = int(cache["pos"])
     layers = cache["layers"]
-    slots = layers[0]["k"].shape[1]
+    slots = next(iter(layers[0].values())).shape[1]
     if not _window(cfg) and idx >= slots:
         raise IndexError(f"the cache holds {slots} positions; position {idx} "
                          f"does not fit (pass a larger max_len to prefill)")
@@ -351,8 +371,8 @@ def forward_decode(model: LM, token, cache, cfg, extras: Optional[dict] = None):
     mask = L.decode_mask(slots, idx, _window(cfg), model.device)
     enc_kv = cache.get("enc_kv")
     for i, layer in enumerate(model.layers):
-        x = layer(x, rope, mask, mode="decode", cache=layers[i], index=idx,
-                  enc_kv=enc_kv[i] if enc_kv else None)
+        x, _ = layer(x, rope, mask, mode="decode", cache=layers[i], index=idx,
+                     enc_kv=enc_kv[i] if enc_kv else None)
     logits = _logits(model, x, cfg)[:, 0]
     return logits, {"layers": layers, "enc_kv": enc_kv, "pos": idx + 1}
 
@@ -363,11 +383,13 @@ def forward_decode(model: LM, token, cache, cfg, extras: Optional[dict] = None):
 
 def cache_specs(cfg, batch: int, seq_len: int) -> dict:
     """Spec tree of a cache holding ``seq_len`` tokens, in the port's cache
-    layout: ``{"layers": [{"k", "v"}], "pos", "enc_kv"}``."""
+    layout: ``{"layers": [{"k", "v"} or {"ckv", "krope"}], "pos",
+    "enc_kv"}``."""
     param_specs(cfg)                   # refuses the unported families
     S = min(seq_len, cfg.window) if cfg.attention == "swa" else seq_len
-    kv = ((batch, S, cfg.num_kv_heads, cfg.hd), cfg.dtype)
-    out = {"layers": [{"k": kv, "v": kv} for _ in range(cfg.num_layers)],
+    out = {"layers": [{name: (shape, cfg.dtype)
+                       for name, shape in _cache_shapes(cfg, batch, S).items()}
+                      for _ in range(cfg.num_layers)],
            "pos": ((), "int32")}
     enc = ((batch, cfg.encoder_seq, cfg.num_heads, cfg.hd), cfg.dtype)
     out["enc_kv"] = ([(enc, enc) for _ in range(cfg.num_layers)]

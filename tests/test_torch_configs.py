@@ -1,7 +1,8 @@
 """PyTorch port, the LM configs: the ten architectures and their reduced
 forms field for field the JAX package's, the registry's helpers, the
-parameter counts of the ported families at full size (shapes only, nothing
-allocated), and the unported families refused when a model is built."""
+parameter counts (total and active) of the ported families at full size
+(shapes only, nothing allocated), and the unported (Mamba-2) families
+refused when a model is built."""
 import dataclasses
 
 import pytest
@@ -12,9 +13,9 @@ from repro_torch.models import LM
 
 ARCHS = jconfigs.list_archs()
 PORTED = ["qwen2.5-3b", "stablelm-1.6b", "stablelm-3b", "nemotron-4-340b",
-          "phi-3-vision-4.2b", "whisper-base"]
-UNPORTED = {"mixtral-8x7b": "MoE", "deepseek-v2-lite-16b": "MLA",
-            "mamba2-2.7b": "Mamba-2", "jamba-v0.1-52b": "Mamba-2"}
+          "phi-3-vision-4.2b", "whisper-base", "deepseek-v2-lite-16b",
+          "mixtral-8x7b"]
+UNPORTED = {"mamba2-2.7b": "Mamba-2", "jamba-v0.1-52b": "Mamba-2"}
 
 
 def test_registry_matches_reference():
@@ -47,12 +48,33 @@ def test_param_count_matches_reference(arch):
     cfg = tconfigs.get_config(arch)
     assert cfg.param_count() == jconfigs.get_config(arch).param_count()
     assert cfg.reduced().param_count() == jconfigs.get_config(arch).reduced().param_count()
+    assert cfg.active_param_count() == jconfigs.get_config(arch).active_param_count()
 
 
 def test_qwen_param_count():
     cfg = tconfigs.get_config("qwen2.5-3b")
     assert cfg.param_count() == 3_086_200_832
     assert cfg.padded_vocab == 152_064
+
+
+# (arch, num_layers or None for the published depth) -> (params, active):
+# the reference's param_count() / active_param_count()
+ACTIVE = {("deepseek-v2-lite-16b", None): (15_708_450_304, 2_663_116_288),
+          ("mixtral-8x7b", None): (46_702_792_704, 12_879_925_248),
+          ("mixtral-8x7b", 8): (11_872_309_248, 3_416_592_384)}
+
+
+@pytest.mark.parametrize("arch,layers", list(ACTIVE))
+def test_active_param_count(arch, layers):
+    """The MoE families at full width: routed experts count at top_k / E,
+    deepseek's two shared experts in full (mixtral at 8 of its 32 layers
+    is the depth the card serves)."""
+    cfg = tconfigs.get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    assert (cfg.param_count(), cfg.active_param_count()) == ACTIVE[arch, layers]
+    dense = tconfigs.get_config("qwen2.5-3b")
+    assert dense.active_param_count() == dense.param_count()
 
 
 @pytest.mark.parametrize("arch", list(UNPORTED))

@@ -961,7 +961,8 @@ def test_lm_float32_prefill_decode_match_train(cuda, no_tf32):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi-3-vision-4.2b",
-                                  "whisper-base"])
+                                  "whisper-base", "deepseek-v2-lite-16b",
+                                  "mixtral-8x7b"])
 def test_lm_card_matches_cpu(cuda, no_tf32, arch):
     """The reduced config with the same float32 parameters on the card and
     on the CPU: logits within 1e-4 and the same greedy tokens."""
