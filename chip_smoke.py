@@ -190,7 +190,39 @@ Phases, in order; any failure exits non-zero before the result line:
     0 in the last; (e) mixtral-8x7b at full width and 8 of its 32 layers
     in bfloat16: prefill and decode ms against their bounds; (f) ``python
     -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --reduced``:
-    exit 0.
+    exit 0;
+19. the Mamba-2 (SSD) block and its state cache (plain PyTorch, no kernel
+    of its own): (a) mamba2-2.7b at full width and depth (64 layers) in
+    bfloat16 from the seeded init, ``generate_batch`` at B = 4, prompt
+    1024 (8 chunks of 128), 32 new tokens, twice with equal tokens:
+    prefill ms and decode ms a step beside their bounds (bytes: the
+    weights, and a decode step's float32 states read and written), tokens/s,
+    peak memory, one prefill's and one decode step's device kernels and
+    busy time; (b) float32 at full width and depth, TF32 off, B = 2: a
+    prefill of 1024 tokens and 128 teacher-forced decode steps within 3e-4
+    of ``forward_train`` over the 1,152 tokens (9 chunks), the same
+    argmax, and four planted faults above the bar (each chunk reading its
+    own end state, a decode step without its decay, the conv history one
+    slot late, the ``D`` skip dropped; each read over the prefill's last
+    position and 8 decode steps); (c) (a)'s bf16 weights and prompts with
+    128 teacher-forced decode steps against bf16 ``forward_train`` within
+    the bar (1.0) and three faults above it (bf16 noise hides the chunk
+    fault, which (b) holds); (d) reduced mamba2 and
+    reduced jamba (8 layers), card against CPU in float32 over two chunks
+    (``forward_train`` and a prefill of 256 tokens, 8 decode steps):
+    logits within 1e-4, equal greedy tokens and MoE drop counts; and
+    ``ssd_chunked`` alone at mamba2's heads over two chunks in float32
+    against the float64 per-step recurrence within 1e-4 of max |y|, the
+    chunk fault above it; (e) jamba-v0.1-52b at
+    full width and 8 of its 32 layers (one period: Mamba at 0-3 and 5-7,
+    attention at 4, MoE at the odd layers) in bfloat16 at the published
+    capacity factor, B = 4, prompt 1024, 32 new tokens: prefill and
+    decode ms against their bounds (all weights, and the experts the step
+    routed to), dropped assignments, peak memory, kernels and busy time;
+    then in float32 at the dropless capacity factor E / K: a prefill of
+    256 tokens and 128 decode steps within 3e-4 of ``forward_train`` over
+    384; (f) ``python -m repro_torch.launch.serve --arch ... --reduced``
+    for both: exit 0.
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -2979,10 +3011,12 @@ def drive_lm_requests(engine):
                 rows_equal_alone=alone, distinct_tokens=distinct, clock="host")
 
 
-def drive_lm_cpu_card(dev, cfg=None):
-    """Phase 17 (d), 18 (d): a reduced config (by default qwen's), the same
-    float32 parameters on the card and on the CPU; for MoE configs the
-    assignments each side dropped at capacity in the prefill, equal."""
+def drive_lm_cpu_card(dev, cfg=None, spec=LM_CPU):
+    """Phase 17 (d), 18 (d), 19 (d): a reduced config (by default qwen's),
+    the same float32 parameters on the card and on the CPU; for MoE configs
+    the assignments each side dropped at capacity in the prefill, equal.
+    ``spec`` gives the batch, the tokens, the prompt and (``train``, all
+    tokens by default) how many of them ``forward_train`` reads."""
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_arrays, lm_params_to_arrays
     from repro_torch.models import (forward_decode, forward_prefill,
@@ -2991,7 +3025,8 @@ def drive_lm_cpu_card(dev, cfg=None):
 
     cfg = cfg or get_config(LM_ARCH).reduced()
     assert cfg.dtype == "float32" and not torch.backends.cuda.matmul.allow_tf32
-    B, S, P = LM_CPU["batch"], LM_CPU["length"], LM_CPU["prompt"]
+    B, S, P = spec["batch"], spec["length"], spec["prompt"]
+    T = spec.get("train", S)
     host = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
     card = lm_params_from_arrays(cfg, lm_params_to_arrays(host), device=dev)
     tokens = np.random.default_rng(SEED + 3).integers(
@@ -2999,7 +3034,7 @@ def drive_lm_cpu_card(dev, cfg=None):
 
     def run(model):
         with torch.inference_mode():
-            full, aux = forward_train(model, tokens, cfg)
+            full, aux = forward_train(model, tokens[:, :T], cfg)
             logits, cache = forward_prefill(model, tokens[:, :P], cfg, max_len=S)
             dropped = moe_dropped(model)
             steps = [logits]
@@ -3020,9 +3055,11 @@ def drive_lm_cpu_card(dev, cfg=None):
     moe = (f" (capacity factor {cfg.capacity_factor:g}: aux {aux_c:.6f} / "
            f"{aux_h:.6f}, prefill dropped {drop_c} / {drop_h} assignments)"
            if cfg.n_experts else "")
-    log(f"serve {cfg.name} reduced float32{moe}: card within {err:.3e} of the "
-        f"CPU (bar {LM_CPU_TOL}), the same {gen_c.size} greedy tokens")
-    return dict(arch=cfg.name, reduced=True, capacity_factor=cfg.capacity_factor,
+    log(f"serve {cfg.name} reduced float32, train {T}, prompt {P} +{S - P}"
+        f"{moe}: card within {err:.3e} of the CPU (bar {LM_CPU_TOL}), the "
+        f"same {gen_c.size} greedy tokens")
+    return dict(arch=cfg.name, reduced=True, train=T, prompt=P, length=S,
+                capacity_factor=cfg.capacity_factor,
                 max_abs_err=err, tol=LM_CPU_TOL, aux=aux_c, aux_cpu=aux_h,
                 prefill_dropped=drop_c, tokens_equal=True)
 
@@ -3143,16 +3180,38 @@ def _expert_hits(model, fn):
     return out, hits
 
 
-def _moe_bounds(model, batch, prompt, slots, hits):
-    """Least times of a prefill and of a decode step of an MLA / MoE model
-    as it computes them.  Operations: the matmuls at the bf16 peak (2 a
-    multiply-add), MoE experts over every capacity slot of every group
-    (E * cap rows an expert, as dispatched), MLA's k_nope and v recomputed
-    over all the cache's slots, scores and values over the keys computed.
-    Bytes at 3.35 TB/s, two ways: every weight read once (the capacity
-    dispatch reads every expert, so it is the path's own), and only the
-    weights the step used (the experts its routers chose, ``hits`` per MoE
-    layer); the cache read once by a decode step."""
+def _mamba_ops(cfg, batch, n_tok, S):
+    """(bf16 matmul operations, float32 operations) of one Mamba-2 layer
+    over ``n_tok`` tokens of ``S`` positions a row: the two projections
+    (and the conv taps) in the weights' dtype; in float32 the chunked
+    scan's four contractions over chunks of ``min(128, S)`` (its diagonal
+    blocks as computed, the full Q x Q) or, for one decode step, the
+    state update and read-out."""
+    d, P, N = cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state
+    di = cfg.ssm_expand * d
+    H = di // P
+    mm = 2 * n_tok * d * (2 * di + 2 * N + H) + 2 * n_tok * di * d \
+        + 2 * n_tok * cfg.ssm_conv * (di + 2 * N)
+    if S == 1:
+        return mm, 4 * batch * H * P * N
+    Q = min(128, S)
+    return mm, (2 * n_tok * Q * N + 2 * n_tok * Q * H * P
+                + 4 * n_tok * H * P * N)
+
+
+def _model_bounds(model, batch, prompt, slots, hits):
+    """Least times of a prefill and of a decode step of an MLA / MoE /
+    Mamba-2 model as it computes them.  Operations: the matmuls at the
+    bf16 peak (2 a multiply-add), MoE experts over every capacity slot of
+    every group (E * cap rows an expert, as dispatched), MLA's k_nope and v
+    recomputed over all the cache's slots, scores and values over the keys
+    computed; the Mamba-2 scan's float32 contractions at the float32 peak
+    (``_mamba_ops``).  Bytes at 3.35 TB/s, two ways: every weight read
+    once (the capacity dispatch reads every expert, so it is the path's
+    own), and only the weights the step used (the experts its routers
+    chose, ``hits`` per MoE layer); a decode step reads the attention
+    caches once and reads and writes the Mamba states and conv
+    histories."""
     from repro_torch.models import cache_specs
     from repro_torch.models.layers import MLAttention, moe_capacity
 
@@ -3161,7 +3220,11 @@ def _moe_bounds(model, batch, prompt, slots, hits):
     gated = 3 if cfg.act in ("swiglu", "geglu") else 2
 
     def layer_ops(layer, n_tok, sq, sk):
+        """(operations at the bf16 peak, float32 operations)."""
         B = batch
+        if hasattr(layer, "mamba"):
+            ops, f32 = _mamba_ops(cfg, B, n_tok, sq)
+            return ops + _ffn_ops(layer, n_tok), f32
         a = layer.attn
         if isinstance(a, MLAttention):
             H, r, dn, dr, dv = (cfg.num_heads, cfg.kv_lora_rank,
@@ -3173,20 +3236,24 @@ def _moe_bounds(model, batch, prompt, slots, hits):
         else:
             H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
             ops = 2 * n_tok * d * (2 * H + 2 * KV) * hd + 4 * B * H * sq * sk * hd
+        return ops + _ffn_ops(layer, n_tok), 0
+
+    def _ffn_ops(layer, n_tok):
         if layer.moe:
             G, cap = moe_capacity(cfg, n_tok)
             f = cfg.moe_d_ff or cfg.d_ff
-            ops += 2 * n_tok * d * cfg.n_experts + 2 * gated * G * cfg.n_experts * cap * d * f
+            ops = 2 * n_tok * d * cfg.n_experts + 2 * gated * G * cfg.n_experts * cap * d * f
             if cfg.n_shared_experts:
                 ops += 2 * gated * n_tok * d * cfg.n_shared_experts * f
-        elif hasattr(layer, "ffn"):
-            ops += 2 * gated * n_tok * d * cfg.d_ff
-        return ops
+            return ops
+        return 2 * gated * n_tok * d * cfg.d_ff if hasattr(layer, "ffn") else 0
 
-    head = 2 * batch * d * cfg.padded_vocab
-    pre_ops = head + sum(layer_ops(lay, batch * prompt, prompt, prompt)
-                         for lay in model.layers)
-    dec_ops = head + sum(layer_ops(lay, batch, 1, slots) for lay in model.layers)
+    def total(n_tok, sq, sk):
+        ops = [layer_ops(lay, n_tok, sq, sk) for lay in model.layers]
+        return 2 * batch * d * cfg.padded_vocab + sum(o for o, _ in ops), sum(f for _, f in ops)
+
+    (pre_ops, pre_f32), (dec_ops, dec_f32) = (total(batch * prompt, prompt, prompt),
+                                              total(batch, 1, slots))
     weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
                   if n != "embed") + batch * d * size
     expert = {n: p[0].numel() * p.element_size()
@@ -3197,98 +3264,38 @@ def _moe_bounds(model, batch, prompt, slots, hits):
     for i, h in zip(moe_layers, hits):
         per = sum(v for n, v in expert.items() if n.startswith(f"layers.{i}."))
         unused += (cfg.n_experts - h) * per
-    cache = sum(math.prod(shape) * size for layer in
-                cache_specs(cfg, batch, slots)["layers"] for shape, _ in layer.values())
+    # attention buffers are read once; a Mamba layer's state and conv
+    # history are read and written
+    cache = sum(math.prod(shape) * (4 if dt == "float32" else 2)
+                * (1 if cfg.is_attn_layer(i) else 2)
+                for i, layer in enumerate(cache_specs(cfg, batch, slots)["layers"])
+                for shape, dt in layer.values())
     dec_all = weights + cache
     dec_active = weights - unused + cache
-    ms = lambda b, o: max(b / PEAK_BYTES_PER_S, o / PEAK_BF16_OPS_PER_S) * 1e3  # noqa: E731
-    return dict(prefill_bound_ms=ms(weights, pre_ops), prefill_tflop=pre_ops / 1e12,
-                decode_bound_ms=ms(dec_all, dec_ops),
-                decode_bound_active_ms=ms(dec_active, dec_ops),
-                decode_gflop=dec_ops / 1e9, weight_gb=weights / 1e9,
-                decode_active_gb=dec_active / 1e9, cache_gb=cache / 1e9)
 
+    def ms(b, o, f32):
+        return max(b / PEAK_BYTES_PER_S,
+                   o / PEAK_BF16_OPS_PER_S + f32 / PEAK_OPS_PER_S["float32"]) * 1e3
 
-def _slots(cache) -> int:
-    """Slots of a layer's cache (mixtral's SWA buffer holds ``window``)."""
-    return next(iter(cache["layers"][0].values())).shape[1]
+    out = dict(prefill_bound_ms=ms(weights, pre_ops, pre_f32),
+               prefill_tflop=pre_ops / 1e12,
+               decode_bound_ms=ms(dec_all, dec_ops, dec_f32),
+               decode_bound_active_ms=ms(dec_active, dec_ops, dec_f32),
+               decode_gflop=dec_ops / 1e9, weight_gb=weights / 1e9,
+               decode_active_gb=dec_active / 1e9, cache_gb=cache / 1e9)
+    if pre_f32:
+        out.update(prefill_f32_tflop=pre_f32 / 1e12, decode_f32_gflop=dec_f32 / 1e9)
+    return out
 
 
 def drive_moe_serve(dev, card):
     """Phase 18 (a): deepseek-v2-lite-16b at full width and depth in
     bfloat16, the published capacity factor."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
-    from repro_torch.serving import ServeEngine
 
-    cfg = get_config(MOE_ARCH)
-    B, S, new = MOE_SERVE["batch"], MOE_SERVE["prompt"], MOE_SERVE["max_new"]
-    rng = np.random.default_rng(SEED + 5)
-    torch.zeros(1, device=dev)       # the allocator exists before its reset
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    torch.cuda.synchronize(dev)
-    init_s = time.perf_counter() - t0
-    engine = ServeEngine(cfg, model, device=dev)
-    prompts = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
-    walls, outs = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        outs.append(engine.generate_batch(prompts, new))
-        walls.append(time.perf_counter() - t0)
-    assert outs[0].shape == (B, new) and outs[0].dtype == np.int32
-    assert np.array_equal(outs[0], outs[1]), "a second call gave other tokens"
-    assert ((outs[0] >= 0) & (outs[0] < cfg.padded_vocab)).all()
-    times = _time_serving(dev, engine, prompts, new, MOE_SERVE["reps"])
-    pre_ms, dec_ms = times["prefill_ms"], times["decode_ms"]
-    peak = torch.cuda.max_memory_allocated(dev) - base
-    (logits, cache), pre_hits = _expert_hits(model, lambda: engine.prefill(prompts, S + new))
-    dropped = moe_dropped(model)
-    n_assign = B * S * cfg.top_k * sum(lay.moe for lay in model.layers)
-    tok = logits.argmax(-1, keepdim=True)
-    _, dec_hits = _expert_hits(model, lambda: engine.decode(tok, cache))
-    bounds = _moe_bounds(model, B, S, _slots(cache), dec_hits)
-    prof_pre = _profile(dev, lambda: engine.prefill(prompts, S + new))
-    prof_dec = _profile(dev, lambda: engine.decode(tok, cache))
-    del logits, cache
-    for prof, ms in ((prof_pre, pre_ms), (prof_dec, dec_ms)):
-        prof.pop("dense_lu_kernels", None)
-        prof.pop("level_run_kernels", None)
-        if "device_busy_ms" in prof:
-            prof["busy_share"] = prof["device_busy_ms"] / ms
-    report = dict(
-        arch=cfg.name, dtype=cfg.dtype, params=cfg.param_count(),
-        active_params=cfg.active_param_count(), batch=B, prompt=S, max_new=new,
-        capacity_factor=cfg.capacity_factor, card=card, init_s=init_s,
-        generate_s=walls, tokens_per_s=B * new / walls[1], **times, **bounds,
-        prefill_dropped=dropped, prefill_assignments=n_assign,
-        prefill_experts_hit=pre_hits, decode_experts_hit=dec_hits,
-        prefill_profile=prof_pre, decode_profile=prof_dec,
-        peak_mib=peak / 2**20, held_before_mib=base / 2**20,
-        sample=outs[0][0, :16].tolist(), clock="CUDA events (ms), host (s)")
-    log(f"serve {cfg.name} bf16 B={B} prompt {S} +{new} (27 layers, "
-        f"{cfg.param_count():,} parameters, {cfg.active_param_count():,} active): "
-        f"prefill {pre_ms:.3f} ms (bound {bounds['prefill_bound_ms']:.3f}, "
-        f"{bounds['prefill_tflop']:.2f} TFLOP), decode {dec_ms:.3f} ms a step "
-        f"(bound {bounds['decode_bound_ms']:.3f} with all {bounds['weight_gb']:.2f} "
-        f"GB of weights, {bounds['decode_bound_active_ms']:.3f} with the "
-        f"{bounds['decode_active_gb']:.2f} GB the step used; host "
-        f"{times['decode_host_ms']:.3f} ms a step, {min(times['decode_ms_all']):.3f}-"
-        f"{max(times['decode_ms_all']):.3f} ms over the steps), "
-        f"{B * new / walls[1]:.1f} tok/s (generate {walls[0]:.2f} / {walls[1]:.2f} s), "
-        f"peak {peak / 2**20:.1f} MiB over the {base / 2**20:.1f} MiB held before, "
-        f"init {init_s:.2f} s [{card}]")
-    log(f"  prefill dropped {dropped} of {n_assign} assignments at capacity "
-        f"factor {cfg.capacity_factor}; experts hit a layer: prefill "
-        f"{min(pre_hits)}-{max(pre_hits)}, decode step {min(dec_hits)}-"
-        f"{max(dec_hits)} of {cfg.n_experts}")
-    for what, prof in (("prefill", prof_pre), ("decode step", prof_dec)):
-        log(f"  one {what}: {prof.get('kernels', 'not measured')} device "
-            f"kernels, busy {prof.get('device_busy_ms', 'not measured')} ms "
-            f"(share {prof.get('busy_share', 'not measured')})")
+    report, model, engine, prompts = _serve_phase(dev, get_config(MOE_ARCH),
+                                                  MOE_SERVE, SEED + 5)
+    _log_serve(report, card)
     del model, engine
     torch.cuda.empty_cache()
     return report, prompts
@@ -3395,46 +3402,405 @@ def drive_mixtral(dev, card):
     import dataclasses
 
     from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MIXTRAL["arch"]), num_layers=MIXTRAL["layers"])
+    report, model, engine, _ = _serve_phase(dev, cfg, MIXTRAL, SEED + 8)
+    _log_serve(report, card)
+    del model, engine
+    torch.cuda.empty_cache()
+    return report
+
+# -- phase 19: the Mamba-2 (SSD) block and its state cache ---------------------
+SSM_ARCH = "mamba2-2.7b"
+# (a): a prompt of 8 chunks of 128, so the inter-chunk recurrence runs
+SSM_SERVE = dict(batch=4, prompt=1024, max_new=32, reps=3)
+# (b): float32 at full width and depth, TF32 off: prefill + teacher-forced
+# decode steps against forward_train over all of them (1,152 tokens: 9
+# chunks; a pass over more than 128 tokens must be whole chunks), at the
+# reference's bar, with four planted faults above it
+SSM_F32 = dict(batch=2, prompt=1024, decode=128)
+SSM_FAULTS = ("chunk_state", "skip_decay", "conv_late", "skip_D")
+# a fault run compares the prefill's last position and this many decode
+# steps (every fault shows from the first step: "chunk_state" where
+# forward_train's ninth chunk begins, at the first decode position)
+SSM_FAULT_STEPS = 8
+# (c): (a)'s bf16 weights and prompts, 128 forced steps, against bf16
+# forward_train.  At full depth bf16 noise makes the sound reading
+# 0.18-0.31 on logits up to 6.0 (12 readings on the card, prompts 32-1024,
+# 4 and 128 steps, 2 seeds; top-2 logit gaps of 0), and "chunk_state"
+# reads no more than that (0.19-0.29): bf16 does not separate it, and
+# (b) holds it in float32.  With 128 steps the other faults read at least
+# 2.18 (skip_decay), 6.83 (conv_late) and 6.83 (skip_D)
+# (tools/ssm_forced_readings.py, NVIDIA H100 80GB HBM3, 700 W); the bar
+# lies between.
+SSM_BF16_FORCED = dict(decode=128)
+SSM_BF16_TOL = 1.0
+SSM_BF16_FAULTS = ("skip_decay", "conv_late", "skip_D")
+# (d): reduced configs, card against CPU; forward_train and the prefill
+# read two chunks of 128, so the card's state carried into the second
+# chunk (which the seeded decays keep only a few steps) is read at its
+# first positions and by the 8 decode steps after the prefill
+SSM_CPU = ("mamba2-2.7b", "jamba-v0.1-52b")
+SSM_CPU_LEN = dict(batch=2, length=264, prompt=256, train=256)
+# and the scan alone at mamba2's heads (80 of 64 x 128) over two chunks,
+# float32 on the card against the float64 per-step recurrence on the host,
+# from unit-scale inputs (silu of normals, softplus steps, A in
+# -exp([-1, 1])) and a random initial state, where the carry into a chunk
+# matters; |difference| over max |y| (and over max |h| for the final
+# state).  On the CPU these read 3.1e-6 for y and 1.8e-5 for the state
+# (the float32 cumsum of dt A over a chunk reaches about -350, and the
+# decays from its differences lose their last bits), and 0.37 with each
+# chunk reading its own end state.
+SSD_SCAN = dict(batch=2, length=256)
+SSD_SCAN_TOL = 1e-4
+# (e): jamba-v0.1-52b at full width, 8 of its 32 layers (one period of
+# its pattern; the 32 take 103 GB in bf16, more than one 80 GB card)
+JAMBA = dict(arch="jamba-v0.1-52b", layers=8, batch=4, prompt=1024,
+             max_new=32, reps=3)
+JAMBA_F32 = dict(batch=2, prompt=256, decode=128)
+SSM_CLI_ARGS = [["--arch", arch, "--reduced", "--batch", "4", "--prompt-len",
+                 "32", "--max-new", "16"] for arch in SSM_CPU]
+
+
+def _mamba_caches(cache):
+    return [lay for lay in cache["layers"] if "h" in lay]
+
+
+def _own_end_states(plain):
+    """The "chunk_state" fault of ``chunk_states``: each chunk reads its
+    own end state where it should read the state before it."""
+    def states(sb, seg_total, h0=None):
+        prevs, h = plain(sb, seg_total, h0)
+        return torch.cat([prevs[:, 1:], h[:, None]], 1), h
+    return states
+
+
+def _ssm_forced(model, cfg, tokens, P, faults=(None,), fault_steps=None):
+    """Prefill over ``tokens[:, :P]`` and one decode step a later token,
+    against ``forward_train`` over all of ``tokens`` at the same
+    positions, sound (None) and with each planted fault: {fault or
+    "sound": (largest |difference|, argmax equal, largest |logit|,
+    smallest top-2 gap)}.  A fault run stops after ``fault_steps`` decode
+    steps when that is given (its reading then covers those positions).  The faults: "chunk_state" gives each chunk of
+    the chunked scan its own end state where it should read the state
+    before it, in ``forward_train`` and the prefill alike (a fault of the
+    scan both run: it shows where ``forward_train``'s chunk after the
+    prompt begins and the decode steps' recurrence does not share it; at
+    the prefill's last position alone it would not, since the init rule's
+    decays, ``exp(dt A)`` of about exp(-1) to exp(-16) a step, forget a
+    state long before the next chunk ends); "skip_decay" runs the decode
+    steps without the decay ``exp(dt A)``; "conv_late" moves the
+    prefill's conv histories one slot later; "skip_D" drops the ``D`` skip
+    in the prefill and the steps.  The script plants them on this model
+    instance and on the layers module's ``chunk_states`` / ``ssd_step``
+    for the call; the package is not changed."""
+    import repro_torch.models.layers as L
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    forward_train)
+
+    plain_states, plain_step = L.chunk_states, L.ssd_step
+    own_end_state = _own_end_states(plain_states)
+
+    def no_decay(h, dt, A, B1, C1, x1):
+        return plain_step(h, dt, torch.zeros_like(A), B1, C1, x1)
+
+    mambas = [layer.mamba for layer in model.layers if hasattr(layer, "mamba")]
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        sound = forward_train(model, tokens, cfg)[0][:, P - 1:]
+    top2 = sound.topk(2, dim=-1).values
+    scale = sound.abs().max().item()
+    gap = (top2[..., 0] - top2[..., 1]).min().item()
+    out = {}
+    for fault in faults:
+        saved = [m.D.clone() for m in mambas] if fault == "skip_D" else []
+        want = sound
+        try:
+            if fault == "chunk_state":
+                L.chunk_states = own_end_state
+                with torch.inference_mode():
+                    want = forward_train(model, tokens, cfg)[0][:, P - 1:]
+            if fault == "skip_decay":
+                L.ssd_step = no_decay
+            with torch.no_grad():
+                for m in mambas if saved else ():
+                    m.D.zero_()
+            with torch.inference_mode():
+                logits, cache = forward_prefill(model, tokens[:, :P], cfg, max_len=S + 1)
+                if fault == "conv_late":
+                    for lay in _mamba_caches(cache):
+                        lay["conv"][:, 1:] = lay["conv"][:, :-1].clone()
+                        lay["conv"][:, 0] = 0
+                steps = [logits]
+                end = S if fault is None or not fault_steps else P + fault_steps
+                for t in range(P, end):
+                    logits, cache = forward_decode(model, tokens[:, t:t + 1], cache, cfg)
+                    steps.append(logits)
+                steps = torch.stack(steps, 1)
+                w = want[:, :steps.shape[1]]
+                out[fault or "sound"] = ((steps - w).abs().max().item(),
+                                         bool(torch.equal(steps.argmax(-1),
+                                                          w.argmax(-1))),
+                                         scale, gap)
+                del steps, cache, logits, want
+        finally:
+            L.chunk_states, L.ssd_step = plain_states, plain_step
+            with torch.no_grad():
+                for m, d in zip(mambas, saved):
+                    m.D.copy_(d)
+    del sound
+    return out
+
+
+def _profiled(dev, fn, ms):
+    """One call under the profiler: device kernels, busy ms and its share
+    of ``ms`` (the run's median)."""
+    prof = _profile(dev, fn)
+    prof.pop("dense_lu_kernels", None)
+    prof.pop("level_run_kernels", None)
+    if "device_busy_ms" in prof:
+        prof["busy_share"] = prof["device_busy_ms"] / ms
+    return prof
+
+
+def _serve_phase(dev, cfg, spec, seed):
+    """Init ``cfg`` from the seed on the card, ``generate_batch`` twice
+    (equal tokens), the timings, the bounds, peak memory over what was
+    held before, one prefill's and one decode step's profile and, for MoE
+    layers, the prefill's drops and the experts each decode step's routers
+    chose.  Returns (report, model, engine, prompts)."""
     from repro_torch.models import init_params
     from repro_torch.serving import ServeEngine
 
-    spec = MIXTRAL
-    cfg = dataclasses.replace(get_config(spec["arch"]), num_layers=spec["layers"])
     B, S, new = spec["batch"], spec["prompt"], spec["max_new"]
-    rng = np.random.default_rng(SEED + 8)
+    rng = np.random.default_rng(seed)
+    torch.zeros(1, device=dev)       # the allocator exists before its reset
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
     engine = ServeEngine(cfg, model, device=dev)
     prompts = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
-    t0 = time.perf_counter()
-    out = engine.generate_batch(prompts, new)
-    wall = time.perf_counter() - t0
-    assert out.shape == (B, new)
+    walls, outs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(engine.generate_batch(prompts, new))
+        walls.append(time.perf_counter() - t0)
+    assert outs[0].shape == (B, new) and outs[0].dtype == np.int32
+    assert np.array_equal(outs[0], outs[1]), "a second call gave other tokens"
+    assert ((outs[0] >= 0) & (outs[0] < cfg.padded_vocab)).all()
     times = _time_serving(dev, engine, prompts, new, spec["reps"])
     peak = torch.cuda.max_memory_allocated(dev) - base
-    (logits, cache), _ = _expert_hits(model, lambda: engine.prefill(prompts, S + new))
+    (logits, cache), pre_hits = _expert_hits(model, lambda: engine.prefill(prompts, S + new))
     dropped = moe_dropped(model)
-    _, dec_hits = _expert_hits(model, lambda: engine.decode(
-        logits.argmax(-1, keepdim=True), cache))
-    bounds = _moe_bounds(model, B, S, _slots(cache), dec_hits)
+    tok = logits.argmax(-1, keepdim=True)
+    _, dec_hits = _expert_hits(model, lambda: engine.decode(tok, cache))
+    # an attention layer's slots (the whole rolling buffer under SWA)
+    slots = cfg.window if cfg.attention == "swa" else S + new
+    bounds = _model_bounds(model, B, S, slots, dec_hits)
+    prof_pre = _profiled(dev, lambda: engine.prefill(prompts, S + new),
+                         times["prefill_ms"])
+    prof_dec = _profiled(dev, lambda: engine.decode(tok, cache), times["decode_ms"])
     del logits, cache
-    log(f"serve {cfg.name} bf16 ({cfg.num_layers} of 32 layers, "
-        f"{cfg.param_count():,} parameters) B={B} prompt {S} +{new}: prefill "
-        f"{times['prefill_ms']:.3f} ms (bound {bounds['prefill_bound_ms']:.3f}), "
-        f"decode {times['decode_ms']:.3f} ms a step (bound "
-        f"{bounds['decode_bound_ms']:.3f}, {bounds['decode_bound_active_ms']:.3f} "
-        f"with the experts used), prefill dropped {dropped} of "
-        f"{B * S * cfg.top_k * cfg.num_layers}, peak {peak / 2**20:.1f} MiB, "
-        f"first generate {wall:.2f} s [{card}]")
-    report = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
-                  params=cfg.param_count(), active_params=cfg.active_param_count(),
-                  batch=B, prompt=S, max_new=new, **times, **bounds,
-                  prefill_dropped=dropped, decode_experts_hit=dec_hits,
-                  peak_mib=peak / 2**20, first_generate_s=wall)
+    report = dict(
+        arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        batch=B, prompt=S, max_new=new, init_s=init_s, generate_s=walls,
+        tokens_per_s=B * new / walls[1], **times, **bounds,
+        prefill_profile=prof_pre, decode_profile=prof_dec,
+        peak_mib=peak / 2**20, held_before_mib=base / 2**20,
+        sample=outs[0][0, :16].tolist(), clock="CUDA events (ms), host (s)")
+    if cfg.n_experts:
+        report.update(capacity_factor=cfg.capacity_factor, prefill_dropped=dropped,
+                      prefill_assignments=B * S * cfg.top_k
+                      * sum(lay.moe for lay in model.layers),
+                      prefill_experts_hit=pre_hits, decode_experts_hit=dec_hits)
+    return report, model, engine, prompts
+
+
+def _log_serve(report, card):
+    r = report
+    moe = ""
+    if "prefill_dropped" in r:
+        hits = r["decode_experts_hit"]
+        moe = (f", {r['decode_bound_active_ms']:.3f} with the "
+               f"{r['decode_active_gb']:.2f} GB the step used; prefill dropped "
+               f"{r['prefill_dropped']} of {r['prefill_assignments']} assignments "
+               f"at capacity factor {r['capacity_factor']}; a decode step's "
+               f"routers chose {min(hits)}-{max(hits)} experts a layer")
+    log(f"serve {r['arch']} {r['dtype']} ({r['layers']} layers, {r['params']:,} "
+        f"parameters) B={r['batch']} prompt {r['prompt']} +{r['max_new']}: prefill "
+        f"{r['prefill_ms']:.3f} ms (bound {r['prefill_bound_ms']:.3f}; "
+        f"{r['prefill_tflop']:.2f} TFLOP bf16, {r.get('prefill_f32_tflop', 0):.3f} "
+        f"TFLOP float32), decode {r['decode_ms']:.3f} ms a step (bound "
+        f"{r['decode_bound_ms']:.3f} with {r['weight_gb']:.2f} GB of weights and "
+        f"{r['cache_gb']:.3f} GB of cache traffic{moe}; host "
+        f"{r['decode_host_ms']:.3f} ms a step, {min(r['decode_ms_all']):.3f}-"
+        f"{max(r['decode_ms_all']):.3f} ms over the steps), "
+        f"{r['tokens_per_s']:.1f} tok/s (generate {r['generate_s'][0]:.2f} / "
+        f"{r['generate_s'][1]:.2f} s), peak {r['peak_mib']:.1f} MiB over the "
+        f"{r['held_before_mib']:.1f} MiB held before, init {r['init_s']:.2f} s [{card}]")
+    for what, prof in (("prefill", r["prefill_profile"]),
+                       ("decode step", r["decode_profile"])):
+        log(f"  one {what}: {prof.get('kernels', 'not measured')} device "
+            f"kernels, busy {prof.get('device_busy_ms', 'not measured')} ms "
+            f"(share {prof.get('busy_share', 'not measured')})")
+
+
+def drive_ssm_serve(dev, card):
+    """Phase 19 (a): mamba2-2.7b at full width and depth in bfloat16."""
+    from repro_torch.configs import get_config
+
+    report, model, engine, prompts = _serve_phase(dev, get_config(SSM_ARCH),
+                                                  SSM_SERVE, SEED + 9)
+    _log_serve(report, card)
+    del engine
+    return report, model, prompts
+
+
+def drive_ssm_forced(dev, model, prompts):
+    """Phase 19 (c): bf16 prefill + forced decode steps on (a)'s weights
+    and prompts against bf16 ``forward_train``, sound and with each
+    planted fault."""
+    cfg = model.cfg
+    B, S = prompts.shape
+    D = SSM_BF16_FORCED["decode"]
+    rng = np.random.default_rng(SEED + 10)
+    tokens = np.concatenate(
+        [prompts, rng.integers(0, cfg.vocab_size, size=(B, D)).astype(np.int32)], 1)
+    r = _ssm_forced(model, cfg, tokens, S, (None, *SSM_BF16_FAULTS))
+    readings = {k: v[0] for k, v in r.items()}
+    log(f"  bf16 prefill {S} + {D} decode steps against forward_train: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+        + f" (bar {SSM_BF16_TOL}; max |logit| {r['sound'][2]:.3f}, argmax equal "
+        f"{r['sound'][1]})")
+    assert readings["sound"] < SSM_BF16_TOL, (readings, SSM_BF16_TOL)
+    assert min(readings[f] for f in SSM_BF16_FAULTS) > SSM_BF16_TOL, \
+        ("the bar no longer catches a planted fault", readings, SSM_BF16_TOL)
+    return dict(prompt=S, decode_steps=D, max_abs_err=readings, tol=SSM_BF16_TOL,
+                argmax_equal=r["sound"][1], max_abs_logit=r["sound"][2])
+
+
+def _f32_forced(dev, cfg, spec, seed, faults=()):
+    """float32 with TF32 off: prefill + forced decode steps within the
+    reference's bar of ``forward_train``, the same argmax, and each
+    planted fault above the bar."""
+    from repro_torch.models import init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, P, D = spec["batch"], spec["prompt"], spec["decode"]
+    torch.cuda.empty_cache()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(B, P + D)).astype(np.int32)
+    r = _ssm_forced(model, cfg, tokens, P, (None, *faults), SSM_FAULT_STEPS)
+    dropped = moe_dropped(model)
+    del model
+    torch.cuda.empty_cache()
+    err, same, scale, gap = r.pop("sound")
+    faults = {k: v[0] for k, v in r.items()}
+    log(f"serve {cfg.name} float32 (TF32 off, {cfg.num_layers} layers"
+        + (f", capacity factor {cfg.capacity_factor:g}" if cfg.n_experts else "")
+        + f"): prefill {P} + {D} decode steps within {err:.3e} of forward_train "
+        f"over {P + D} (bar {LM_F32_TOL}; max |logit| {scale:.3f}, smallest top-2 "
+        f"gap {gap:.3e})" + "".join(f"; {k} {v:.3e}" for k, v in faults.items())
+        + (f" (faults over the first {SSM_FAULT_STEPS} steps)" if faults else ""))
+    assert err < LM_F32_TOL, (err, LM_F32_TOL)
+    assert same, "float32 prefill/decode argmax differs from forward_train"
+    assert not faults or min(faults.values()) > LM_F32_TOL, ("a planted fault passes",
+                                                             faults)
+    assert dropped == 0, ("the dropless capacity dropped", dropped)
+    return dict(arch=cfg.name, dtype="float32", layers=cfg.num_layers, tf32=False,
+                batch=B, prompt=P, decode_steps=D, max_abs_err=err, tol=LM_F32_TOL,
+                max_abs_logit=scale, min_top2_gap=gap, faults=faults,
+                fault_steps=SSM_FAULT_STEPS if faults else None)
+
+
+def drive_ssm_f32(dev):
+    """Phase 19 (b): mamba2-2.7b in float32 at full width and depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
+    return _f32_forced(dev, cfg, SSM_F32, SEED + 11, SSM_FAULTS)
+
+
+def drive_ssd_scan(dev):
+    """Phase 19 (d): ``ssd_chunked`` on the card in float32 against the
+    recurrence ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T``, ``y_t = C_t
+    h_t`` in float64 on the host, outputs and final state, and the
+    "chunk_state" fault above the bar."""
+    import repro_torch.models.layers as L
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SSM_ARCH)
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = cfg.ssm_expand * cfg.d_model // P
+    B, S = SSD_SCAN["batch"], SSD_SCAN["length"]
+    rng = np.random.default_rng(SEED + 12)
+    silu = lambda v: v / (1 + np.exp(-v))  # noqa: E731
+    xh = silu(rng.normal(size=(B, S, H, P)))
+    dt = np.log1p(np.exp(rng.normal(size=(B, S, H))))
+    A = -np.exp(rng.uniform(-1, 1, size=H))
+    Bs, Cs = silu(rng.normal(size=(B, S, N))), silu(rng.normal(size=(B, S, N)))
+    h = rng.normal(size=(B, H, P, N))
+    args = [torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (xh, dt, A, Bs, Cs, h)]
+    ys = []
+    for t in range(S):
+        h = (np.exp(dt[:, t] * A)[:, :, None, None] * h
+             + (dt[:, t][:, :, None] * xh[:, t])[..., None] * Bs[:, t][:, None, None, :])
+        ys.append(np.einsum("bn,bhpn->bhp", Cs[:, t], h))
+    want_y, want_h = np.stack(ys, 1), h
+
+    def rel(got, want):
+        return np.abs(got.double().cpu().numpy() - want).max() / np.abs(want).max()
+
+    plain = L.chunk_states
+    with torch.inference_mode():
+        y, hN = L.ssd_chunked(*args[:5], L.SSD_CHUNK, args[5])
+        err, err_h = rel(y, want_y), rel(hN, want_h)
+        try:
+            L.chunk_states = _own_end_states(plain)
+            fault = rel(L.ssd_chunked(*args[:5], L.SSD_CHUNK, args[5])[0], want_y)
+        finally:
+            L.chunk_states = plain
+    assert max(err, err_h) < SSD_SCAN_TOL < fault, (err, err_h, SSD_SCAN_TOL, fault)
+    log(f"ssd_chunked float32 on the card, B={B} S={S} (2 chunks of "
+        f"{L.SSD_CHUNK}) H={H} P={P} N={N}: {err:.3e} (state {err_h:.3e}) of "
+        f"max |y| from the float64 recurrence (bar {SSD_SCAN_TOL}); each "
+        f"chunk reading its own end state {fault:.3e}")
+    return dict(batch=B, length=S, heads=H, rel_err=err, rel_err_state=err_h,
+                tol=SSD_SCAN_TOL, fault_chunk_state=fault)
+
+
+def drive_ssm_cpu_card(dev):
+    """Phase 19 (d): reduced mamba2 and reduced jamba, card against CPU."""
+    from repro_torch.configs import get_config
+
+    return [drive_lm_cpu_card(dev, get_config(arch).reduced(), SSM_CPU_LEN)
+            for arch in SSM_CPU]
+
+
+def drive_jamba(dev, card):
+    """Phase 19 (e): jamba-v0.1-52b at full width and 8 of its 32 layers,
+    bf16 at the published capacity factor, then float32 dropless."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(JAMBA["arch"]), num_layers=JAMBA["layers"])
+    report, model, engine, _ = _serve_phase(dev, cfg, JAMBA, SEED + 12)
+    _log_serve(report, card)
     del model, engine
     torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype="float32",
+                              capacity_factor=cfg.n_experts / cfg.top_k)
+    report["float32"] = _f32_forced(dev, f32, JAMBA_F32, SEED + 13)
     return report
 
 
@@ -3598,6 +3964,24 @@ def main() -> int:
     moe_report["phase_s"] = time.perf_counter() - t18
     log(f"phase 18: {moe_report['phase_s']:.1f} s")
     log(json.dumps({"moe_serve_report": moe_report}))
+
+    # 19. the Mamba-2 (SSD) block: mamba2-2.7b at full width and depth
+    # (bf16), its bf16 and float32 forced checks with planted faults, card
+    # against CPU, jamba-v0.1-52b at full width and one 8-layer period,
+    # the CLI
+    t19 = time.perf_counter()
+    ssm_report, model, prompts = drive_ssm_serve(dev, card)
+    ssm_report["forced"] = drive_ssm_forced(dev, model, prompts)
+    del model
+    torch.cuda.empty_cache()
+    ssm_report["float32"] = drive_ssm_f32(dev)
+    ssm_report["cpu_card"] = drive_ssm_cpu_card(dev)
+    ssm_report["scan"] = drive_ssd_scan(dev)
+    ssm_report["jamba"] = drive_jamba(dev, card)
+    ssm_report["cli"] = [drive_serve_cli(args) for args in SSM_CLI_ARGS]
+    ssm_report["phase_s"] = time.perf_counter() - t19
+    log(f"phase 19: {ssm_report['phase_s']:.1f} s")
+    log(json.dumps({"ssm_serve_report": ssm_report}))
 
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",

@@ -1,8 +1,7 @@
 """Configurations: the solver's own (``CONFIG``, a :class:`GLUConfig`) and
 the LM architecture registry (``get_config(arch_id)`` / ``list_archs()``),
 the JAX package's ten configs field for field.  The port serves every
-family without a Mamba-2 block (dense, moe, vlm, audio); building a model
-with one (mamba2-2.7b, jamba-v0.1-52b) raises ``NotImplementedError``."""
+family (dense, moe, vlm, audio, and the Mamba-2 ones: hybrid, ssm)."""
 from __future__ import annotations
 
 from .base import SHAPES, ModelConfig, ShapeSpec

@@ -99,8 +99,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Parameter count from the port's :func:`param_specs` (shapes only,
-        nothing allocated).  Raises ``NotImplementedError`` for a family
-        the port does not serve yet (Mamba-2)."""
+        nothing allocated)."""
         from ..models.model import param_specs
 
         return sum(math.prod(shape) for shape, _ in param_specs(self).values())

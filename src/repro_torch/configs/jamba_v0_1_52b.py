@@ -3,8 +3,6 @@
 32L hybrid: attention every 8th layer (1:7 attn:mamba), MoE (16 experts,
 top-2) every other layer.  GQA 32 q / 8 kv on attention layers; Mamba
 (SSM) layers carry long context -> sub-quadratic, long_500k eligible.
-Not served by the port yet (the Mamba-2 block: ROADMAP queue 1 item 11
-(ii)).
 """
 from .base import ModelConfig
 

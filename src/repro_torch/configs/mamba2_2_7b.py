@@ -4,8 +4,6 @@
 d_state 128, expand 2 (d_inner 5120), head dim 64 -> 80 ssm heads,
 conv4 depthwise frontend per block, vocab 50280 (padded 50432).
 Fully sub-quadratic -> long_500k eligible.
-Not served by the port yet (the Mamba-2 block: ROADMAP queue 1 item 11
-(ii)).
 """
 from .base import ModelConfig
 

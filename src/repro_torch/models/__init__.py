@@ -1,5 +1,5 @@
-"""The LM template stack's models for the families without a Mamba-2
-block (dense, moe, vlm, audio) in plain PyTorch."""
+"""The LM template stack's models for every family (dense, moe, vlm,
+audio, hybrid, ssm) in plain PyTorch."""
 from . import layers, model
 from .model import (
     LM,

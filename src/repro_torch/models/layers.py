@@ -1,7 +1,8 @@
 """Model layers of the LM families in plain PyTorch: norms, rotary, GQA /
 sliding-window attention with a KV cache, cross-attention, the four MLPs,
 DeepSeek-V2's multi-head latent attention (MLA) with its compressed cache,
-and the sort-based capacity-dispatch MoE.
+the sort-based capacity-dispatch MoE, and the Mamba-2 (SSD) block with its
+recurrent state cache.
 
 Conventions, as in the JAX package's layers:
 
@@ -15,10 +16,6 @@ Conventions, as in the JAX package's layers:
   promote bfloat16 x float32 to float32).
 * The products the reference writes as einsums are ``matmul``/``einsum``
   here: no fused attention kernel stands in for them.
-
-The Mamba-2 block is not served yet (ROADMAP queue 1 item 11 (ii));
-:func:`repro_torch.models.model.param_specs` refuses a config that needs
-it.
 """
 from __future__ import annotations
 
@@ -33,6 +30,7 @@ __all__ = [
     "Norm", "Attention", "CrossAttention", "MLP", "MLAttention", "MoE",
     "norm_specs", "attention_specs", "cross_attention_specs", "mlp_specs",
     "mla_specs", "moe_specs", "moe_capacity", "moe_one_group",
+    "Mamba2", "mamba2_specs", "ssd_chunked", "chunk_states", "ssd_step",
     "apply_norm", "rotary_cos_sin", "rotate", "sdpa",
     "causal_mask", "decode_mask", "torch_dtype",
 ]
@@ -452,3 +450,155 @@ class MoE(_Leaves):
         if hasattr(self, "shared"):
             out = out + self.shared(x)
         return out, aux.mean()
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+def mamba2_specs(cfg) -> Specs:
+    """The reference's leaves; ``out_norm`` comes last, where
+    :class:`Mamba2` registers it."""
+    d, dt = cfg.d_model, cfg.dtype
+    di = cfg.ssm_expand * d
+    H, N = di // cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = di + 2 * N
+    return {
+        "in_proj": ((d, 2 * di + 2 * N + H), dt),
+        "conv_w": ((cfg.ssm_conv, conv_dim), dt),
+        "conv_b": ((conv_dim,), dt),
+        "A_log": ((H,), "float32"),
+        "D": ((H,), "float32"),
+        "dt_bias": ((H,), "float32"),
+        "out_proj": ((di, d), dt),
+        "out_norm": {"scale": ((di,), "float32")},
+    }
+
+
+SSD_CHUNK = 128   # the reference's chunk length for the Mamba-2 scan
+
+
+def chunk_states(sb: torch.Tensor, seg_total: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None):
+    """The inter-chunk recurrence of :func:`ssd_chunked` in float32:
+    sb (B, nc, H, P, N) each chunk's own state, seg_total (B, nc, H) its
+    summed log-decay.  Returns (the state before each chunk (B, nc, H, P,
+    N), the state after the last); ``h0`` (zeros if None) is the state
+    before the first."""
+    h = torch.zeros_like(sb[:, 0]) if h0 is None else h0.to(sb.dtype)
+    prevs = []
+    for c in range(sb.shape[1]):
+        prevs.append(h)
+        h = h * torch.exp(seg_total[:, c])[:, :, None, None] + sb[:, c]
+    return torch.stack(prevs, 1), h
+
+
+def ssd_chunked(xh, dt_h, A, B_s, C_s, chunk: int, h0=None):
+    """The chunked state-space-dual scan of Mamba-2: xh (B, S, H, P)
+    inputs, dt_h (B, S, H) positive steps, A (H,) negative, B_s / C_s
+    (B, S, N) (one group), h0 an optional initial state (B, H, P, N).
+    Returns (y (B, S, H, P), the final state (B, H, P, N)).
+
+    Chunks of ``Q = min(chunk, S)`` positions: within a chunk the
+    quadratic (attention-like) form, its decays masked to -inf above the
+    diagonal before the ``exp``; across chunks the recurrence of
+    :func:`chunk_states` on each chunk's summary state.  ``S`` must be a
+    whole number of chunks, as in the reference."""
+    Bb, S, H, P = xh.shape
+    N = B_s.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"the SSD scan takes whole chunks of {chunk} "
+                         f"positions (or fewer than {chunk} in all); {S} "
+                         f"positions are not")
+    nc = S // Q
+    xc = xh.reshape(Bb, nc, Q, H, P)
+    dtc = dt_h.reshape(Bb, nc, Q, H)
+    Bc = B_s.reshape(Bb, nc, Q, N)
+    Cc = C_s.reshape(Bb, nc, Q, N)
+
+    cs = torch.cumsum(dtc * A, dim=2)                      # (B, nc, Q, H)
+    seg_total = cs[:, :, -1]                               # (B, nc, H)
+    # intra-chunk: the diagonal blocks
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()
+    expo = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (B, nc, Q, Q, H)
+    expo = expo.masked_fill(~tri[None, None, :, :, None], -math.inf)
+    scores = cb[..., None] * torch.exp(expo) * dtc[:, :, None, :, :]
+    y = torch.einsum("bctsh,bcshp->bcthp", scores, xc)
+    # each chunk's summary state, then the recurrence across chunks
+    dec_end = torch.exp(seg_total[:, :, None, :] - cs)
+    sb = torch.einsum("bcsh,bcsn,bcshp->bchpn", dtc * dec_end, Bc, xc)
+    h_prevs, h = chunk_states(sb, seg_total, h0)
+    # inter-chunk: what the state before each chunk contributes
+    y = y + torch.einsum("bctn,bcth,bchpn->bcthp", Cc, torch.exp(cs), h_prevs)
+    return y.reshape(Bb, S, H, P), h
+
+
+def ssd_step(h, dt, A, B1, C1, x1) -> torch.Tensor:
+    """One decode step of the recurrence, in place on the float32 state
+    h (B, H, P, N): ``h <- h * exp(dt A) + dt B x^T``; returns ``C h``
+    (B, H, P) in float32.  dt (B, H) float32, B1 / C1 (B, N), x1 (B, H, P)."""
+    h.mul_(torch.exp(dt * A)[:, :, None, None])
+    h.add_(torch.einsum("bh,bn,bhp->bhpn", dt, B1.float(), x1.float()))
+    return torch.einsum("bn,bhpn->bhp", C1.float(), h)
+
+
+def _causal_taps(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of xp (B, S + K - 1, C), left-padded, with
+    w (K, C): the K shifted taps summed in order in float32, cast back."""
+    K = w.shape[0]
+    S = xp.shape[1] - K + 1
+    out = xp[:, :S].float() * w[0].float()
+    for k in range(1, K):
+        out += xp[:, k:k + S].float() * w[k].float()
+    return out.to(xp.dtype)
+
+
+class Mamba2(_Leaves):
+    """The Mamba-2 (SSD) block, ``"causal"`` or ``"decode"`` (one token).
+    ``cache`` holds the float32 state ``h`` (B, H, P, N) and the conv
+    history ``conv`` (B, K - 1, conv_dim); a causal pass starts from its
+    ``h`` (zeros from a prefill) and both modes write them in place.
+
+    Casts land where the reference's promotions do: the step sizes, the
+    scan and the state in float32; ``y + D x`` in float32, cast to the
+    input dtype before the gate and the gated RMSNorm."""
+
+    def __init__(self, cfg, device):
+        specs = mamba2_specs(cfg)
+        norm = specs.pop("out_norm")
+        super().__init__(specs, device)
+        self.out_norm = _Leaves(norm, device)
+        self.di = cfg.ssm_expand * cfg.d_model
+        self.P, self.N, self.K = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+        self.H = self.di // self.P
+
+    def forward(self, x, *, mode: str = "causal", cache: Optional[dict] = None):
+        B, S, _ = x.shape
+        di, H, P, N, K = self.di, self.H, self.P, self.N, self.K
+        z, xbc, dt_raw = (x @ self.in_proj).split([di, di + 2 * N, H], -1)
+        dt_h = F.softplus(dt_raw.float() + self.dt_bias)          # (B, S, H)
+        if mode == "decode":
+            hist = torch.cat([cache["conv"], xbc], 1)              # (B, K, conv)
+            xbc = _causal_taps(hist, self.conv_w)
+            cache["conv"].copy_(hist[:, 1:])
+        else:
+            xp = F.pad(xbc, (0, 0, K - 1, 0))
+            xbc = _causal_taps(xp, self.conv_w)
+            if cache is not None:   # the last K - 1 inputs, zeros before
+                cache["conv"].copy_(xp[:, xp.shape[1] - (K - 1):])
+        xs, B_s, C_s = F.silu(xbc + self.conv_b).split([di, N, N], -1)
+        xh = xs.reshape(B, S, H, P)
+        A = -torch.exp(self.A_log)
+        if mode == "decode":
+            y = ssd_step(cache["h"], dt_h[:, 0], A, B_s[:, 0], C_s[:, 0],
+                         xh[:, 0])[:, None]
+        else:
+            y, h = ssd_chunked(xh.float(), dt_h, A, B_s.float(), C_s.float(),
+                               SSD_CHUNK, cache["h"] if cache is not None else None)
+            if cache is not None:
+                cache["h"].copy_(h)
+        y = (y + self.D[:, None] * xh.float()).reshape(B, S, di).to(x.dtype)
+        y = apply_norm(y * F.silu(z), self.out_norm.scale, None, "rmsnorm")
+        return y @ self.out_proj

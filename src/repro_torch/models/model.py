@@ -1,7 +1,7 @@
-"""Config-driven model assembly for the LM families without a Mamba-2
-block (dense, moe, vlm, audio): parameter specs, the seeded init, and the
-reference's entry points ``forward_train``, ``forward_prefill`` and
-``forward_decode``.
+"""Config-driven model assembly for every LM family of the JAX package
+(dense, moe, vlm, audio, hybrid, ssm): parameter specs, the seeded init,
+and the reference's entry points ``forward_train``, ``forward_prefill``
+and ``forward_decode``.
 
 The model is an :class:`LM` module on an explicit device; it holds the
 parameters, and the entry points take it where the JAX package's take its
@@ -10,17 +10,16 @@ package's scan over periodic layer groups is a compile device of XLA, and
 :mod:`repro_torch.convert` alone reads that package's stacked parameter
 layout.
 
-Block layout per layer i: norm1 -> attention (full, sliding window, or
-MLA) -> [whisper: norm_x -> cross-attention] -> norm2 -> MoE if
+Block layout per layer i: norm1 -> mixer: attention (full, sliding
+window, or MLA) if ``cfg.is_attn_layer(i)``, else the Mamba-2 block ->
+[whisper: norm_x -> cross-attention] -> norm2 -> MoE if
 ``cfg.is_moe_layer(i)`` else MLP (absent when ``d_ff`` is 0), each with a
 residual.  MoE layers add their aux loss along the layers.  Whisper adds
 an encoder stack over caller-supplied frame embeddings; the vision stub
 projects caller-supplied patch embeddings over the first positions of a
-full-sequence pass.
-
-A config that needs the Mamba-2 block raises ``NotImplementedError`` when
-its specs or model are built (ROADMAP queue 1 item 11 (ii)); it never
-falls back to a dense layer.
+full-sequence pass.  Each layer has its own cache: keys and values (or
+MLA's latents) for attention, the float32 state and the conv history for
+Mamba-2.
 """
 from __future__ import annotations
 
@@ -45,12 +44,11 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 def _layer_specs(cfg, i: int) -> dict:
-    if not cfg.is_attn_layer(i):
-        raise NotImplementedError(
-            f"{cfg.name}: layer {i} is a Mamba-2 (SSD) block, which the port "
-            f"does not serve yet (ROADMAP queue 1 item 11 (ii))")
-    p = {"norm1": L.norm_specs(cfg, cfg.d_model),
-         "attn": L.mla_specs(cfg) if cfg.attention == "mla" else L.attention_specs(cfg)}
+    p = {"norm1": L.norm_specs(cfg, cfg.d_model)}
+    if cfg.is_attn_layer(i):
+        p["attn"] = L.mla_specs(cfg) if cfg.attention == "mla" else L.attention_specs(cfg)
+    else:
+        p["mamba"] = L.mamba2_specs(cfg)
     if cfg.encoder_layers:
         p["norm_x"] = L.norm_specs(cfg, cfg.d_model)
         p["cross"] = L.cross_attention_specs(cfg)
@@ -104,13 +102,17 @@ def _param(shape, dtype: str, device) -> nn.Parameter:
 
 class Block(nn.Module):
     """Decoder layer ``i``: returns (x, aux), aux the MoE layer's loss or
-    None."""
+    None.  Its mixer is ``attn`` or ``mamba``; a Mamba layer reads no
+    rotary, mask or index."""
 
     def __init__(self, cfg, i: int, device):
         super().__init__()
         self.norm1 = L.Norm(cfg, cfg.d_model, device)
-        self.attn = (L.MLAttention(cfg, device) if cfg.attention == "mla"
-                     else L.Attention(cfg, device))
+        if cfg.is_attn_layer(i):
+            self.attn = (L.MLAttention(cfg, device) if cfg.attention == "mla"
+                         else L.Attention(cfg, device))
+        else:
+            self.mamba = L.Mamba2(cfg, device)
         if cfg.encoder_layers:
             self.norm_x = L.Norm(cfg, cfg.d_model, device)
             self.cross = L.CrossAttention(cfg, device)
@@ -120,8 +122,12 @@ class Block(nn.Module):
             self.ffn = L.MoE(cfg, device) if self.moe else L.MLP(cfg, device)
 
     def forward(self, x, rope, mask, *, mode, cache=None, index=0, enc_kv=None):
-        x = x + self.attn(self.norm1(x), rope, mask, mode=mode, cache=cache,
-                          index=index)
+        if hasattr(self, "mamba"):
+            x = x + self.mamba(self.norm1(x), cache=cache,
+                               mode="decode" if mode == "decode" else "causal")
+        else:
+            x = x + self.attn(self.norm1(x), rope, mask, mode=mode, cache=cache,
+                              index=index)
         if enc_kv is not None and hasattr(self, "cross"):
             x = x + self.cross(self.norm_x(x), enc_kv)
         aux = None
@@ -162,7 +168,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        param_specs(cfg)               # refuses the unported families
         dev = resolve_device(device)
         self.cfg = cfg
         V, d = cfg.padded_vocab, cfg.d_model
@@ -179,15 +184,22 @@ class LM(nn.Module):
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> LM:
-    """A model with the reference's init rule (not its bits): 1-D leaves
-    zeros, ``*scale`` leaves ones, the others normal with std
-    ``min(0.02, 1/sqrt(shape[-2]))``, drawn in float32 from ``generator``
-    (on its own device) in ``named_parameters`` order, then cast."""
+    """A model with the reference's init rule (not its bits): ``*scale``
+    leaves ones; Mamba-2's ``A_log`` ``log(linspace(1, 16, H))``, ``D``
+    ones and ``dt_bias`` 0.5; other 1-D leaves zeros; the others normal
+    with std ``min(0.02, 1/sqrt(shape[-2]))``, drawn in float32 from
+    ``generator`` (on its own device) in ``named_parameters`` order, then
+    cast."""
     model = LM(cfg, device)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("scale"):
+            if name.endswith("scale") or name.endswith(".mamba.D"):
                 p.fill_(1.0)
+            elif name.endswith(".mamba.A_log"):
+                p.copy_(torch.log(torch.linspace(1.0, 16.0, p.shape[0],
+                                                 dtype=torch.float32)))
+            elif name.endswith(".mamba.dt_bias"):
+                p.fill_(0.5)
             elif p.ndim == 1:
                 p.zero_()
             else:
@@ -272,6 +284,10 @@ def _window(cfg) -> int:
     return cfg.window if cfg.attention == "swa" else 0
 
 
+def _attn_layers(cfg) -> list[int]:
+    return [i for i in range(cfg.num_layers) if cfg.is_attn_layer(i)]
+
+
 def lm_head_of(model: LM, cfg):
     return model.embed.T if cfg.tie_embeddings else model.lm_head
 
@@ -290,8 +306,10 @@ def _causal_pass(model: LM, tokens, cfg, extras, caches):
     positions = torch.arange(S, device=model.device)[None].expand(B, S)
     x = _embed(model, tokens, cfg, extras)
     x, enc_kv = _prepare_encdec(model, positions, x, cfg, extras)
-    rope = _rope(cfg, positions, x.dtype)
-    mask = L.causal_mask(S, _window(cfg), model.device)
+    rope = mask = None
+    if _attn_layers(cfg):
+        rope = _rope(cfg, positions, x.dtype)
+        mask = L.causal_mask(S, _window(cfg), model.device)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
     for i, layer in enumerate(model.layers):
         x, a = layer(x, rope, mask, mode="causal",
@@ -313,30 +331,38 @@ def forward_train(model: LM, tokens, cfg, extras: Optional[dict] = None):
     return _logits(model, x, cfg), aux
 
 
-def _cache_shapes(cfg, B: int, slots: int) -> dict:
-    """A layer's cache buffers: the latent ``ckv`` and ``krope`` under MLA,
-    else ``k`` and ``v`` (B, slots, KV, hd)."""
+def _cache_shapes(cfg, i: int, B: int, slots: int) -> dict:
+    """Layer ``i``'s cache buffers ``{name: (shape, dtype)}``: the latent
+    ``ckv`` and ``krope`` under MLA, else ``k`` and ``v`` (B, slots, KV,
+    hd); a Mamba-2 layer's float32 state ``h`` (B, H, P, N) and conv
+    history ``conv`` (B, K - 1, conv_dim), whatever ``slots``."""
+    dt = cfg.dtype
+    if not cfg.is_attn_layer(i):
+        di = cfg.ssm_expand * cfg.d_model
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        return {"h": ((B, di // P, P, N), "float32"),
+                "conv": ((B, cfg.ssm_conv - 1, di + 2 * N), dt)}
     if cfg.attention == "mla":
-        return {"ckv": (B, slots, cfg.kv_lora_rank),
-                "krope": (B, slots, cfg.qk_rope_head_dim)}
-    kv = (B, slots, cfg.num_kv_heads, cfg.hd)
+        return {"ckv": ((B, slots, cfg.kv_lora_rank), dt),
+                "krope": ((B, slots, cfg.qk_rope_head_dim), dt)}
+    kv = ((B, slots, cfg.num_kv_heads, cfg.hd), dt)
     return {"k": kv, "v": kv}
 
 
 def _new_cache(cfg, B: int, slots: int, device) -> list[dict]:
-    dt = L.torch_dtype(cfg.dtype)
-    return [{name: torch.zeros(shape, dtype=dt, device=device)
-             for name, shape in _cache_shapes(cfg, B, slots).items()}
-            for _ in range(cfg.num_layers)]
+    """Zeroed buffers a layer (a prefill's initial state)."""
+    return [{name: torch.zeros(shape, dtype=L.torch_dtype(dt), device=device)
+             for name, (shape, dt) in _cache_shapes(cfg, i, B, slots).items()}
+            for i in range(cfg.num_layers)]
 
 
 @torch.no_grad()
 def forward_prefill(model: LM, tokens, cfg, extras: Optional[dict] = None,
                     max_len: Optional[int] = None):
-    """Returns (last-token logits (B, V) float32, cache).  The cache holds
-    ``max(S, max_len)`` slots a layer, or the ``window`` slots of the
-    rolling buffer under SWA; ``{"layers": [{"k", "v"} or {"ckv",
-    "krope"}], "enc_kv", "pos"}``."""
+    """Returns (last-token logits (B, V) float32, cache).  An attention
+    layer's cache holds ``max(S, max_len)`` slots, or the ``window`` slots
+    of the rolling buffer under SWA; ``{"layers": [{"k", "v"}, {"ckv",
+    "krope"} or {"h", "conv"}], "enc_kv", "pos"}``."""
     _check(model, cfg)
     tokens = _tokens(model, tokens)
     B, S = tokens.shape
@@ -351,24 +377,29 @@ def forward_prefill(model: LM, tokens, cfg, extras: Optional[dict] = None,
 @torch.no_grad()
 def forward_decode(model: LM, token, cache, cfg, extras: Optional[dict] = None):
     """token (B, 1) + cache -> (logits (B, V) float32, new cache): one
-    decode step.  The step's keys and values are written into the cache's
-    buffers in place (the returned cache shares them, with ``pos`` + 1), so
-    the cache passed in is spent.  A full (non-SWA) cache raises."""
+    decode step.  The step's keys and values (or Mamba states) are written
+    into the cache's buffers in place (the returned cache shares them, with
+    ``pos`` + 1), so the cache passed in is spent.  A full (non-SWA)
+    attention cache raises; a model without attention layers decodes with
+    no position limit."""
     _check(model, cfg)
     token = _tokens(model, token)
     B = token.shape[0]
     idx = int(cache["pos"])
     layers = cache["layers"]
-    slots = next(iter(layers[0].values())).shape[1]
-    if not _window(cfg) and idx >= slots:
-        raise IndexError(f"the cache holds {slots} positions; position {idx} "
-                         f"does not fit (pass a larger max_len to prefill)")
     positions = torch.full((B, 1), idx, device=model.device)
     x = _embed(model, token, cfg, extras)
     if cfg.encoder_layers:
         x = x + _sinusoidal(positions, cfg.d_model, x.dtype)
-    rope = _rope(cfg, positions, x.dtype)
-    mask = L.decode_mask(slots, idx, _window(cfg), model.device)
+    rope = mask = None
+    attn = _attn_layers(cfg)
+    if attn:
+        slots = next(iter(layers[attn[0]].values())).shape[1]
+        if not _window(cfg) and idx >= slots:
+            raise IndexError(f"the cache holds {slots} positions; position {idx} "
+                             f"does not fit (pass a larger max_len to prefill)")
+        rope = _rope(cfg, positions, x.dtype)
+        mask = L.decode_mask(slots, idx, _window(cfg), model.device)
     enc_kv = cache.get("enc_kv")
     for i, layer in enumerate(model.layers):
         x, _ = layer(x, rope, mask, mode="decode", cache=layers[i], index=idx,
@@ -383,13 +414,12 @@ def forward_decode(model: LM, token, cache, cfg, extras: Optional[dict] = None):
 
 def cache_specs(cfg, batch: int, seq_len: int) -> dict:
     """Spec tree of a cache holding ``seq_len`` tokens, in the port's cache
-    layout: ``{"layers": [{"k", "v"} or {"ckv", "krope"}], "pos",
-    "enc_kv"}``."""
-    param_specs(cfg)                   # refuses the unported families
+    layout: ``{"layers": [{"k", "v"}, {"ckv", "krope"} or {"h", "conv"}],
+    "pos", "enc_kv"}``; the reference's per-layer fields unstacked, its
+    ``index`` kept once as ``pos``."""
     S = min(seq_len, cfg.window) if cfg.attention == "swa" else seq_len
-    out = {"layers": [{name: (shape, cfg.dtype)
-                       for name, shape in _cache_shapes(cfg, batch, S).items()}
-                      for _ in range(cfg.num_layers)],
+    out = {"layers": [_cache_shapes(cfg, i, batch, S)
+                      for i in range(cfg.num_layers)],
            "pos": ((), "int32")}
     enc = ((batch, cfg.encoder_seq, cfg.num_heads, cfg.hd), cfg.dtype)
     out["enc_kv"] = ([(enc, enc) for _ in range(cfg.num_layers)]

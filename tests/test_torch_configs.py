@@ -1,26 +1,22 @@
 """PyTorch port, the LM configs: the ten architectures and their reduced
 forms field for field the JAX package's, the registry's helpers, the
-parameter counts (total and active) of the ported families at full size
-(shapes only, nothing allocated), and the unported (Mamba-2) families
-refused when a model is built."""
+parameter counts (total and active) of every family at full size (shapes
+only, nothing allocated)."""
 import dataclasses
 
 import pytest
 
 import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
-from repro_torch.models import LM
-
 ARCHS = jconfigs.list_archs()
 PORTED = ["qwen2.5-3b", "stablelm-1.6b", "stablelm-3b", "nemotron-4-340b",
           "phi-3-vision-4.2b", "whisper-base", "deepseek-v2-lite-16b",
-          "mixtral-8x7b"]
-UNPORTED = {"mamba2-2.7b": "Mamba-2", "jamba-v0.1-52b": "Mamba-2"}
+          "mixtral-8x7b", "mamba2-2.7b", "jamba-v0.1-52b"]
 
 
 def test_registry_matches_reference():
     assert tconfigs.list_archs() == ARCHS and len(ARCHS) == 10
-    assert sorted(PORTED + list(UNPORTED)) == ARCHS
+    assert sorted(PORTED) == ARCHS
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
     assert tconfigs.get_config("stablelm_3b") is tconfigs.get_config("stablelm-3b")
@@ -61,27 +57,20 @@ def test_qwen_param_count():
 # the reference's param_count() / active_param_count()
 ACTIVE = {("deepseek-v2-lite-16b", None): (15_708_450_304, 2_663_116_288),
           ("mixtral-8x7b", None): (46_702_792_704, 12_879_925_248),
-          ("mixtral-8x7b", 8): (11_872_309_248, 3_416_592_384)}
+          ("mixtral-8x7b", 8): (11_872_309_248, 3_416_592_384),
+          ("mamba2-2.7b", None): (2_832_074_240, 2_832_074_240),
+          ("jamba-v0.1-52b", None): (51_460_000_640, 11_999_988_608),
+          ("jamba-v0.1-52b", 8): (13_267_656_416, 3_402_653_408)}
 
 
 @pytest.mark.parametrize("arch,layers", list(ACTIVE))
 def test_active_param_count(arch, layers):
-    """The MoE families at full width: routed experts count at top_k / E,
-    deepseek's two shared experts in full (mixtral at 8 of its 32 layers
-    is the depth the card serves)."""
+    """The MoE and Mamba families at full width: routed experts count at
+    top_k / E, deepseek's two shared experts in full (mixtral and jamba at
+    8 of their 32 layers are the depths the card serves)."""
     cfg = tconfigs.get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     assert (cfg.param_count(), cfg.active_param_count()) == ACTIVE[arch, layers]
     dense = tconfigs.get_config("qwen2.5-3b")
     assert dense.active_param_count() == dense.param_count()
-
-
-@pytest.mark.parametrize("arch", list(UNPORTED))
-def test_unported_family_raises(arch):
-    cfg = tconfigs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]) as err:
-        LM(cfg, device="cpu")
-    assert "ROADMAP queue 1 item 11" in str(err.value)
-    with pytest.raises(NotImplementedError):
-        cfg.param_count()

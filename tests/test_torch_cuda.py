@@ -962,7 +962,8 @@ def test_lm_float32_prefill_decode_match_train(cuda, no_tf32):
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi-3-vision-4.2b",
                                   "whisper-base", "deepseek-v2-lite-16b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "mamba2-2.7b",
+                                  "jamba-v0.1-52b"])
 def test_lm_card_matches_cpu(cuda, no_tf32, arch):
     """The reduced config with the same float32 parameters on the card and
     on the CPU: logits within 1e-4 and the same greedy tokens."""
@@ -1008,3 +1009,42 @@ def test_lm_serve_bf16_repeats(cuda):
                                   engine.generate_batch(prompts, 6))
     with pytest.raises(ValueError, match="lies on"):
         ServeEngine(cfg, model, device="cpu")
+
+
+@pytest.mark.parametrize("length", [2, 256])
+def test_mamba2_block_card_matches_cpu(cuda, no_tf32, length):
+    """The Mamba-2 block at jamba's full width with the same float32
+    weights on the card and on the CPU: a causal pass (2 positions, then
+    two chunks of 128) and three decode steps, outputs and the state and
+    conv caches within 1e-4; the caches stay where they were allocated."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache_specs
+    from repro_torch.models.layers import Mamba2
+
+    cfg = get_config("jamba-v0.1-52b")
+    gen = torch.Generator().manual_seed(0)
+    host = Mamba2(cfg, "cpu")
+    with torch.no_grad():
+        for name, w in host.named_parameters():
+            w.copy_(torch.randn(w.shape, generator=gen) * 0.02
+                    + (1.0 if name.endswith("scale") else 0.0))
+    host = host.float()
+    card = Mamba2(cfg, cuda).float()
+    card.load_state_dict(host.state_dict())
+    x = torch.randn(2, length + 3, cfg.d_model, generator=gen)
+    spec = cache_specs(cfg, 2, 1)["layers"][0]
+    caches = [{k: torch.zeros(shape, device=dev) for k, (shape, _) in spec.items()}
+              for dev in ("cpu", cuda)]
+    outs = []
+    with torch.no_grad():
+        for block, cache in zip((host, card), caches):
+            xd = x.to(cache["h"].device)
+            h = cache["h"]
+            ys = [block(xd[:, :length], cache=cache)]
+            for t in range(length, length + 3):
+                ys.append(block(xd[:, t:t + 1], mode="decode", cache=cache))
+            assert cache["h"] is h
+            outs.append(torch.cat(ys, 1).cpu())
+    assert (outs[0] - outs[1]).abs().max().item() < 1e-4
+    for k in spec:
+        assert (caches[0][k] - caches[1][k].cpu()).abs().max().item() < 1e-4, k
