@@ -222,7 +222,31 @@ Phases, in order; any failure exits non-zero before the result line:
     then in float32 at the dropless capacity factor E / K: a prefill of
     256 tokens and 128 decode steps within 3e-4 of ``forward_train`` over
     384; (f) ``python -m repro_torch.launch.serve --arch ... --reduced``
-    for both: exit 0.
+    for both: exit 0;
+20. the training path (plain PyTorch and autograd, no kernel of its
+    own): (a) qwen2.5-3b at full width and depth in bfloat16 from the
+    seeded init, AdamW, remat "full", B = 8, S = 512, 6 steps on
+    ``TokenPipeline(seed=0)``'s batches: step ms (CUDA events, median of
+    steps 2-6) beside its bound (the matmuls' operations, remat's
+    recomputed forward and the optimizer's bytes, each on its own),
+    tokens/s, peak memory, one more step's device kernels and busy time;
+    finite losses and gradient norms, parameters that moved; (b) reduced
+    qwen, mixtral, mamba2 and jamba in float32 with remat on, card
+    against CPU: the loss, every gradient leaf (over its largest entry)
+    and the parameters after 2 AdamW steps within 1e-4; (c) qwen2.5-3b in
+    float32 at full width and depth, B = 1, S = 128: autograd's
+    derivative along the unit gradient against a central difference of
+    the loss (Richardson-extrapolated), within the bar, and two planted
+    faults (the tied head's gradient dropped, one layer's gradient
+    zeroed) above it; (d) (a)'s state saved after step 3 (zlib, stored),
+    restored into a fresh model and optimizer, steps 4-6 again: losses
+    and parameters bit for bit the run that never stopped, with the write
+    and restore seconds and the bytes; (e) mamba2-2.7b at full width and
+    depth in bfloat16, B = 4, S = 512 (four chunks), 3 AdamW steps: step
+    ms against its bound, peak memory; (f) ``python -m
+    repro_torch.launch.train --arch qwen2.5-3b --reduced --steps 20
+    --ckpt-dir DIR``, then ``--steps 30`` resuming from it: exit 0, the
+    reference's lines, "resumed from step 20", a falling loss.
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -240,6 +264,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -3804,6 +3829,544 @@ def drive_jamba(dev, card):
     return report
 
 
+
+# -- phase 20: the training path ------------------------------------------------
+TRAIN_ARCH = "qwen2.5-3b"
+# (a): full width and depth in bf16 with its remat "full", AdamW, batches of
+# TokenPipeline(seed=0); (d) saves the state after step 3 and resumes
+TRAIN = dict(batch=8, seq=512, steps=6, save_after=3, seed=0)
+TRAIN_OPT = dict(lr=3e-4, warmup=2, total_steps=100)
+# (d) saves through save_checkpoint's defaults, the launcher's path: zstd
+# when zstandard imports, else zlib's stored form (no zstandard on the
+# card's machine); each part of the write and the restore is timed
+# (b): reduced configs in float32 with remat on, card against CPU: the
+# loss, each gradient leaf and the parameters after two steps, the bar of
+# the earlier card-against-CPU checks; two chunks of the Mamba-2 scan.  A
+# leaf's gradient is read over its largest entry, or over a millionth of
+# the model's largest when that is more: the Mamba layers' A_log
+# gradients are 1e-9-2e-8 against a largest entry of 0.3-0.6 (the init's
+# fast decays), sums that cancel to 1e-8 of their terms, so float32's
+# order of summation moves them by 1e-4 of themselves (2.7e-4 of a 4.2e-9
+# leaf on the card); a wrong A_log gradient (1e-8 off) still reads
+# 3e-2 over the floor
+TRAIN_CPU = ("qwen2.5-3b", "mixtral-8x7b", "mamba2-2.7b", "jamba-v0.1-52b")
+TRAIN_CPU_LEN = dict(batch=2, seq=256, steps=2)
+TRAIN_CPU_TOL = 1e-4
+TRAIN_CPU_FLOOR = 1e-6
+# (c): float32 at full width and depth, TF32 off.  For each group of
+# parameters (the embedding, each of the 36 layers, the final norm) the
+# loss's derivative along the group's own unit direction v = g_G / |g_G|
+# from autograd's gradient: autograd's g . v = |g_G| against a central
+# difference of the loss along v, Richardson-extrapolated from steps h
+# and h / 2; relative error.  Each group's step moves the loss by about
+# the same amount, h = dloss / |g_G|: float32's rounding of the loss
+# (about 1e-6) over the loss's change sets the sound reading's floor,
+# and |g_G| runs from 0.022 (the final norm) to 19.6 (the embedding,
+# along which the loss bends sharply: at a fixed h 1e-2 it reads 2.7e-2).
+# Planted faults, read along the same directions: the tied head's part of
+# the embedding's gradient dropped (from a second backward with the head
+# detached); layer 18's gradient zeroed; layer 18's gradient 1 % short.
+# On the card the largest sound reading of the 38 groups is 4.2e-3,
+# 1.8e-3, 7.1e-4, 3.4e-4 and 1.7e-4 at dloss 5e-4, 1e-3, 2e-3, 5e-3 and
+# 1e-2 (the rounding over the loss's change), and the faults read 0.19,
+# 1 and 9.1e-3 to 1.06e-2 at each (tools/grad_check_readings.py, NVIDIA
+# H100 80GB HBM3, 700 W).  The bar lies between.
+GRAD_CHECK = dict(batch=1, seq=128, dloss=1e-2)
+GRAD_CHECK_TOL = 1e-3
+GRAD_FAULT_LAYER = 18
+GRAD_FAULT_SHORT = 0.01
+# (e): mamba2-2.7b at full width and depth in bf16, B = 4, S = 512 (four
+# chunks of the scan), AdamW, remat "full"
+SSM_TRAIN = dict(arch="mamba2-2.7b", batch=4, seq=512, steps=3, seed=1)
+# (f): the launcher, then a second call that resumes from its checkpoint
+TRAIN_CLI_ARGS = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "20"]
+TRAIN_CLI_RESUME_STEPS = 30
+
+
+def _train_bounds(model, B, S):
+    """Least time of a training step as this model computes it: the matmul
+    operations (2 a multiply-add) of the forward at the bf16 peak, the
+    Mamba-2 scan's float32 contractions at the float32 peak
+    (``_mamba_ops``), times 3 for the forward and the backward's two
+    products a forward product; remat's recomputed forward (every layer
+    and the loss's head once more) on its own line; the optimizer's bytes
+    at 3.35 TB/s (AdamW reads the parameter, the gradient and both float32
+    moments and writes the moments and the parameter: 22 bytes a bf16
+    parameter).  Attention scores and values over the full S x S, as
+    computed.  The step runs these one after another: its bound is their
+    sum; the largest alone is the roofline of a schedule that overlaps
+    them."""
+    cfg = model.cfg
+    assert cfg.attention != "mla" and not cfg.n_experts
+    d, n_tok = cfg.d_model, B * S
+    gated = 3 if cfg.act in ("swiglu", "geglu") else 2
+    mm, f32 = 2 * n_tok * d * cfg.padded_vocab, 0
+    for i in range(cfg.num_layers):
+        if cfg.is_attn_layer(i):
+            H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+            mm += 2 * n_tok * d * (2 * H + 2 * KV) * hd + 4 * B * H * S * S * hd
+        else:
+            o, f = _mamba_ops(cfg, B, n_tok, S)
+            mm, f32 = mm + o, f32 + f
+        if cfg.d_ff:
+            mm += 2 * gated * n_tok * d * cfg.d_ff
+    fwd_ms = (mm / PEAK_BF16_OPS_PER_S + f32 / PEAK_OPS_PER_S["float32"]) * 1e3
+    opt_bytes = sum(p.numel() * (3 * p.element_size() + 16) for p in model.parameters())
+    out = dict(train_tflop=3 * mm / 1e12, train_f32_tflop=3 * f32 / 1e12,
+               compute_bound_ms=3 * fwd_ms,
+               remat_bound_ms=fwd_ms if cfg.remat else 0.0,
+               optimizer_gb=opt_bytes / 1e9,
+               optimizer_bound_ms=opt_bytes / PEAK_BYTES_PER_S * 1e3)
+    parts = (out["compute_bound_ms"], out["remat_bound_ms"], out["optimizer_bound_ms"])
+    out.update(step_bound_ms=sum(parts), roofline_ms=max(parts))
+    return out
+
+
+def _train_steps(dev, model, opt, step, pipe, steps, first=0, on_step=None):
+    """``steps`` training steps on the pipeline's batches from ``first``:
+    each step's metrics (floats), its device ms (CUDA events) and its
+    host ms.  ``on_step(i, model, opt)`` runs after the ``i``-th step
+    (counted from 1)."""
+    out = []
+    for i in range(first, first + steps):
+        batch = pipe.batch_at(i)
+        (model, opt, m), ms, host = _event_ms(lambda: step(model, opt, batch))
+        torch.cuda.synchronize(dev)
+        out.append(dict({k: v.item() for k, v in m.items()}, ms=ms, host_ms=host))
+        if on_step:
+            on_step(i + 1, model, opt)
+    return out
+
+
+def _train_run(dev, cfg, spec, opt_cfg, on_step=None, profile=False):
+    """Init ``cfg`` from the seed on the card and train ``spec["steps"]``
+    steps on TokenPipeline(seed=spec["seed"]): finite losses and gradient
+    norms, parameters that moved; the timings beside the bound, peak
+    memory over what was held before; with ``profile`` one more step's
+    profile and the step's two parts timed alone.  Returns (report,
+    model, optimizer state, step function, pipeline)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import (TrainConfig, apply_updates, grads_of,
+                                   init_opt_state, make_train_step)
+
+    torch.zeros(1, device=dev)       # the allocator exists before its reset
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    model.requires_grad_(True)
+    opt = init_opt_state(model, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, TrainConfig())
+    B, S = spec["batch"], spec["seq"]
+    pipe = TokenPipeline(cfg.padded_vocab, B, S, seed=spec["seed"])
+    probe = {n: p.detach().clone() for n, p in list(model.named_parameters())[:3]}
+    runs = _train_steps(dev, model, opt, step, pipe, spec["steps"], on_step=on_step)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    losses = [r["loss"] for r in runs]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in runs)
+    moved = {n: (p.detach() - probe[n]).abs().max().item()
+             for n, p in model.named_parameters() if n in probe}
+    assert all(v > 0 for v in moved.values()), ("parameters did not move", moved)
+    del probe
+    ms = [r["ms"] for r in runs]
+    step_ms = statistics.median(ms[1:])
+    report = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+                  params=cfg.param_count(),
+                  remat=cfg.remat_policy if cfg.remat else "off",
+                  batch=B, seq=S, steps=spec["steps"], losses=losses,
+                  grad_norms=[r["grad_norm"] for r in runs],
+                  lrs=[r["lr"] for r in runs], step_ms_all=ms,
+                  host_ms_all=[r["host_ms"] for r in runs], step_ms=step_ms,
+                  tokens_per_s=B * S / step_ms * 1e3, peak_mib=peak / 2**20,
+                  held_before_mib=base / 2**20, moved=moved,
+                  **_train_bounds(model, B, S), clock="CUDA events (ms), host (s)")
+    if profile:
+        # one more step under the profiler (its batch the next one), then
+        # a step in its two parts: the gradients, and the optimizer's update
+        t0 = time.perf_counter()
+        batch = pipe.batch_at(spec["steps"])
+        report["profile"] = _profiled(dev, lambda: step(model, opt, batch), step_ms)
+        (grads, _, _), grads_ms, _ = _event_ms(
+            lambda: grads_of(model, batch, cfg, TrainConfig()))
+        _, update_ms, _ = _event_ms(lambda: apply_updates(model, grads, opt, opt_cfg))
+        report.update(grads_ms=grads_ms, update_ms=update_ms,
+                      profile_s=time.perf_counter() - t0)
+        del grads
+    return report, model, opt, step, pipe
+
+
+def _log_train(r, card):
+    log(f"train {r['arch']} {r['dtype']} ({r['layers']} layers, {r['params']:,} "
+        f"parameters, remat {r['remat']}) AdamW B={r['batch']} S={r['seq']}: step "
+        f"{r['step_ms']:.2f} ms (median of steps 2-{r['steps']}; "
+        f"{min(r['step_ms_all']):.2f}-{max(r['step_ms_all']):.2f}), "
+        f"{r['tokens_per_s']:.0f} tokens/s; bound {r['step_bound_ms']:.2f} ms = "
+        f"compute {r['compute_bound_ms']:.2f} ({r['train_tflop']:.2f} TFLOP bf16, "
+        f"{r['train_f32_tflop']:.3f} TFLOP float32) + remat's recomputed forward "
+        f"{r['remat_bound_ms']:.2f} + optimizer {r['optimizer_bound_ms']:.2f} "
+        f"({r['optimizer_gb']:.2f} GB); losses "
+        + ", ".join(f"{x:.4f}" for x in r["losses"])
+        + f"; grad_norm {r['grad_norms'][-1]:.4f}; peak {r['peak_mib']:.1f} MiB over "
+        f"the {r['held_before_mib']:.1f} MiB held before [{card}]")
+    host = f"the host issues a step in {statistics.median(r['host_ms_all']):.1f} ms"
+    if "profile" not in r:
+        log(f"  {host} (not profiled)")
+        return
+    prof = r["profile"]
+    log(f"  one step: {prof.get('kernels', 'not measured')} device kernels, busy "
+        f"{prof.get('device_busy_ms', 'not measured')} ms (share "
+        f"{prof.get('busy_share', 'not measured')}); {host}; its parts: gradients "
+        f"{r['grads_ms']:.2f} ms, the optimizer's update {r['update_ms']:.2f} ms "
+        f"(the profiled step and the parts: {r['profile_s']:.1f} s)")
+
+def drive_train(dev, card, tmp):
+    """Phase 20 (a) and (d): qwen2.5-3b at full width and depth, bf16,
+    AdamW; its state saved after step 3, restored into a fresh model and
+    optimizer on the card, and steps 4-6 run again from it: the same
+    losses and the same parameters as the run that never stopped, bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import load_train_state, train_state
+    from repro_torch.models import LM
+    from repro_torch.train import (OptConfig, TrainConfig, make_train_step,
+                                   restore_checkpoint, save_checkpoint)
+
+    cfg = get_config(TRAIN_ARCH)
+    assert cfg.dtype == "bfloat16" and cfg.remat and cfg.remat_policy == "full"
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    k, n, kept = TRAIN["save_after"], TRAIN["steps"], {}
+
+    def after(i, model, opt):
+        if i == k:
+            torch.cuda.synchronize(dev)
+            kept["write"] = {}
+            path = save_checkpoint(tmp, i, train_state(model, opt),
+                                   timings=kept["write"])
+            kept["bytes"] = sum(f.stat().st_size for f in path.iterdir())
+        if i == n:       # before the profiled step moves them on
+            kept["final"] = {name: p.detach().to("cpu", copy=True)
+                             for name, p in model.named_parameters()}
+
+    t0 = time.perf_counter()
+    report, model, opt, step, pipe = _train_run(dev, cfg, TRAIN, opt_cfg, after,
+                                                profile=True)
+    _log_train(report, card)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    report["run_s"] = time.perf_counter() - t0 - kept["write"]["wall_s"]
+
+    # (d): a fresh model and optimizer state from the checkpoint
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fresh = LM(cfg, dev)
+    t1 = time.perf_counter()
+    read = {}
+    tree = restore_checkpoint(tmp, k, device=dev, timings=read)
+    t2 = time.perf_counter()
+    opt = load_train_state(fresh, opt_cfg, tree, dev)
+    del tree
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    restore = dict(read, model_s=t1 - t0, load_s=t3 - t2, total_s=t3 - t0)
+    assert int(opt["step"]) == k
+    fresh.requires_grad_(True)
+    again = _train_steps(dev, fresh, opt, make_train_step(cfg, opt_cfg, TrainConfig()),
+                         pipe, n - k, first=k)
+    got, want = [r["loss"] for r in again], report["losses"][k:]
+    assert got == want, ("the resumed run's losses differ", got, want)
+    differ = [name for name, p in fresh.named_parameters()
+              if not torch.equal(p.detach().cpu(), kept["final"][name])]
+    assert not differ, ("the resumed run's parameters differ", len(differ), differ[:4])
+    n_params = sum(p.numel() for p in fresh.parameters())
+    del fresh, opt, kept["final"]
+    torch.cuda.empty_cache()
+    write = kept["write"]
+    report["checkpoint"] = dict(after_step=k, codec=_ckpt_codec(tmp, k),
+                                bytes=kept["bytes"], write=write, restore=restore,
+                                resume_s=time.perf_counter() - t0,
+                                resumed_losses=got, bit_for_bit=True, clock="host")
+    log(f"  checkpoint after step {k}: {kept['bytes']:,} bytes "
+        f"({report['checkpoint']['codec']}) written in {write['wall_s']:.2f} s (on "
+        f"{write['threads']} threads, thread-seconds: to the host "
+        f"{write['host_s']:.2f}, blake2b {write['hash_s']:.2f}, compress "
+        f"{write['compress_s']:.2f}; the file writes {write['write_s']:.2f} s); "
+        f"restored into a fresh model and optimizer in {restore['total_s']:.2f} s "
+        f"(the model {restore['model_s']:.2f} s, restore_checkpoint "
+        f"{restore['wall_s']:.2f} s, thread-seconds: read {restore['read_s']:.2f}, "
+        f"decompress {restore['decompress_s']:.2f}, blake2b {restore['hash_s']:.2f}, "
+        f"onto the card {restore['place_s']:.2f}; loading it {restore['load_s']:.2f} "
+        f"s); steps {k + 1}-{n} from it: the same losses and all {n_params:,} "
+        f"parameters, bit for bit")
+    return report
+
+
+def _ckpt_codec(directory, step):
+    return json.loads((Path(directory) / f"step_{step}" / "manifest.json"
+                       ).read_text())["codec"]
+
+
+def drive_train_cpu_card(dev):
+    """Phase 20 (b): reduced configs in float32 with remat on, the same
+    parameters and batches on the card and on the CPU: the loss, every
+    gradient leaf and the parameters after two AdamW steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_arrays, lm_params_to_arrays
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptConfig, TrainConfig, grads_of,
+                                   init_opt_state, make_train_step)
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, S, steps = TRAIN_CPU_LEN["batch"], TRAIN_CPU_LEN["seq"], TRAIN_CPU_LEN["steps"]
+    opt_cfg = OptConfig(lr=1e-3, warmup=1, total_steps=10)
+    reports = []
+    for arch in TRAIN_CPU:
+        cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+        host = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        card = lm_params_from_arrays(cfg, lm_params_to_arrays(host), device=dev)
+        pipe = TokenPipeline(cfg.padded_vocab, B, S, seed=SEED)
+        out = {}
+        for side, model in (("cpu", host), ("card", card)):
+            model.requires_grad_(True)
+            g, loss, m = grads_of(model, pipe.batch_at(0), cfg, TrainConfig())
+            grads = {k: v.cpu() for k, v in g.items()}
+            del g
+            opt = init_opt_state(model, opt_cfg)
+            step = make_train_step(cfg, opt_cfg, TrainConfig())
+            losses = [step(model, opt, pipe.batch_at(i))[2]["loss"].item()
+                      for i in range(steps)]
+            out[side] = dict(loss=loss.item(), aux=m["aux"].item(), grads=grads,
+                             losses=losses, drops=moe_dropped(model),
+                             params={k: p.detach().cpu()
+                                     for k, p in model.named_parameters()})
+        h, c = out["cpu"], out["card"]
+        loss_err = max([abs(h["loss"] - c["loss"]), abs(h["aux"] - c["aux"])]
+                       + [abs(a - b) for a, b in zip(h["losses"], c["losses"])])
+        top = max(g.abs().max().item() for g in h["grads"].values())
+        grad_err = max((c["grads"][k] - g).abs().max().item()
+                       / max(g.abs().max().item(), TRAIN_CPU_FLOOR * top)
+                       for k, g in h["grads"].items())
+        param_err = max((c["params"][k] - p).abs().max().item()
+                        for k, p in h["params"].items())
+        assert max(loss_err, grad_err, param_err) < TRAIN_CPU_TOL, \
+            (arch, loss_err, grad_err, param_err)
+        assert h["drops"] == c["drops"], (h["drops"], c["drops"])
+        log(f"train {cfg.name} reduced float32 (remat full) B={B} S={S}: card "
+            f"against CPU: loss {loss_err:.3e}, gradients {grad_err:.3e} of each "
+            f"leaf's largest entry (at least {TRAIN_CPU_FLOOR:g} of the model's "
+            f"{top:.3e}), parameters after {steps} AdamW steps "
+            f"{param_err:.3e} (bar {TRAIN_CPU_TOL})")
+        reports.append(dict(arch=cfg.name, reduced=True, batch=B, seq=S, steps=steps,
+                            loss=c["loss"], loss_err=loss_err, grad_rel_err=grad_err,
+                            param_err=param_err, tol=TRAIN_CPU_TOL))
+        del host, card, out
+    torch.cuda.empty_cache()
+    return reports
+
+
+def _param_group(name: str) -> str:
+    """The group a parameter's gradient is checked in: ``layers.<i>`` for a
+    layer's, else its module (``embed``, ``final_norm``)."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "layers" else parts[0]
+
+
+def drive_grad_check(dev, card):
+    """Phase 20 (c): float32 at full width and depth, TF32 off: for each
+    group of parameters, autograd's derivative of the loss along the
+    group's unit gradient direction v (that is |g_G|) against a central
+    difference of the loss along v, Richardson-extrapolated from steps h
+    and h / 2 (h = dloss / |g_G|); and the planted faults' readings along
+    the same directions
+    (the tied head's part of the embedding's gradient dropped, from a
+    second backward with the head detached; layer ``GRAD_FAULT_LAYER``'s
+    gradient zeroed, and ``GRAD_FAULT_SHORT`` short).  Returns the
+    readings; phase 20 holds them to the bar."""
+    import dataclasses
+
+    import repro_torch.train.train_step as ts
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainConfig, grads_of, loss_fn
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    assert cfg.tie_embeddings
+    B, S, dloss = (GRAD_CHECK[k] for k in ("batch", "seq", "dloss"))
+    tcfg = TrainConfig()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    model.requires_grad_(True)
+    batch = TokenPipeline(cfg.padded_vocab, B, S, seed=SEED).batch_at(0)
+    grads, loss0, _ = grads_of(model, batch, cfg, tcfg)
+
+    def dot(a, b):
+        return torch.sum(a * b, dtype=torch.float64).item()
+
+    groups = {}
+    for n, p in model.named_parameters():
+        groups.setdefault(_param_group(n), []).append((n, p))
+    norms = {gname: math.sqrt(sum(dot(grads[n], grads[n]) for n, _ in members))
+             for gname, members in groups.items()}
+
+    def central(members, norm, step_h):
+        theta = [p.detach().clone() for _, p in members]
+
+        def loss_at(t):
+            with torch.no_grad():
+                for (n, p), p0 in zip(members, theta):
+                    torch.add(p0, grads[n], alpha=t / norm, out=p)
+                return loss_fn(model, batch, cfg, tcfg)[0].item()
+
+        fd = (loss_at(step_h) - loss_at(-step_h)) / (2 * step_h)
+        fd2 = (loss_at(step_h / 2) - loss_at(-step_h / 2)) / step_h
+        with torch.no_grad():
+            for (_, p), p0 in zip(members, theta):
+                p.copy_(p0)
+        return (4 * fd2 - fd) / 3
+
+    fds = {gname: central(members, norms[gname], dloss / norms[gname])
+           for gname, members in groups.items()}
+    sound = {gname: abs(norms[gname] - fds[gname]) / abs(fds[gname]) for gname in groups}
+    # the tied head's part dropped: the embedding's gradient of the lookup
+    plain_head = ts.lm_head_of
+    try:
+        ts.lm_head_of = lambda m, c: m.embed.T.detach()
+        loss, _ = loss_fn(model, batch, cfg, tcfg)
+        (lookup,) = torch.autograd.grad(loss, [model.embed])
+    finally:
+        ts.lm_head_of = plain_head
+    lookup_along = dot(lookup, grads["embed"]) / norms["embed"]
+    del lookup, loss
+    layer = f"layers.{GRAD_FAULT_LAYER}"
+
+    def off(got, group):
+        return abs(got - fds[group]) / abs(fds[group])
+
+    faults = {"tied_head": off(lookup_along, "embed"),
+              "layer_zeroed": off(0.0, layer),
+              "layer_short": off((1 - GRAD_FAULT_SHORT) * norms[layer], layer)}
+    del model, grads
+    torch.cuda.empty_cache()
+    worst = max(sound, key=sound.get)
+    seconds = time.perf_counter() - t_start
+    log(f"train {cfg.name} float32 (TF32 off, {cfg.num_layers} layers) B={B} S={S}: "
+        f"loss {loss0.item():.6f}; autograd along each group's g/|g| against central "
+        f"differences (h = {dloss} / |g_G| and h / 2, extrapolated) over "
+        f"{len(groups)} groups: "
+        f"sound {min(sound.values()):.3e}-{sound[worst]:.3e} (the largest {worst}, "
+        f"|g| {norms[worst]:.4e}; embed {sound['embed']:.3e}, |g| "
+        f"{norms['embed']:.4e}); faults "
+        + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+        + f" ({layer}, |g| {norms[layer]:.4e}; bar {GRAD_CHECK_TOL}; "
+        f"{seconds:.1f} s) [{card}]")
+    return dict(arch=cfg.name, dtype="float32", tf32=False, batch=B, seq=S,
+                loss=loss0.item(), dloss=dloss, groups=len(groups), grad_norms=norms,
+                fd_extrapolated=fds, sound=sound, sound_max=sound[worst],
+                sound_worst=worst, faults=faults, fault_layer=GRAD_FAULT_LAYER,
+                tol=GRAD_CHECK_TOL, seconds=seconds)
+
+
+def judge_grad_check(r):
+    """Phase 20 (c)'s bar: every group's sound reading under it, every
+    planted fault above it."""
+    assert r["sound_max"] < GRAD_CHECK_TOL, ("a sound reading is over the bar",
+                                             r["sound_worst"], r["sound_max"])
+    assert min(r["faults"].values()) > GRAD_CHECK_TOL, \
+        ("the bar no longer catches a planted fault", r["faults"])
+
+
+def drive_ssm_train(dev, card):
+    """Phase 20 (e): mamba2-2.7b at full width and depth, bf16, AdamW:
+    the SSD scan's backward on the card (not profiled: the step's host
+    issue time beside its device time says whether the host holds it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptConfig
+
+    cfg = get_config(SSM_TRAIN["arch"])
+    report, model, opt, step, _ = _train_run(dev, cfg, SSM_TRAIN, OptConfig(**TRAIN_OPT))
+    _log_train(report, card)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return report
+
+
+_TRAIN_LINE = re.compile(r"^step +(\d+) loss ([\d.]+) nll ([\d.]+) gnorm ([\d.]+) "
+                         r"\([\d.]+s\)$")
+
+
+def drive_train_cli(tmp, args=TRAIN_CLI_ARGS, resume_steps=TRAIN_CLI_RESUME_STEPS):
+    """Phase 20 (f): ``python -m repro_torch.launch.train`` in a
+    subprocess on the card, then a second call with more steps that
+    resumes from the first's last checkpoint: exit 0, the reference's
+    lines, the resume step and a falling loss."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    n1 = int(args[args.index("--steps") + 1])
+    runs = []
+    for steps in (n1, resume_steps):
+        argv = [*args, "--ckpt-dir", str(tmp)]
+        argv[argv.index("--steps") + 1] = str(steps)
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                             env=env, timeout=300)
+        wall = time.perf_counter() - t0
+        assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
+        lines = out.stdout.strip().splitlines()
+        found = [m for m in map(_TRAIN_LINE.match, lines) if m]
+        runs.append(dict(args=argv, lines=lines, wall_s=wall,
+                         steps=[int(m.group(1)) for m in found],
+                         losses=[float(m.group(2)) for m in found]))
+    first, second = runs
+    assert len(first["steps"]) == len(first["lines"]), first["lines"]
+    assert first["steps"] == [0, 10, n1 - 1], first["lines"]
+    assert first["losses"][-1] < first["losses"][0], first["losses"]
+    assert second["lines"][0] == f"resumed from step {n1}", second["lines"]
+    assert second["steps"] == [20, resume_steps - 1], second["lines"]
+    assert second["losses"][-1] < first["losses"][0], (first["losses"],
+                                                       second["losses"])
+    for r in runs:
+        log(f"train cli: {' '.join(r['args'])} -> exit 0 in {r['wall_s']:.1f} s: "
+            + " | ".join(r["lines"]))
+    return dict(runs=runs, clock="host")
+
+
+def drive_phase20(dev, card, scratch):
+    """Phase 20, (a)-(f), each sub-phase's seconds in the report."""
+    t20 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        report = drive_train(dev, card, Path(tmp) / "ckpt")
+    ck = report["checkpoint"]
+    seconds = {"a": report["run_s"], "d write": ck["write"]["wall_s"],
+               "d restore and steps 4-6": ck["resume_s"]}
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[part] = time.perf_counter() - t0
+        return out
+
+    report["cpu_card"] = timed("b", lambda: drive_train_cpu_card(dev))
+    report["grad_check"] = timed("c", lambda: drive_grad_check(dev, card))
+    judge_grad_check(report["grad_check"])
+    report["mamba2"] = timed("e", lambda: drive_ssm_train(dev, card))
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        report["cli"] = timed("f", lambda: drive_train_cli(Path(tmp)))
+    report.update(seconds=seconds, phase_s=time.perf_counter() - t20)
+    log("phase 20 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in seconds.items()))
+    log(f"phase 20: {report['phase_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -3982,6 +4545,13 @@ def main() -> int:
     ssm_report["phase_s"] = time.perf_counter() - t19
     log(f"phase 19: {ssm_report['phase_s']:.1f} s")
     log(json.dumps({"ssm_serve_report": ssm_report}))
+
+    # 20. the training path: qwen2.5-3b at full width and depth (bf16,
+    # AdamW) with a checkpoint and a bit-for-bit resume, reduced configs
+    # card against CPU, float32 gradients against central differences,
+    # mamba2-2.7b's SSD backward, the launcher and its resume
+    train_report = drive_phase20(dev, card, scratch)
+    log(json.dumps({"train_report": train_report}))
 
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",

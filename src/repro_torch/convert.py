@@ -13,7 +13,10 @@ An LM's parameters travel the same way: ``lm_params_from_arrays`` fills an
 layout (nested dicts and lists of numpy arrays, scan-stacked layer
 patterns included), and ``lm_params_to_arrays`` gives such a tree back.
 numpy has no bfloat16, so the arrays are float32 (which holds bfloat16
-values exactly) and the model casts them to ``cfg.dtype``.
+values exactly) and the model casts them to ``cfg.dtype``.  The same walk
+(:func:`reference_layout`: each leaf's path and the port parameters it
+holds) gives gradients and optimizer states in that layout, and the
+dtype-keeping tensor tree a checkpoint stores.
 """
 from __future__ import annotations
 
@@ -28,7 +31,10 @@ from .core.planner import SymbolicPlan
 from .core.symbolic import FilledPattern
 
 __all__ = ["plan_to_arrays", "plan_from_arrays", "symbolic_plan_from_arrays",
-           "lm_params_from_arrays", "lm_params_to_arrays"]
+           "lm_params_from_arrays", "lm_params_to_arrays", "lm_params_to_tensors",
+           "load_lm_params", "lm_grads_to_arrays", "opt_state_to_arrays",
+           "opt_state_from_arrays", "reference_layout", "flatten_paths",
+           "nest_paths"]
 
 # FactorizePlan fields carried as arrays, in their dataclass order
 _FPLAN_ARRAYS = (
@@ -163,103 +169,200 @@ def layer_groups(cfg) -> list[dict]:
     return groups
 
 
-def _flatten(tree, prefix: str, out: dict, index=None):
-    """Leaves of nested dicts and lists under dotted names; ``index``
-    takes one layer out of scan-stacked leaves."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        out[prefix[:-1]] = tree if index is None else tree[index]
-        return
-    for key, sub in items:
-        _flatten(sub, f"{prefix}{key}.", out, index)
+def _layer_paths(cfg) -> dict:
+    """Layer ``i`` -> (its path prefix in the JAX package's tree, its row
+    in the scan-stacked leaves or None)."""
+    where = {}
+    for gi, g in enumerate(layer_groups(cfg)):
+        if not g["scan"]:
+            for li, i in enumerate(g["indices"]):
+                where[i] = (f"blocks/{gi}/layers/{li}", None)
+            continue
+        for pos in range(g["period"]):
+            for r in range(g["repeat"]):
+                where[g["start"] + r * g["period"] + pos] = (
+                    f"blocks/{gi}/pattern/{pos}", r)
+    return where
+
+
+def reference_layout(cfg) -> dict:
+    """``{path: (names, stacked)}``: each leaf of the JAX package's
+    parameter tree under its ``"/"``-joined path (``"embed"``,
+    ``"blocks/1/pattern/0/attn/wq"``), with the port parameter names it
+    holds: a scan group's leaf (``stacked``) one a row, in row order,
+    another leaf one.  Paths come in the order of the port's parameters."""
+    from .models.model import param_specs
+
+    where = _layer_paths(cfg)
+    out: dict = {}
+    for name in param_specs(cfg):
+        parts = name.split(".")
+        row = None
+        if parts[0] == "layers":
+            prefix, row = where[int(parts[1])]
+            parts = [prefix, *parts[2:]]
+        names, _ = out.setdefault("/".join(parts), ([], row is not None))
+        names.append(name)
+    return out
+
+
+def flatten_paths(tree) -> dict:
+    """``{"/"-joined path: leaf}`` of nested dicts and lists, dict keys in
+    sorted order (as the JAX package orders a tree's leaves)."""
+    out: dict = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            items = sorted(node.items())
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            out[prefix[:-1]] = node
+            return
+        for key, sub in items:
+            walk(sub, f"{prefix}{key}/")
+
+    walk(tree, "")
+    return out
+
+
+def nest_paths(flat: dict) -> dict:
+    """The inverse of :func:`flatten_paths`: a dict whose keys are all
+    digits becomes a list."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node, keys = tree, path.split("/")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+
+    def listed(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listed(node[str(i)]) for i in range(len(node))]
+        return {k: listed(v) for k, v in node.items()}
+
+    return listed(tree)
+
+
+def _to_reference_tree(cfg, leaves: dict, stack=np.stack) -> dict:
+    """The JAX package's parameter tree from ``{port name: leaf}`` (the
+    parameters, or anything shaped like them: gradients, moments), the
+    rows of each scan group joined with ``stack``."""
+    return nest_paths({
+        path: stack([leaves[n] for n in names]) if stacked else leaves[names[0]]
+        for path, (names, stacked) in reference_layout(cfg).items()})
 
 
 def _reference_leaves(cfg, tree: dict) -> dict:
     """``{port name: array}`` from the JAX package's parameter tree: each
-    group of ``tree["blocks"]`` unstacked into ``layers.<i>``."""
-    out: dict = {}
-    for key, sub in tree.items():
-        if key != "blocks":
-            _flatten(sub, f"{key}.", out)
-    groups = layer_groups(cfg)
-    if len(tree["blocks"]) != len(groups):
-        raise ValueError(f"{len(tree['blocks'])} block groups for "
-                         f"{len(groups)} of {cfg.name}")
-    for g, gp in zip(groups, tree["blocks"]):
-        if not g["scan"]:
-            for li, i in enumerate(g["indices"]):
-                _flatten(gp["layers"][li], f"layers.{i}.", out)
-            continue
-        for pos in range(g["period"]):
-            for r in range(g["repeat"]):
-                i = g["start"] + r * g["period"] + pos
-                _flatten(gp["pattern"][pos], f"layers.{i}.", out, index=r)
+    scan-stacked leaf split into its rows."""
+    flat = flatten_paths(tree)
+    layout = reference_layout(cfg)
+    if flat.keys() != layout.keys():
+        missing = [n for path in layout.keys() - flat.keys()
+                   for n in layout[path][0]]
+        raise KeyError(f"parameter tree of {cfg.name}: missing {sorted(missing)}, "
+                       f"unexpected {sorted(flat.keys() - layout.keys())}")
+    out = {}
+    for path, (names, stacked) in layout.items():
+        leaf = flat[path]
+        if stacked and leaf.shape[0] != len(names):
+            raise ValueError(f"{path}: {leaf.shape[0]} stacked rows for "
+                             f"{len(names)} layers")
+        for r, name in enumerate(names):
+            out[name] = leaf[r] if stacked else leaf
     return out
+
+
+def load_lm_params(model, tree: dict):
+    """Copy a parameter tree in the JAX package's layout (numpy arrays or
+    tensors, on any device) into ``model``'s parameters, each cast to its
+    parameter's dtype.  Every leaf must be there with its parameter's
+    shape, and no other.  Returns ``model``."""
+    leaves = _reference_leaves(model.cfg, tree)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            a = leaves[name]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(a.shape)}, expected "
+                                 f"{tuple(p.shape)}")
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
+                a = torch.from_numpy(a if a.flags.writeable else a.copy())
+            p.copy_(a)
+    return model
 
 
 def lm_params_from_arrays(cfg, tree: dict, device=None):
     """An :class:`LM` on ``device`` (``None``: the card) holding the
     parameters of ``tree``, a parameter tree in the JAX package's layout
     whose leaves are numpy arrays (float32 for bfloat16 weights); each is
-    cast to its parameter's dtype.  Every leaf must be there with its
-    parameter's shape, and no other."""
+    cast to its parameter's dtype (see :func:`load_lm_params`)."""
     from .models.model import LM
-    model = LM(cfg, device)
-    leaves = _reference_leaves(cfg, tree)
-    params = dict(model.named_parameters())
-    if leaves.keys() != params.keys():
-        raise KeyError(f"parameter tree of {cfg.name}: missing "
-                       f"{sorted(params.keys() - leaves.keys())}, unexpected "
-                       f"{sorted(leaves.keys() - params.keys())}")
-    with torch.no_grad():
-        for name, p in params.items():
-            a = np.asarray(leaves[name])
-            if a.shape != tuple(p.shape):
-                raise ValueError(f"{name}: shape {a.shape}, expected "
-                                 f"{tuple(p.shape)}")
-            if not a.flags.writeable:
-                a = a.copy()
-            p.copy_(torch.from_numpy(a))
-    return model
+    return load_lm_params(LM(cfg, device), tree)
+
+
+def _host_arrays(named) -> dict:
+    return {n: t.detach().float().cpu().numpy().copy() for n, t in named}
 
 
 def lm_params_to_arrays(model) -> dict:
     """The inverse of :func:`lm_params_from_arrays`: the JAX package's
     parameter tree (scan groups stacked) of float32 numpy arrays."""
-    cfg = model.cfg
-    tree: dict = {}
-    for name, p in model.named_parameters():
-        node, keys = tree, name.split(".")
-        for key in keys[:-1]:
-            node = node.setdefault(key, {})
-        node[keys[-1]] = p.detach().float().cpu().numpy().copy()
-
-    def listed(node):
-        if isinstance(node, dict) and node and all(k.isdigit() for k in node):
-            return [listed(node[str(i)]) for i in range(len(node))]
-        if isinstance(node, dict):
-            return {k: listed(v) for k, v in node.items()}
-        return node
-
-    tree = listed(tree)
-    layers = tree.pop("layers")
-    blocks = []
-    for g in layer_groups(cfg):
-        if not g["scan"]:
-            blocks.append({"layers": [layers[i] for i in g["indices"]]})
-            continue
-        period, start = g["period"], g["start"]
-        blocks.append({"pattern": [
-            _stack([layers[start + r * period + pos] for r in range(g["repeat"])])
-            for pos in range(period)]})
-    tree["blocks"] = blocks
-    return tree
+    return _to_reference_tree(model.cfg, _host_arrays(model.named_parameters()))
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+def lm_params_to_tensors(model) -> dict:
+    """The JAX package's parameter tree of the parameters in their own
+    dtypes (bfloat16 kept) on the model's device: a scan group's rows
+    stacked into a new tensor, any other leaf the parameter itself
+    (detached).  What a checkpoint stores."""
+    return _to_reference_tree(
+        model.cfg, {n: p.detach() for n, p in model.named_parameters()},
+        torch.stack)
+
+
+def lm_grads_to_arrays(model, grads: dict) -> dict:
+    """Gradients ``{port name: tensor}`` (as ``make_train_step`` and
+    ``grads_of`` give them) in the layout of the JAX package's gradient
+    tree, float32 numpy arrays."""
+    return _to_reference_tree(model.cfg, _host_arrays(
+        (n, grads[n]) for n, _ in model.named_parameters()))
+
+
+def opt_state_to_arrays(state: dict) -> dict:
+    """An optimizer state of :mod:`repro_torch.train.optimizer` (its
+    moments keyed by the JAX package's leaf paths) as that package's
+    state tree: ``{"step": int32, "m", "v"}`` (AdamW) or ``{"step", "vr",
+    "vc"}`` (Adafactor), each a parameter-shaped tree of float32 numpy
+    arrays."""
+    out = {"step": np.asarray(state["step"].cpu(), dtype=np.int32)}
+    for key, flat in state.items():
+        if key != "step":
+            out[key] = nest_paths({p: t.detach().float().cpu().numpy().copy()
+                                   for p, t in flat.items()})
+    return out
+
+
+def opt_state_from_arrays(tree: dict, device=None) -> dict:
+    """The inverse of :func:`opt_state_to_arrays`: leaves (numpy arrays or
+    tensors) as float32 tensors on ``device`` (``None``: the card), the
+    step as an int32 0-d tensor.  A float32 tensor already on ``device``
+    is taken as it is, not copied."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+
+    def tensor(a, dtype):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=dtype)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    out = {"step": tensor(tree["step"], torch.int32)}
+    for key, sub in tree.items():
+        if key != "step":
+            out[key] = {p: tensor(a, torch.float32)
+                        for p, a in flatten_paths(sub).items()}
+    return out

@@ -45,7 +45,8 @@ def torch_dtype(name: str) -> torch.dtype:
 class _Leaves(nn.Module):
     """A module whose parameters are the leaves of one spec dict, allocated
     uninitialised on ``device`` (``init_params`` or ``convert`` fills them).
-    Serving needs no gradients, so none are recorded."""
+    Serving needs no gradients, so none are recorded until a trainer calls
+    ``requires_grad_(True)``."""
 
     def __init__(self, specs: Specs, device):
         super().__init__()

@@ -23,11 +23,14 @@ Mamba-2.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..device import resolve_device
 from . import layers as L
@@ -96,6 +99,8 @@ def param_specs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 def _param(shape, dtype: str, device) -> nn.Parameter:
+    # serving records no gradients: a trainer turns them on
+    # (``model.requires_grad_(True)``) on the model it trains
     return nn.Parameter(torch.empty(shape, dtype=L.torch_dtype(dtype),
                                     device=device), requires_grad=False)
 
@@ -240,7 +245,9 @@ def _sinusoidal(positions, d, dtype):
 
 
 def _embed(model: LM, tokens, cfg, extras) -> torch.Tensor:
-    x = model.embed[tokens]
+    # F.embedding's backward sums the rows of repeated tokens in a fixed
+    # order on the card; indexing's would add them atomically
+    x = F.embedding(tokens, model.embed)
     pe = _extra(model, extras, "patch_embeds")
     # the patch prefix applies to full-sequence passes, never decode steps
     if cfg.frontend == "vision_stub" and pe is not None and x.shape[1] > 1:
@@ -301,6 +308,31 @@ def _logits(model: LM, x, cfg):
 # entry points
 # ---------------------------------------------------------------------------
 
+# the products a "dots" layer keeps for the backward: plain matmuls, the
+# reference's dots without batch dimensions (a batched product, the
+# attention's and the experts', is recomputed)
+_DOTS = [torch.ops.aten.mm.default]
+
+
+def _remat(model: LM, cfg):
+    """How a training pass runs a layer, as the reference's ``_remat_wrap``:
+    while gradients are recorded for the model's parameters and
+    ``cfg.remat`` is on, through ``torch.utils.checkpoint`` (``"full"``:
+    nothing of the layer kept, all recomputed in the backward; ``"dots"``:
+    the matmul outputs kept, the rest recomputed); else None (called
+    directly)."""
+    if not (cfg.remat and torch.is_grad_enabled()
+            and any(p.requires_grad for p in model.parameters())):
+        return None
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _DOTS)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return functools.partial(checkpoint, use_reentrant=False, **kw)
+
+
 def _causal_pass(model: LM, tokens, cfg, extras, caches):
     B, S = tokens.shape
     positions = torch.arange(S, device=model.device)[None].expand(B, S)
@@ -311,23 +343,32 @@ def _causal_pass(model: LM, tokens, cfg, extras, caches):
         rope = _rope(cfg, positions, x.dtype)
         mask = L.causal_mask(S, _window(cfg), model.device)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    remat = _remat(model, cfg) if caches is None else None
     for i, layer in enumerate(model.layers):
-        x, a = layer(x, rope, mask, mode="causal",
-                     cache=caches[i] if caches else None,
-                     enc_kv=enc_kv[i] if enc_kv else None)
+        kw = dict(mode="causal", cache=caches[i] if caches else None,
+                  enc_kv=enc_kv[i] if enc_kv else None)
+        x, a = (remat(layer, x, rope, mask, **kw) if remat
+                else layer(x, rope, mask, **kw))
         if a is not None:
             aux = aux + a
     return x, enc_kv, aux
 
 
-@torch.no_grad()
-def forward_train(model: LM, tokens, cfg, extras: Optional[dict] = None):
-    """tokens (B, S) -> (logits (B, S, V) float32, aux).  ``aux`` is the
-    MoE auxiliary loss summed over the MoE layers (0 without experts).
-    The full-sequence forward only: no loss and no backward yet."""
+def forward_train(model: LM, tokens, cfg, extras: Optional[dict] = None,
+                  return_hidden: bool = False):
+    """tokens (B, S) -> (logits (B, S, V) float32, aux), or with
+    ``return_hidden`` the final-normed hidden states (B, S, d) in place of
+    the logits (the loss's chunked head reads them).  ``aux`` is the MoE
+    auxiliary loss summed over the MoE layers (0 without experts).
+    Autograd records the pass for the parameters that require gradients
+    (a trainer calls ``model.requires_grad_(True)``; the model is built
+    without), each layer recomputed in the backward as ``cfg.remat`` and
+    ``cfg.remat_policy`` say."""
     _check(model, cfg)
     tokens = _tokens(model, tokens)
     x, _, aux = _causal_pass(model, tokens, cfg, extras, None)
+    if return_hidden:
+        return model.final_norm(x), aux
     return _logits(model, x, cfg), aux
 
 

@@ -1,0 +1,132 @@
+"""Training step: next-token loss with the MoE aux and z losses, gradient
+accumulation over microbatches, layer recomputation, and optional int8
+gradient compression (the JAX package's ``train/train_step.py``).
+
+The gradients come from ``torch.autograd.grad`` over the model's
+parameters (the reference's ``jax.value_and_grad``).  Microbatches sum
+their gradients in float32 buffers, as the reference's ``g0`` does: a
+``backward()`` per microbatch would sum them in the parameters' dtype in
+``.grad``.  With ``compress_grads`` the gradients take the int8
+quantisation of :func:`repro_torch.distributed.fake_quantize_grads` before
+the update.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..distributed.collectives import fake_quantize_grads
+from ..models.model import forward_train, lm_head_of
+from .optimizer import OptConfig, apply_updates
+
+__all__ = ["TrainConfig", "loss_fn", "grads_of", "make_train_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1
+    aux_loss_coef: float = 0.01
+    z_loss_coef: float = 1e-4
+    compress_grads: bool = False
+    ce_chunk: int = 512          # sequence chunk of the cross-entropy
+
+
+def _chunk_loss(xc, head, labels):
+    logits = (xc @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return (lse - gold).sum(), (lse ** 2).sum()
+
+
+def _chunked_ce(x, head, labels, chunk: int):
+    """Cross-entropy over sequence chunks (and a remainder chunk), so that
+    the (B, S, V) float32 logits never exist at once: while gradients are
+    recorded each chunk is checkpointed, its logits recomputed in the
+    backward.  x (B, S, d), head (d, V), labels (B, S) -> (nll mean, z
+    mean), z = lse²."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    bounds = list(range(0, S - chunk + 1, chunk))
+    if S % chunk:
+        bounds.append(S - S % chunk)
+    nll = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in bounds:
+        hi = min(lo + chunk, S)
+        args = (x[:, lo:hi], head, labels[:, lo:hi])
+        n, zz = (checkpoint(_chunk_loss, *args, use_reentrant=False)
+                 if torch.is_grad_enabled() else _chunk_loss(*args))
+        nll, z = nll + n, z + zz
+    return nll / (B * S), z / (B * S)
+
+
+def loss_fn(model, batch: dict, cfg, tcfg: TrainConfig):
+    """Causal LM loss ``nll + aux_coef * aux + z_coef * z`` (Megatron-style
+    z-loss, z = mean(lse²)) -> (loss, {"nll", "aux", "z"}).  ``batch``
+    holds ``tokens`` and ``labels`` (B, S) and any extras (``frames``,
+    ``patch_embeds``), numpy arrays or tensors."""
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    x, aux = forward_train(model, batch["tokens"], cfg, extras or None,
+                           return_hidden=True)
+    labels = torch.as_tensor(batch["labels"], device=model.device).long()
+    nll, z = _chunked_ce(x, lm_head_of(model, cfg), labels, tcfg.ce_chunk)
+    loss = nll + tcfg.aux_loss_coef * aux + tcfg.z_loss_coef * z
+    return loss, {"nll": nll, "aux": aux, "z": z}
+
+
+def _value_and_grads(model, batch, cfg, tcfg):
+    named = list(model.named_parameters())
+    if not all(p.requires_grad for _, p in named):
+        raise ValueError("the model records no gradients: call "
+                         "model.requires_grad_(True) on the model to train")
+    loss, m = loss_fn(model, batch, cfg, tcfg)
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    g = {n: torch.zeros_like(p) if gr is None else gr
+         for (n, p), gr in zip(named, grads)}
+    return g, loss.detach(), {k: v.detach() for k, v in m.items()}
+
+
+def grads_of(model, batch: dict, cfg, tcfg: TrainConfig = TrainConfig()):
+    """(gradients {parameter name: tensor}, loss, {"nll", "aux", "z"}).
+    One microbatch: gradients in the parameters' dtype.  Several: the
+    batch split along its leading axis into ``tcfg.microbatches`` equal
+    parts in order, gradients summed in float32 and divided by their
+    number, the loss and metrics their means."""
+    mb = tcfg.microbatches
+    if mb <= 1:
+        return _value_and_grads(model, batch, cfg, tcfg)
+    B = len(batch["tokens"])
+    if B % mb:
+        raise ValueError(f"a batch of {B} does not split into {mb} microbatches")
+    acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for n, p in model.named_parameters()}
+    loss_sum, ms = 0.0, []
+    for i in range(mb):
+        sub = {k: v[i * B // mb:(i + 1) * B // mb] for k, v in batch.items()}
+        g, loss, m = _value_and_grads(model, sub, cfg, tcfg)
+        for n, a in acc.items():
+            a.add_(g[n])
+        del g
+        loss_sum = loss_sum + loss
+        ms.append(m)
+    inv = 1.0 / mb
+    for a in acc.values():
+        a.mul_(inv)
+    return acc, loss_sum * inv, {k: torch.stack([m[k] for m in ms]).mean()
+                                 for k in ms[0]}
+
+
+def make_train_step(cfg, opt_cfg: OptConfig, tcfg: TrainConfig = TrainConfig()):
+    """Returns step(model, opt_state, batch) -> (model, opt_state, metrics):
+    the parameters and the state updated in place; metrics ``loss``,
+    ``nll``, ``aux``, ``z``, ``lr`` and ``grad_norm`` (0-d tensors)."""
+
+    def step(model, opt_state, batch):
+        grads, loss, m = grads_of(model, batch, cfg, tcfg)
+        if tcfg.compress_grads:
+            grads = fake_quantize_grads(grads)
+        model, opt_state, om = apply_updates(model, grads, opt_state, opt_cfg)
+        return model, opt_state, {"loss": loss, **m, **om}
+
+    return step

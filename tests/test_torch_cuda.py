@@ -1048,3 +1048,104 @@ def test_mamba2_block_card_matches_cpu(cuda, no_tf32, length):
     assert (outs[0] - outs[1]).abs().max().item() < 1e-4
     for k in spec:
         assert (caches[0][k] - caches[1][k].cpu()).abs().max().item() < 1e-4, k
+
+
+# -- the training path (chip_smoke.py phase 20) --------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mixtral-8x7b", "mamba2-2.7b"])
+def test_train_grads_card_matches_cpu(cuda, no_tf32, arch):
+    """The reduced config (remat on) with the same float32 parameters on
+    the card and on the CPU: the loss within 1e-5 and every gradient leaf
+    within 1e-4 of its largest entry (or of a millionth of the model's
+    largest, where a leaf's gradients cancel to float32 noise: chip_smoke
+    phase 20 (b)), over two chunks of the Mamba-2 scan."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_arrays, lm_params_to_arrays
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainConfig, grads_of
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    host = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = lm_params_from_arrays(cfg, lm_params_to_arrays(host), device=cuda)
+    batch = TokenPipeline(cfg.padded_vocab, 2, 256, seed=3).batch_at(0)
+    (g_h, l_h, _), (g_c, l_c, _) = (
+        grads_of(m.requires_grad_(True), batch, cfg, TrainConfig())
+        for m in (host, card))
+    assert abs(l_h.item() - l_c.item()) < 1e-5
+    top = max(g.abs().max() for g in g_h.values())
+    for n, g in g_h.items():
+        assert (g_c[n].cpu() - g).abs().max() <= 1e-4 * max(g.abs().max(), 1e-6 * top), n
+
+
+def test_train_steps_repeat_bit_for_bit_on_card(cuda):
+    """Two runs of three bf16 AdamW steps from the same init (remat on):
+    the same losses and parameters bit for bit, which a resumed run
+    relies on (the embedding's backward sums repeated tokens in a fixed
+    order)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), dtype="bfloat16",
+                              remat=True)
+    opt_cfg = OptConfig(lr=1e-3, warmup=1, total_steps=10)
+    pipe = TokenPipeline(cfg.padded_vocab, 4, 64, seed=0)
+    runs = []
+    for _ in range(2):
+        model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda).requires_grad_(True)
+        opt = init_opt_state(model, opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        losses = [step(model, opt, pipe.batch_at(i))[2]["loss"].item() for i in range(3)]
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_train_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A bf16 model's training state written from the card and restored
+    onto it: the same dtypes and bits, the moments taken as restored."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import load_train_state, train_state
+    from repro_torch.models import LM, init_params
+    from repro_torch.train import OptConfig, init_opt_state, restore_checkpoint, \
+        save_checkpoint
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), num_layers=8,
+                              dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    opt_cfg = OptConfig()
+    opt = init_opt_state(model, opt_cfg)
+    for v in opt["m"].values():
+        v.normal_()
+    save_checkpoint(tmp_path, 1, train_state(model, opt))
+    fresh = LM(cfg, cuda)
+    opt2 = load_train_state(fresh, opt_cfg, restore_checkpoint(tmp_path, 1, device=cuda),
+                            cuda)
+    for (n, a), b in zip(model.named_parameters(), fresh.parameters()):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
+    for path, v in opt["m"].items():
+        assert opt2["m"][path].device.type == "cuda"
+        assert torch.equal(opt2["m"][path], v), path
+
+
+def test_train_launcher_on_card(cuda, tmp_path, capsys):
+    """The launcher on the card (its default device): 4 steps with a
+    checkpoint, then a call with 6 steps resumes from step 4."""
+    from repro_torch.launch import train as launch_train
+
+    args = ["--arch", "qwen2.5-3b", "--reduced", "--batch", "4", "--seq", "32",
+            "--log-every", "1", "--ckpt-dir", str(tmp_path)]
+    first = launch_train.main(args + ["--steps", "4"])
+    second = launch_train.main(args + ["--steps", "6"])
+    assert "resumed from step 4" in capsys.readouterr().out
+    assert [r["step"] for r in first + second] == list(range(6))
+    assert all(np.isfinite(r["loss"]) for r in first + second)

@@ -33,7 +33,9 @@ def test_port_imports_without_jax():
             "repro_torch.analysis, repro_torch.analysis.cli, "
             "repro_torch.distributed, repro_torch.configs, "
             "repro_torch.launch.simulate, repro_torch.models, "
-            "repro_torch.serving, repro_torch.launch.serve\n"
+            "repro_torch.serving, repro_torch.launch.serve, repro_torch.train, "
+            "repro_torch.train.checkpoint, repro_torch.train.fault, "
+            "repro_torch.data, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
