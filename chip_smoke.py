@@ -246,7 +246,17 @@ Phases, in order; any failure exits non-zero before the result line:
     ms against its bound, peak memory; (f) ``python -m
     repro_torch.launch.train --arch qwen2.5-3b --reduced --steps 20
     --ckpt-dir DIR``, then ``--steps 30`` resuming from it: exit 0, the
-    reference's lines, "resumed from step 20", a falling loss.
+    reference's lines, "resumed from step 20", a falling loss;
+21. the dry run (no kernel, no card: fake tensors on fake process
+    groups): (a) ``python -m repro_torch.launch.dryrun`` over every arch
+    at train_4k and decode_32k on the 16x16 mesh, in four processes at
+    once: every cell ok, each cell's dominant term, its three terms (H100
+    constants, not measured) and its per-card argument and temp bytes;
+    (b) phase 20's qwen2.5-3b step (bf16, AdamW, B = 8, S = 512) as a cell
+    on a 1 x 1 mesh: its argument bytes within 1 % of what the card
+    allocated for the model and AdamW's moments, its temp bytes beside
+    the step's measured peak over them, its bound beside
+    ``_train_bounds``' and the measured step.
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -3957,6 +3967,7 @@ def _train_run(dev, cfg, spec, opt_cfg, on_step=None, profile=False):
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     model.requires_grad_(True)
     opt = init_opt_state(model, opt_cfg)
+    state_bytes = torch.cuda.memory_allocated(dev) - base   # model + optimizer
     step = make_train_step(cfg, opt_cfg, TrainConfig())
     B, S = spec["batch"], spec["seq"]
     pipe = TokenPipeline(cfg.padded_vocab, B, S, seed=spec["seed"])
@@ -3980,6 +3991,7 @@ def _train_run(dev, cfg, spec, opt_cfg, on_step=None, profile=False):
                   lrs=[r["lr"] for r in runs], step_ms_all=ms,
                   host_ms_all=[r["host_ms"] for r in runs], step_ms=step_ms,
                   tokens_per_s=B * S / step_ms * 1e3, peak_mib=peak / 2**20,
+                  peak_bytes=peak, state_bytes=state_bytes,
                   held_before_mib=base / 2**20, moved=moved,
                   **_train_bounds(model, B, S), clock="CUDA events (ms), host (s)")
     if profile:
@@ -4367,6 +4379,121 @@ def drive_phase20(dev, card, scratch):
     return report
 
 
+# -- phase 21: the dry run ------------------------------------------------------
+# (a) the CLI over every arch at train_4k and decode_32k on the 16x16 mesh,
+# in four processes at once (each its own fake process group), grouped so
+# that their traces take about as long (jamba's 8-layer pattern alone)
+DRYRUN_GROUPS = (("jamba-v0.1-52b",),
+                 ("whisper-base", "deepseek-v2-lite-16b", "mamba2-2.7b"),
+                 ("mixtral-8x7b", "nemotron-4-340b", "phi-3-vision-4.2b", "qwen2.5-3b"),
+                 ("stablelm-1.6b", "stablelm-3b"))
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+# (b) phase 20's step (qwen2.5-3b, bf16, AdamW, remat "full", B = 8,
+# S = 512) as a cell on a 1 x 1 mesh: its argument bytes against what the
+# card allocated for the model and AdamW's moments
+DRYRUN_CARD = dict(arch="qwen2.5-3b", batch=8, seq=512)
+DRYRUN_CARD_TOL = 0.01
+
+
+def drive_dryrun_sweep(scratch) -> dict:
+    """Phase 21 (a): ``python -m repro_torch.launch.dryrun`` over every
+    arch at ``DRYRUN_SHAPES`` on the 16x16 mesh, in ``DRYRUN_GROUPS``
+    processes at once: every cell ok; each cell's dominant term, its three
+    terms (H100 constants, not measured) and its per-card bytes."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = Path(scratch) / "dryrun"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ",".join(g),
+         "--shape", ",".join(DRYRUN_SHAPES), "--mesh", "single", "--out", str(out)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for g in DRYRUN_GROUPS]
+    try:
+        done = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, (stdout, stderr) in zip(procs, done):
+        assert p.returncode == 0, (p.args, p.returncode, stdout[-2000:], stderr[-2000:])
+    recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+    n_cells = sum(len(g) for g in DRYRUN_GROUPS) * len(DRYRUN_SHAPES)
+    assert len(recs) == n_cells and all(r["ok"] for r in recs), \
+        [(r["arch"], r["shape"], r.get("error")) for r in recs if not r["ok"]]
+    cells = []
+    for r in recs:
+        x, m = r["roofline"], r["memory"]
+        cells.append(dict(arch=r["arch"], shape=r["shape"], dominant=x["dominant"],
+                          compute_s=x["compute_s"], memory_s=x["memory_s"],
+                          collective_s=x["collective_s"], trace_s=r["trace_s"],
+                          argument_bytes_per_device=m["argument_bytes_per_device"],
+                          temp_bytes_per_device=m["temp_bytes_per_device"]))
+        log(f"dryrun {r['arch']} {r['shape']} 16x16: {x['dominant']}-bound (compute "
+            f"{x['compute_s']:.4g} s, memory {x['memory_s']:.4g} s, collective "
+            f"{x['collective_s']:.4g} s; H100 constants, not measured); per card: "
+            f"arguments {m['argument_bytes_per_device'] / 1e9:.3f} GB, temp "
+            f"{m['temp_bytes_per_device'] / 1e9:.3f} GB; trace {r['trace_s']} s")
+    log(f"dryrun: {len(recs)} cells ok in {wall:.1f} s ({len(DRYRUN_GROUPS)} processes)")
+    return dict(cells=cells, wall_s=wall, clock="host")
+
+
+def drive_dryrun_card(train_report, card) -> dict:
+    """Phase 21 (b): phase 20's qwen2.5-3b step as a dry-run cell on a 1 x 1
+    mesh: its argument bytes within ``DRYRUN_CARD_TOL`` of the card's
+    allocation for the model and AdamW's moments (phase 20 (a)); its temp
+    bytes beside the step's measured peak over them, its bound beside
+    ``_train_bounds``' and the measured step."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.sharding import MeshShape, make_rules
+    from repro_torch.launch.dryrun import measure_cell
+
+    r = train_report
+    cfg = get_config(DRYRUN_CARD["arch"])
+    assert (r["arch"], r["batch"], r["seq"], r["dtype"]) == (
+        cfg.name, DRYRUN_CARD["batch"], DRYRUN_CARD["seq"], cfg.dtype)
+    shape = ShapeSpec("phase20", DRYRUN_CARD["seq"], DRYRUN_CARD["batch"], "train")
+    t0 = time.perf_counter()
+    cell = measure_cell(cfg, shape, MeshShape(("data", "model"), (1, 1)), make_rules(cfg))
+    wall = time.perf_counter() - t0
+    mem, roof = cell["memory"], cell["roofline"]
+    args, held = mem["argument_bytes_per_device"], r["state_bytes"]
+    rel = abs(args - held) / held
+    assert rel <= DRYRUN_CARD_TOL, (args, held, rel)
+    measured_temp = r["peak_bytes"] - held
+    out = dict(argument_bytes=args, allocated_bytes=held, rel_diff=rel,
+               temp_bytes=mem["temp_bytes_per_device"], measured_peak_over_state=measured_temp,
+               compute_s=roof.compute_s, memory_s=roof.memory_s,
+               collective_s=roof.collective_s, bound_ms=roof.bound_s * 1e3,
+               dominant=roof.dominant, train_bound_ms=r["step_bound_ms"],
+               step_ms=r["step_ms"], cost_source=cell["cost_source"], wall_s=wall)
+    log(f"dryrun {cfg.name} B={shape.global_batch} S={shape.seq_len} 1x1: argument bytes "
+        f"{args:,} against {held:,} allocated for the model and AdamW's moments "
+        f"({rel:.2e} apart, bar {DRYRUN_CARD_TOL})")
+    log(f"  temp bytes {mem['temp_bytes_per_device']:,} (trace) beside the measured step's "
+        f"peak {measured_temp:,} over them [{card}]")
+    log(f"  bound {roof.bound_s * 1e3:.2f} ms ({roof.dominant}: compute "
+        f"{roof.compute_s * 1e3:.2f}, memory {roof.memory_s * 1e3:.2f}, collective "
+        f"{roof.collective_s * 1e3:.2f} ms; H100 constants, not measured) beside "
+        f"_train_bounds' {r['step_bound_ms']:.2f} ms and the measured step "
+        f"{r['step_ms']:.2f} ms [{card}]; the cell in {wall:.1f} s")
+    return out
+
+
+def drive_phase21(card, scratch, train_report) -> dict:
+    t21 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        report = {"sweep": drive_dryrun_sweep(tmp)}
+    report["card"] = drive_dryrun_card(train_report, card)
+    report["phase_s"] = time.perf_counter() - t21
+    log(f"phase 21: {report['phase_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -4552,6 +4679,11 @@ def main() -> int:
     # mamba2-2.7b's SSD backward, the launcher and its resume
     train_report = drive_phase20(dev, card, scratch)
     log(json.dumps({"train_report": train_report}))
+
+    # 21. the dry run: every arch's train_4k and decode_32k cell on the
+    # 16x16 mesh (fake process groups, fake tensors), and phase 20's step
+    # as a cell on a 1 x 1 mesh held against the card's allocation
+    log(json.dumps({"dryrun_report": drive_phase21(card, scratch, train_report)}))
 
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",

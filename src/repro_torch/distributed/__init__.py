@@ -1,6 +1,7 @@
 # Scenario-sharded sweeps: the batch axis of the batched engine split over
-# the cards of one host, driven by one process; and the explicit reductions
-# (exact integer sums, int8-compressed gradient sums).
+# the cards of one host, driven by one process; the explicit reductions
+# (exact integer sums, int8-compressed gradient sums); and the
+# logical-axis sharding rules of the dry run.
 from .collectives import (
     compressed_psum,
     dequantize_int8,
@@ -9,7 +10,6 @@ from .collectives import (
     quantize_int8,
 )
 from .scenario import (
-    DEFAULT_RULES,
     ScenarioSharding,
     ShardedBatch,
     SweepMesh,
@@ -20,21 +20,40 @@ from .scenario import (
     make_sweep_mesh,
     map_blocks,
 )
+from .sharding import (
+    DEFAULT_RULES,
+    MeshShape,
+    MeshSharding,
+    axis_env,
+    logical_constraint,
+    make_rules,
+    sharding_for_spec,
+    spec_struct,
+    tree_shardings,
+)
 
 __all__ = [
     "DEFAULT_RULES",
+    "MeshShape",
+    "MeshSharding",
     "ScenarioSharding",
     "ShardedBatch",
     "SweepMesh",
+    "axis_env",
     "batch_blocks",
     "check_mesh",
     "compressed_psum",
     "dequantize_int8",
     "fake_quantize_grads",
     "gather_rows",
+    "logical_constraint",
+    "make_rules",
     "make_scenario_sharding",
     "make_sweep_mesh",
     "map_blocks",
     "psum_exact",
     "quantize_int8",
+    "sharding_for_spec",
+    "spec_struct",
+    "tree_shardings",
 ]

@@ -5,8 +5,8 @@ across scenarios: every batched step of the executors works row by row and
 every per-matrix reduction (``max|A|``, pivot growth, backward error)
 stays within its own row.  :class:`ScenarioSharding` maps that leading
 axis onto the devices of a :class:`SweepMesh` (the ``"scenario"`` rule of
-the JAX package's logical-axis table, :data:`DEFAULT_RULES`, resolved
-against a 1-D ``("data",)`` mesh): a value or
+the logical-axis table, :data:`repro_torch.distributed.sharding.DEFAULT_RULES`,
+resolved against a 1-D ``("data",)`` mesh): a value or
 right-hand-side batch splits into contiguous row blocks, one a device,
 while each shard owns its copy of the plan's schedule (index tensors,
 buffers, CUDA graphs) on its device and runs the whole schedule on its
@@ -37,15 +37,9 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["DEFAULT_RULES", "ScenarioSharding", "ShardedBatch", "SweepMesh",
+__all__ = ["ScenarioSharding", "ShardedBatch", "SweepMesh",
            "batch_blocks", "check_mesh", "gather_rows", "make_scenario_sharding",
            "make_sweep_mesh", "map_blocks"]
-
-# the "scenario" rule of the JAX package's logical-axis table, kept as
-# documentation: the scenario axis shards over the pod and data mesh axes.
-# A SweepMesh has the data axis alone, so it resolves to ("data",).
-DEFAULT_RULES: dict = {"scenario": ("pod", "data")}
-
 
 @dataclasses.dataclass(frozen=True)
 class SweepMesh:

@@ -8,8 +8,9 @@ accumulation.
 
 The JAX package's flags and lines, plus ``--device`` (default: the card;
 ``cpu`` runs here).  One device: ``--data-parallel`` and
-``--model-parallel`` above 1 raise, since a mesh of cards comes with the
-mesh slice (ROADMAP 11 (iv)).  A checkpoint is labelled with the steps it
+``--model-parallel`` above 1 raise, since the step does not run on
+DTensors over a mesh of cards (the dry run traces the mesh's per-card
+step instead: ``launch/dryrun.py``).  A checkpoint is labelled with the steps it
 has taken, and a resumed run goes on with the next batch.
 """
 from __future__ import annotations
@@ -114,8 +115,8 @@ def main(argv=None):
     if args.data_parallel > 1 or args.model_parallel > 1:
         raise NotImplementedError(
             f"--data-parallel {args.data_parallel} --model-parallel "
-            f"{args.model_parallel}: training on a mesh of cards comes with the "
-            f"mesh slice (ROADMAP 11 (iv)); this launcher trains on one device")
+            f"{args.model_parallel}: the step does not run on a mesh of cards "
+            f"(launch/dryrun.py traces one); this launcher trains on one device")
 
     cfg = build_cfg(args)
     dev = resolve_device(args.device)

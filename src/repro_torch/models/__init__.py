@@ -3,12 +3,14 @@ audio, hybrid, ssm) in plain PyTorch."""
 from . import layers, model
 from .model import (
     LM,
+    cache_axes,
     cache_specs,
     forward_decode,
     forward_prefill,
     forward_train,
     init_params,
     lm_head_of,
+    param_axes,
     param_specs,
 )
 
@@ -16,11 +18,13 @@ __all__ = [
     "layers",
     "model",
     "LM",
+    "cache_axes",
     "cache_specs",
     "forward_decode",
     "forward_prefill",
     "forward_train",
     "init_params",
     "lm_head_of",
+    "param_axes",
     "param_specs",
 ]

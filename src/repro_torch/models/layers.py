@@ -6,10 +6,12 @@ recurrent state cache.
 
 Conventions, as in the JAX package's layers:
 
-* Each layer has a ``*_specs`` builder returning ``{name: (shape, dtype)}``
-  for its parameters; the modules allocate from those specs, so the specs
-  (and ``ModelConfig.param_count``) are the modules' parameters without
-  any allocation.
+* Each layer has a ``*_specs`` builder returning ``{name: (shape, dtype,
+  axes)}`` for its parameters, ``axes`` the reference's logical name per
+  dimension (:mod:`repro_torch.distributed.sharding` resolves them); the
+  modules allocate from those specs, so the specs (and
+  ``ModelConfig.param_count``) are the modules' parameters without any
+  allocation.
 * Compute dtype follows the input; norms and softmax run in float32 and
   cast back.  The norm parameters stay float32 while the weights are
   ``cfg.dtype``, so every mixed product is cast explicitly (PyTorch would
@@ -35,7 +37,7 @@ __all__ = [
     "causal_mask", "decode_mask", "torch_dtype",
 ]
 
-Specs = dict  # {name: (shape, dtype name)}
+Specs = dict  # {name: (shape, dtype name, logical axes)}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -50,7 +52,7 @@ class _Leaves(nn.Module):
 
     def __init__(self, specs: Specs, device):
         super().__init__()
-        for name, (shape, dtype) in specs.items():
+        for name, (shape, dtype, _axes) in specs.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=torch_dtype(dtype), device=device),
                 requires_grad=False))
@@ -62,8 +64,9 @@ class _Leaves(nn.Module):
 
 def norm_specs(cfg, d: int) -> Specs:
     if cfg.norm == "layernorm":
-        return {"scale": ((d,), "float32"), "bias": ((d,), "float32")}
-    return {"scale": ((d,), "float32")}
+        return {"scale": ((d,), "float32", (None,)),
+                "bias": ((d,), "float32", (None,))}
+    return {"scale": ((d,), "float32", (None,))}
 
 
 def apply_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -154,16 +157,19 @@ def sdpa(q, k, v, mask: Optional[torch.Tensor], groups: int) -> torch.Tensor:
 
 def attention_specs(cfg) -> Specs:
     d, H, KV, hd, dt = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.dtype
+    h_ax = "model" if cfg.attn_tp else None
+    # the reference's test, against its 16-way production model axis
+    kv_ax = "model" if (cfg.attn_tp and KV % 16 == 0) else None
     p = {
-        "wq": ((d, H, hd), dt),
-        "wk": ((d, KV, hd), dt),
-        "wv": ((d, KV, hd), dt),
-        "wo": ((H, hd, d), dt),
+        "wq": ((d, H, hd), dt, (None, h_ax, None)),
+        "wk": ((d, KV, hd), dt, (None, kv_ax, None)),
+        "wv": ((d, KV, hd), dt, (None, kv_ax, None)),
+        "wo": ((H, hd, d), dt, (h_ax, None, None)),
     }
     if cfg.qkv_bias:
-        p["bq"] = ((H, hd), dt)
-        p["bk"] = ((KV, hd), dt)
-        p["bv"] = ((KV, hd), dt)
+        p["bq"] = ((H, hd), dt, (h_ax, None))
+        p["bk"] = ((KV, hd), dt, (kv_ax, None))
+        p["bv"] = ((KV, hd), dt, (kv_ax, None))
     return p
 
 
@@ -231,11 +237,12 @@ def _fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, window: int):
 
 def cross_attention_specs(cfg) -> Specs:
     d, H, hd, dt = cfg.d_model, cfg.num_heads, cfg.hd, cfg.dtype
+    h_ax = "model" if cfg.attn_tp else None
     return {
-        "wq": ((d, H, hd), dt),
-        "wk": ((d, H, hd), dt),
-        "wv": ((d, H, hd), dt),
-        "wo": ((H, hd, d), dt),
+        "wq": ((d, H, hd), dt, (None, h_ax, None)),
+        "wk": ((d, H, hd), dt, (None, h_ax, None)),
+        "wv": ((d, H, hd), dt, (None, h_ax, None)),
+        "wo": ((H, hd, d), dt, (h_ax, None, None)),
     }
 
 
@@ -259,10 +266,10 @@ class CrossAttention(_Leaves):
 
 def mlp_specs(cfg, d_ff: Optional[int] = None) -> Specs:
     d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.dtype
+    up, down = ((d, f), dt, (None, "ffn")), ((f, d), dt, ("ffn", None))
     if cfg.act in ("swiglu", "geglu"):
-        return {"w_gate": ((d, f), dt), "w_up": ((d, f), dt),
-                "w_down": ((f, d), dt)}
-    return {"w_up": ((d, f), dt), "w_down": ((f, d), dt)}
+        return {"w_gate": up, "w_up": up, "w_down": down}
+    return {"w_up": up, "w_down": down}
 
 
 class MLP(_Leaves):
@@ -296,12 +303,12 @@ def mla_specs(cfg) -> Specs:
     r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
                      cfg.qk_rope_head_dim, cfg.v_head_dim)
     return {
-        "wq": ((d, H, dn + dr), dt),
-        "w_dkv": ((d, r + dr), dt),       # down: c_kv and the shared k_rope
-        "w_uk": ((r, H, dn), dt),         # up: k_nope
-        "w_uv": ((r, H, dv), dt),         # up: v
-        "wo": ((H, dv, d), dt),
-        "kv_norm": {"scale": ((r,), "float32")},
+        "wq": ((d, H, dn + dr), dt, (None, "model", None)),
+        "w_dkv": ((d, r + dr), dt, (None, None)),  # down: c_kv and the shared k_rope
+        "w_uk": ((r, H, dn), dt, (None, "model", None)),   # up: k_nope
+        "w_uv": ((r, H, dv), dt, (None, "model", None)),   # up: v
+        "wo": ((H, dv, d), dt, ("model", None, None)),
+        "kv_norm": {"scale": ((r,), "float32", (None,))},
     }
 
 
@@ -350,9 +357,12 @@ class MLAttention(_Leaves):
 
 def moe_specs(cfg) -> Specs:
     d, f, E, dt = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts, cfg.dtype
-    p = {"router": ((d, E), "float32"),
-         "experts": {"w_gate": ((E, d, f), dt), "w_up": ((E, d, f), dt),
-                     "w_down": ((E, f, d), dt)}}
+    # the experts shard over the model axis when E divides it, else their
+    # ffn width does (one mesh axis per spec)
+    up = ((E, d, f), dt, ("experts", None, "expert_ffn"))
+    p = {"router": ((d, E), "float32", (None, None)),
+         "experts": {"w_gate": up, "w_up": up,
+                     "w_down": ((E, f, d), dt, ("experts", "expert_ffn", None))}}
     if cfg.n_shared_experts:
         p["shared"] = mlp_specs(cfg, cfg.n_shared_experts * f)
     return p
@@ -465,14 +475,14 @@ def mamba2_specs(cfg) -> Specs:
     H, N = di // cfg.ssm_head_dim, cfg.ssm_state
     conv_dim = di + 2 * N
     return {
-        "in_proj": ((d, 2 * di + 2 * N + H), dt),
-        "conv_w": ((cfg.ssm_conv, conv_dim), dt),
-        "conv_b": ((conv_dim,), dt),
-        "A_log": ((H,), "float32"),
-        "D": ((H,), "float32"),
-        "dt_bias": ((H,), "float32"),
-        "out_proj": ((di, d), dt),
-        "out_norm": {"scale": ((di,), "float32")},
+        "in_proj": ((d, 2 * di + 2 * N + H), dt, (None, "ffn")),
+        "conv_w": ((cfg.ssm_conv, conv_dim), dt, (None, "ffn")),
+        "conv_b": ((conv_dim,), dt, ("ffn",)),
+        "A_log": ((H,), "float32", (None,)),
+        "D": ((H,), "float32", (None,)),
+        "dt_bias": ((H,), "float32", (None,)),
+        "out_proj": ((di, d), dt, ("ffn", None)),
+        "out_norm": {"scale": ((di,), "float32", (None,))},
     }
 
 

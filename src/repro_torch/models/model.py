@@ -36,9 +36,9 @@ from ..device import resolve_device
 from . import layers as L
 
 __all__ = [
-    "LM", "param_specs", "init_params",
+    "LM", "param_specs", "param_axes", "init_params",
     "forward_train", "forward_prefill", "forward_decode", "cache_specs",
-    "lm_head_of",
+    "cache_axes", "lm_head_of",
 ]
 
 
@@ -67,15 +67,15 @@ def _encoder_layer_specs(cfg) -> dict:
             "norm2": L.norm_specs(cfg, d), "ffn": L.mlp_specs(cfg)}
 
 
-def param_specs(cfg) -> dict:
-    """``{name: (shape, dtype)}`` in the order and with the names of
+def _param_leaves(cfg) -> dict:
+    """``{name: (shape, dtype, axes)}`` in the order and with the names of
     ``LM(cfg).named_parameters()``; nothing is allocated."""
     V, d, dt = cfg.padded_vocab, cfg.d_model, cfg.dtype
-    out = {"embed": ((V, d), dt)}
+    out = {"embed": ((V, d), dt, ("vocab", None))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = ((d, V), dt)
+        out["lm_head"] = ((d, V), dt, (None, "vocab"))
     if cfg.frontend == "vision_stub":
-        out["patch_proj"] = ((d, d), dt)
+        out["patch_proj"] = ((d, d), dt, (None, None))
 
     def add(prefix, specs):
         for name, leaf in specs.items():
@@ -92,6 +92,19 @@ def param_specs(cfg) -> dict:
             add(f"encoder.layers.{j}.", _encoder_layer_specs(cfg))
         add("encoder.final_norm.", L.norm_specs(cfg, d))
     return out
+
+
+def param_specs(cfg) -> dict:
+    """``{name: (shape, dtype)}`` in the order and with the names of
+    ``LM(cfg).named_parameters()``; nothing is allocated."""
+    return {name: (shape, dt) for name, (shape, dt, _) in _param_leaves(cfg).items()}
+
+
+def param_axes(cfg) -> dict:
+    """``{name: logical axes}`` of :func:`param_specs`' leaves, the
+    reference's names per dimension (its stacked leaves' leading ``None``
+    dropped: the port stacks no layers)."""
+    return {name: axes for name, (_, _, axes) in _param_leaves(cfg).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -372,28 +385,30 @@ def forward_train(model: LM, tokens, cfg, extras: Optional[dict] = None,
     return _logits(model, x, cfg), aux
 
 
-def _cache_shapes(cfg, i: int, B: int, slots: int) -> dict:
-    """Layer ``i``'s cache buffers ``{name: (shape, dtype)}``: the latent
-    ``ckv`` and ``krope`` under MLA, else ``k`` and ``v`` (B, slots, KV,
-    hd); a Mamba-2 layer's float32 state ``h`` (B, H, P, N) and conv
-    history ``conv`` (B, K - 1, conv_dim), whatever ``slots``."""
+def _cache_leaves(cfg, i: int, B: int, slots: int) -> dict:
+    """Layer ``i``'s cache buffers ``{name: (shape, dtype, axes)}``: the
+    latent ``ckv`` and ``krope`` under MLA, else ``k`` and ``v`` (B,
+    slots, KV, hd); a Mamba-2 layer's float32 state ``h`` (B, H, P, N) and
+    conv history ``conv`` (B, K - 1, conv_dim), whatever ``slots``."""
     dt = cfg.dtype
     if not cfg.is_attn_layer(i):
         di = cfg.ssm_expand * cfg.d_model
         P, N = cfg.ssm_head_dim, cfg.ssm_state
-        return {"h": ((B, di // P, P, N), "float32"),
-                "conv": ((B, cfg.ssm_conv - 1, di + 2 * N), dt)}
+        return {"h": ((B, di // P, P, N), "float32", ("batch", "heads", None, None)),
+                "conv": ((B, cfg.ssm_conv - 1, di + 2 * N), dt, ("batch", None, "ffn"))}
     if cfg.attention == "mla":
-        return {"ckv": ((B, slots, cfg.kv_lora_rank), dt),
-                "krope": ((B, slots, cfg.qk_rope_head_dim), dt)}
-    kv = ((B, slots, cfg.num_kv_heads, cfg.hd), dt)
+        lat = ("batch", "kv_seq", None)
+        return {"ckv": ((B, slots, cfg.kv_lora_rank), dt, lat),
+                "krope": ((B, slots, cfg.qk_rope_head_dim), dt, lat)}
+    kv = ((B, slots, cfg.num_kv_heads, cfg.hd), dt,
+          ("batch", "kv_seq", "kv_heads", None))
     return {"k": kv, "v": kv}
 
 
 def _new_cache(cfg, B: int, slots: int, device) -> list[dict]:
     """Zeroed buffers a layer (a prefill's initial state)."""
     return [{name: torch.zeros(shape, dtype=L.torch_dtype(dt), device=device)
-             for name, (shape, dt) in _cache_shapes(cfg, i, B, slots).items()}
+             for name, (shape, dt, _) in _cache_leaves(cfg, i, B, slots).items()}
             for i in range(cfg.num_layers)]
 
 
@@ -453,16 +468,30 @@ def forward_decode(model: LM, token, cache, cfg, extras: Optional[dict] = None):
 # cache specs
 # ---------------------------------------------------------------------------
 
-def cache_specs(cfg, batch: int, seq_len: int) -> dict:
-    """Spec tree of a cache holding ``seq_len`` tokens, in the port's cache
-    layout: ``{"layers": [{"k", "v"}, {"ckv", "krope"} or {"h", "conv"}],
-    "pos", "enc_kv"}``; the reference's per-layer fields unstacked, its
-    ``index`` kept once as ``pos``."""
+def _cache_tree(cfg, batch: int, seq_len: int, part) -> dict:
+    """The cache's tree with ``leaf[part]`` of each ``(shape, dtype, axes)``
+    leaf: ``slice(0, 2)`` for the specs, ``2`` for the axes."""
     S = min(seq_len, cfg.window) if cfg.attention == "swa" else seq_len
-    out = {"layers": [_cache_shapes(cfg, i, batch, S)
+    out = {"layers": [{name: leaf[part] for name, leaf
+                       in _cache_leaves(cfg, i, batch, S).items()}
                       for i in range(cfg.num_layers)],
-           "pos": ((), "int32")}
-    enc = ((batch, cfg.encoder_seq, cfg.num_heads, cfg.hd), cfg.dtype)
+           "pos": ((), "int32", ())[part]}
+    enc = ((batch, cfg.encoder_seq, cfg.num_heads, cfg.hd), cfg.dtype,
+           ("batch", None, "heads", None))[part]
     out["enc_kv"] = ([(enc, enc) for _ in range(cfg.num_layers)]
                      if cfg.encoder_layers else None)
     return out
+
+
+def cache_specs(cfg, batch: int, seq_len: int) -> dict:
+    """Spec tree of a cache holding ``seq_len`` tokens, in the port's cache
+    layout: ``{"layers": [{"k", "v"}, {"ckv", "krope"} or {"h", "conv"}],
+    "pos", "enc_kv"}``, leaves ``(shape, dtype)``; the reference's
+    per-layer fields unstacked, its ``index`` kept once as ``pos``."""
+    return _cache_tree(cfg, batch, seq_len, slice(0, 2))
+
+
+def cache_axes(cfg, batch: int, seq_len: int) -> dict:
+    """:func:`cache_specs`' tree with each leaf's logical axes in place of
+    ``(shape, dtype)``: the reference's ``_layer_cache_specs`` names."""
+    return _cache_tree(cfg, batch, seq_len, 2)
