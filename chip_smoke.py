@@ -149,7 +149,9 @@ Phases, in order; any failure exits non-zero before the result line:
     bit; (e) ``leftlooking_numpy`` on grid64's filled pattern within 1e-10
     of the card's factors, with its host seconds; (f) ``python -m
     repro_torch.launch.simulate --nx 16 --ny 16 --t-end 0.02 --dt 0.005``
-    in a subprocess: exit 0, residual < 1e-9;
+    in a subprocess: exit 0, residual < 1e-9 (it runs at once with the
+    serving CLIs of phases 17-19 and phase 21 (a)'s dry-run processes,
+    each in a process of its own and judged in its phase);
 17. the LM serving path (plain PyTorch, no kernel of its own): (a)
     qwen2.5-3b at full width in bfloat16 from the port's seeded init,
     ``ServeEngine.generate_batch`` at B = 4, prompt 128, 32 new tokens:
@@ -192,13 +194,13 @@ Phases, in order; any failure exits non-zero before the result line:
     -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --reduced``:
     exit 0;
 19. the Mamba-2 (SSD) block and its state cache (plain PyTorch, no kernel
-    of its own): (a) mamba2-2.7b at full width and depth (64 layers) in
-    bfloat16 from the seeded init, ``generate_batch`` at B = 4, prompt
+    of its own): (a) mamba2-2.7b at full width and 32 of its 64 layers
+    in bfloat16 from the seeded init, ``generate_batch`` at B = 4, prompt
     1024 (8 chunks of 128), 32 new tokens, twice with equal tokens:
     prefill ms and decode ms a step beside their bounds (bytes: the
     weights, and a decode step's float32 states read and written), tokens/s,
     peak memory, one prefill's and one decode step's device kernels and
-    busy time; (b) float32 at full width and depth, TF32 off, B = 2: a
+    busy time; (b) float32 at the same width and depth, TF32 off, B = 2: a
     prefill of 1024 tokens and 128 teacher-forced decode steps within 3e-4
     of ``forward_train`` over the 1,152 tokens (9 chunks), the same
     argmax, and four planted faults above the bar (each chunk reading its
@@ -224,8 +226,8 @@ Phases, in order; any failure exits non-zero before the result line:
     384; (f) ``python -m repro_torch.launch.serve --arch ... --reduced``
     for both: exit 0;
 20. the training path (plain PyTorch and autograd, no kernel of its
-    own): (a) qwen2.5-3b at full width and depth in bfloat16 from the
-    seeded init, AdamW, remat "full", B = 8, S = 512, 6 steps on
+    own): (a) qwen2.5-3b at full width and 6 of its 36 layers in
+    bfloat16 from the seeded init, AdamW, remat "full", B = 8, S = 512, 6 steps on
     ``TokenPipeline(seed=0)``'s batches: step ms (CUDA events, median of
     steps 2-6) beside its bound (the matmuls' operations, remat's
     recomputed forward and the optimizer's bytes, each on its own),
@@ -243,10 +245,8 @@ Phases, in order; any failure exits non-zero before the result line:
     and parameters bit for bit the run that never stopped, with the write
     and restore seconds and the bytes; (e) mamba2-2.7b at full width and
     depth in bfloat16, B = 4, S = 512 (four chunks), 3 AdamW steps: step
-    ms against its bound, peak memory; (f) ``python -m
-    repro_torch.launch.train --arch qwen2.5-3b --reduced --steps 20
-    --ckpt-dir DIR``, then ``--steps 30`` resuming from it: exit 0, the
-    reference's lines, "resumed from step 20", a falling loss;
+    ms against its bound, peak memory (the launcher and its resume are
+    phase 22 (a)'s one-process runs);
 21. the dry run (no kernel, no card: fake tensors on fake process
     groups): (a) ``python -m repro_torch.launch.dryrun`` over every arch
     at train_4k and decode_32k on the 16x16 mesh, in four processes at
@@ -256,7 +256,24 @@ Phases, in order; any failure exits non-zero before the result line:
     on a 1 x 1 mesh: its argument bytes within 1 % of what the card
     allocated for the model and AdamW's moments, its temp bytes beside
     the step's measured peak over them, its bound beside
-    ``_train_bounds``' and the measured step.
+    ``_train_bounds``' and the measured step;
+22. the training step on a mesh of ranks (no kernel): (a) qwen2.5-3b at
+    full width and 4 of its 36 layers, B = 8, S = 512, AdamW, 3 steps,
+    through ``python -m repro_torch.launch.train`` alone and under
+    ``torch.distributed.run`` (in three lanes of runs at once) on
+    meshes 2 x 1 and 1 x 2 (one rank a card
+    over NCCL; on one card a 1 x 1 NCCL mesh and a line that says no
+    collective crossed ranks), in float32 (losses 1e-5, parameters after
+    the steps 2e-3, from the checkpoints, and each leaf's gap within 0.1
+    of the one-process run's own change from the initial parameters) and
+    bf16 (losses 1e-2) against the one-process run; each rank's allocation
+    for the model and its moments within 1 % of ``cell_memory`` on a
+    ``MeshShape`` of its mesh, its step times and peak memory; one
+    process resumes the first mesh's checkpoint ("resumed from step
+    3"); (b) with 4 cards or more, deepseek-v2-lite-16b at full width and
+    depth on 2 x 2 and qwen2.5-3b at full depth on 2 x 2 and 4 x 1, bf16,
+    3 steps: per card step ms, peak memory and the allocation against
+    ``cell_memory`` (left out, and said so, on fewer cards).
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
@@ -281,6 +298,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -337,6 +355,9 @@ AC_SWEEP = dict(nx=64, ny=64, node=1, decades=(0, 6), points=61, refine=2)
 SWEEP = dict(nx=64, ny=64, t_end=0.05, dt=5e-3, refine=1,
              scales=np.linspace(0.8, 1.2, 8))
 SEED = 1234
+# seconds of timed calls a measurement spends at most, beyond its warm-up
+# (the plain versions of the batched robust K1 take ~10 s a call)
+TIMING_BUDGET_S = 5.0
 
 
 def log(*args) -> None:
@@ -371,8 +392,14 @@ class Clock:
         self.device = device
 
     def ms(self, fn, reps: int = 10) -> float:
+        """A call whose warm-up took more than ``TIMING_BUDGET_S / reps``
+        runs as many times as ``TIMING_BUDGET_S`` holds, once at least."""
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(self.device)
+        warm = time.perf_counter() - t0
+        if warm > 0:
+            reps = max(1, min(reps, int(TIMING_BUDGET_S / warm)))
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2674,26 +2701,42 @@ def drive_leftlooking():
                 clock="host")
 
 
-def drive_cli():
-    """Phase 16 (f): ``python -m repro_torch.launch.simulate`` in a
-    subprocess on the card: exit 0, its two lines, residual < 1e-9."""
+def run_at_once(cmds, timeout=300) -> list:
+    """Each command in a process of its own from the repo root, with
+    ``src`` on the path, all started together: [(exit code, stdout,
+    stderr, wall seconds)] in the commands' order.  A command still
+    running at ``timeout`` is killed and raises."""
     import os
-    import re
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.simulate", *CLI_ARGS]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
-                         env=env, timeout=300)
-    wall = time.perf_counter() - t0
-    assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
-    lines = out.stdout.strip().splitlines()
+
+    def one(cmd):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                             env=env, timeout=timeout)
+        return out.returncode, out.stdout, out.stderr, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        return list(pool.map(one, cmds))
+
+
+def cli_cmd(module, args):
+    return [sys.executable, "-m", module, *args]
+
+
+def drive_cli(result):
+    """Phase 16 (f): ``python -m repro_torch.launch.simulate`` in a
+    subprocess on the card (``result`` of :func:`run_at_once`): exit 0,
+    its two lines, residual < 1e-9."""
+    rc, stdout, stderr, wall = result
+    assert rc == 0, (rc, stderr[-2000:])
+    lines = stdout.strip().splitlines()
     assert len(lines) == 2 and lines[0].startswith("nodes: 256"), lines
     res = float(re.search(r"max residual (\S+)", lines[1]).group(1))
     assert res < 1e-9, res
-    log(f"cli: {' '.join(cmd[1:])} -> exit 0 in {wall:.1f} s: "
-        f"{lines[0]} | {lines[1]}")
+    log(f"cli: -m repro_torch.launch.simulate {' '.join(CLI_ARGS)} -> exit 0 in "
+        f"{wall:.1f} s: {lines[0]} | {lines[1]}")
     return dict(args=CLI_ARGS, lines=lines, max_residual=res, wall_s=wall,
                 clock="host")
 
@@ -3135,24 +3178,17 @@ def drive_lm_others(dev, card):
     return reports
 
 
-def drive_serve_cli(args=LM_CLI_ARGS):
-    """Phase 17 (f), 18 (f): ``python -m repro_torch.launch.serve`` in a
-    subprocess on the card: exit 0 and the reference's two lines."""
-    import os
-
-    root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
-                         env=env, timeout=300)
-    wall = time.perf_counter() - t0
-    assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
-    lines = out.stdout.strip().splitlines()
+def drive_serve_cli(args, result):
+    """Phase 17 (f), 18 (f), 19 (f): ``python -m repro_torch.launch.serve
+    ARGS`` in a subprocess on the card (``result`` of
+    :func:`run_at_once`): exit 0 and the reference's two lines."""
+    rc, stdout, stderr, wall = result
+    assert rc == 0, (rc, stderr[-2000:])
+    lines = stdout.strip().splitlines()
     assert len(lines) == 2 and lines[0].startswith("generated (4, 16)") \
         and lines[1].startswith("sample: ["), lines
-    log(f"serve cli: {' '.join(cmd[1:])} -> exit 0 in {wall:.1f} s: "
-        f"{lines[0]} | {lines[1]}")
+    log(f"serve cli: -m repro_torch.launch.serve {' '.join(args)} -> exit 0 in "
+        f"{wall:.1f} s: {lines[0]} | {lines[1]}")
     return dict(args=list(args), lines=lines, wall_s=wall, clock="host")
 
 
@@ -3447,9 +3483,12 @@ def drive_mixtral(dev, card):
 
 # -- phase 19: the Mamba-2 (SSD) block and its state cache ---------------------
 SSM_ARCH = "mamba2-2.7b"
+# (a)-(c) run 32 of its 64 layers, cut for the script's time limit: the
+# decode steps of (b) and (c) are host-bound, about 1.4 ms a layer
+SSM_LAYERS = 32
 # (a): a prompt of 8 chunks of 128, so the inter-chunk recurrence runs
 SSM_SERVE = dict(batch=4, prompt=1024, max_new=32, reps=3)
-# (b): float32 at full width and depth, TF32 off: prefill + teacher-forced
+# (b): float32 at (a)'s width and depth, TF32 off: prefill + teacher-forced
 # decode steps against forward_train over all of them (1,152 tokens: 9
 # chunks; a pass over more than 128 tokens must be whole chunks), at the
 # reference's bar, with four planted faults above it
@@ -3466,8 +3505,9 @@ SSM_FAULT_STEPS = 8
 # reads no more than that (0.19-0.29): bf16 does not separate it, and
 # (b) holds it in float32.  With 128 steps the other faults read at least
 # 2.18 (skip_decay), 6.83 (conv_late) and 6.83 (skip_D)
-# (tools/ssm_forced_readings.py, NVIDIA H100 80GB HBM3, 700 W); the bar
-# lies between.
+# (tools/ssm_forced_readings.py, NVIDIA H100 80GB HBM3, 700 W).  At 32
+# layers, on (a)'s prompts: sound 0.19, skip_decay 1.52, conv_late 6.86,
+# skip_D 8.52 (the same card).  The bar lies between.
 SSM_BF16_FORCED = dict(decode=128)
 SSM_BF16_TOL = 1.0
 SSM_BF16_FAULTS = ("skip_decay", "conv_late", "skip_D")
@@ -3686,10 +3726,14 @@ def _log_serve(report, card):
 
 
 def drive_ssm_serve(dev, card):
-    """Phase 19 (a): mamba2-2.7b at full width and depth in bfloat16."""
+    """Phase 19 (a): mamba2-2.7b at full width and ``SSM_LAYERS`` layers in
+    bfloat16."""
+    import dataclasses
+
     from repro_torch.configs import get_config
 
-    report, model, engine, prompts = _serve_phase(dev, get_config(SSM_ARCH),
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_LAYERS)
+    report, model, engine, prompts = _serve_phase(dev, cfg,
                                                   SSM_SERVE, SEED + 9)
     _log_serve(report, card)
     del engine
@@ -3755,12 +3799,14 @@ def _f32_forced(dev, cfg, spec, seed, faults=()):
 
 
 def drive_ssm_f32(dev):
-    """Phase 19 (b): mamba2-2.7b in float32 at full width and depth."""
+    """Phase 19 (b): mamba2-2.7b in float32 at full width and ``SSM_LAYERS``
+    layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_LAYERS,
+                              dtype="float32")
     return _f32_forced(dev, cfg, SSM_F32, SEED + 11, SSM_FAULTS)
 
 
@@ -3842,9 +3888,12 @@ def drive_jamba(dev, card):
 
 # -- phase 20: the training path ------------------------------------------------
 TRAIN_ARCH = "qwen2.5-3b"
-# (a): full width and depth in bf16 with its remat "full", AdamW, batches of
-# TokenPipeline(seed=0); (d) saves the state after step 3 and resumes
-TRAIN = dict(batch=8, seq=512, steps=6, save_after=3, seed=0)
+# (a): full width and 6 of its 36 layers in bf16 with its remat "full",
+# AdamW, batches of TokenPipeline(seed=0); (d) saves the state after step 3
+# and resumes.  The depth is cut for the script's time limit: at 36 layers
+# (a) and (d) took 89 s, most of it the 30.9 GB checkpoint's write and
+# restore (PERF.md section 6)
+TRAIN = dict(layers=6, batch=8, seq=512, steps=6, save_after=3, seed=0)
 TRAIN_OPT = dict(lr=3e-4, warmup=2, total_steps=100)
 # (d) saves through save_checkpoint's defaults, the launcher's path: zstd
 # when zstandard imports, else zlib's stored form (no zstandard on the
@@ -3888,9 +3937,6 @@ GRAD_FAULT_SHORT = 0.01
 # (e): mamba2-2.7b at full width and depth in bf16, B = 4, S = 512 (four
 # chunks of the scan), AdamW, remat "full"
 SSM_TRAIN = dict(arch="mamba2-2.7b", batch=4, seq=512, steps=3, seed=1)
-# (f): the launcher, then a second call that resumes from its checkpoint
-TRAIN_CLI_ARGS = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "20"]
-TRAIN_CLI_RESUME_STEPS = 30
 
 
 def _train_bounds(model, B, S):
@@ -4034,18 +4080,20 @@ def _log_train(r, card):
         f"(the profiled step and the parts: {r['profile_s']:.1f} s)")
 
 def drive_train(dev, card, tmp):
-    """Phase 20 (a) and (d): qwen2.5-3b at full width and depth, bf16,
-    AdamW; its state saved after step 3, restored into a fresh model and
+    """Phase 20 (a) and (d): qwen2.5-3b at full width and ``TRAIN["layers"]``
+    layers, bf16, AdamW; its state saved after step 3, restored into a fresh model and
     optimizer on the card, and steps 4-6 run again from it: the same
     losses and the same parameters as the run that never stopped, bit for
     bit."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.train import load_train_state, train_state
     from repro_torch.models import LM
     from repro_torch.train import (OptConfig, TrainConfig, make_train_step,
                                    restore_checkpoint, save_checkpoint)
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN["layers"])
     assert cfg.dtype == "bfloat16" and cfg.remat and cfg.remat_policy == "full"
     opt_cfg = OptConfig(**TRAIN_OPT)
     k, n, kept = TRAIN["save_after"], TRAIN["steps"], {}
@@ -4309,51 +4357,10 @@ def drive_ssm_train(dev, card):
     return report
 
 
-_TRAIN_LINE = re.compile(r"^step +(\d+) loss ([\d.]+) nll ([\d.]+) gnorm ([\d.]+) "
-                         r"\([\d.]+s\)$")
-
-
-def drive_train_cli(tmp, args=TRAIN_CLI_ARGS, resume_steps=TRAIN_CLI_RESUME_STEPS):
-    """Phase 20 (f): ``python -m repro_torch.launch.train`` in a
-    subprocess on the card, then a second call with more steps that
-    resumes from the first's last checkpoint: exit 0, the reference's
-    lines, the resume step and a falling loss."""
-    import os
-
-    root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    n1 = int(args[args.index("--steps") + 1])
-    runs = []
-    for steps in (n1, resume_steps):
-        argv = [*args, "--ckpt-dir", str(tmp)]
-        argv[argv.index("--steps") + 1] = str(steps)
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
-                             env=env, timeout=300)
-        wall = time.perf_counter() - t0
-        assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
-        lines = out.stdout.strip().splitlines()
-        found = [m for m in map(_TRAIN_LINE.match, lines) if m]
-        runs.append(dict(args=argv, lines=lines, wall_s=wall,
-                         steps=[int(m.group(1)) for m in found],
-                         losses=[float(m.group(2)) for m in found]))
-    first, second = runs
-    assert len(first["steps"]) == len(first["lines"]), first["lines"]
-    assert first["steps"] == [0, 10, n1 - 1], first["lines"]
-    assert first["losses"][-1] < first["losses"][0], first["losses"]
-    assert second["lines"][0] == f"resumed from step {n1}", second["lines"]
-    assert second["steps"] == [20, resume_steps - 1], second["lines"]
-    assert second["losses"][-1] < first["losses"][0], (first["losses"],
-                                                       second["losses"])
-    for r in runs:
-        log(f"train cli: {' '.join(r['args'])} -> exit 0 in {r['wall_s']:.1f} s: "
-            + " | ".join(r["lines"]))
-    return dict(runs=runs, clock="host")
-
-
 def drive_phase20(dev, card, scratch):
-    """Phase 20, (a)-(f), each sub-phase's seconds in the report."""
+    """Phase 20, (a)-(e), each sub-phase's seconds in the report (the
+    launcher and its resume, once (f), are phase 22 (a)'s one-process
+    runs)."""
     t20 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         report = drive_train(dev, card, Path(tmp) / "ckpt")
@@ -4371,8 +4378,6 @@ def drive_phase20(dev, card, scratch):
     report["grad_check"] = timed("c", lambda: drive_grad_check(dev, card))
     judge_grad_check(report["grad_check"])
     report["mamba2"] = timed("e", lambda: drive_ssm_train(dev, card))
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        report["cli"] = timed("f", lambda: drive_train_cli(Path(tmp)))
     report.update(seconds=seconds, phase_s=time.perf_counter() - t20)
     log("phase 20 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in seconds.items()))
     log(f"phase 20: {report['phase_s']:.1f} s")
@@ -4395,32 +4400,25 @@ DRYRUN_CARD = dict(arch="qwen2.5-3b", batch=8, seq=512)
 DRYRUN_CARD_TOL = 0.01
 
 
-def drive_dryrun_sweep(scratch) -> dict:
-    """Phase 21 (a): ``python -m repro_torch.launch.dryrun`` over every
-    arch at ``DRYRUN_SHAPES`` on the 16x16 mesh, in ``DRYRUN_GROUPS``
-    processes at once: every cell ok; each cell's dominant term, its three
-    terms (H100 constants, not measured) and its per-card bytes."""
-    import os
+def dryrun_cmds(out) -> list:
+    """Phase 21 (a)'s processes: ``python -m repro_torch.launch.dryrun``
+    over every arch at ``DRYRUN_SHAPES`` on the 16x16 mesh, one process
+    a group of ``DRYRUN_GROUPS``, each cell's record into ``out``."""
+    return [cli_cmd("repro_torch.launch.dryrun",
+                    ["--arch", ",".join(g), "--shape", ",".join(DRYRUN_SHAPES),
+                     "--mesh", "single", "--out", str(out)])
+            for g in DRYRUN_GROUPS]
 
-    root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    out = Path(scratch) / "dryrun"
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ",".join(g),
-         "--shape", ",".join(DRYRUN_SHAPES), "--mesh", "single", "--out", str(out)],
-        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for g in DRYRUN_GROUPS]
-    try:
-        done = [p.communicate(timeout=300) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall = time.perf_counter() - t0
-    for p, (stdout, stderr) in zip(procs, done):
-        assert p.returncode == 0, (p.args, p.returncode, stdout[-2000:], stderr[-2000:])
+
+def drive_dryrun_sweep(out, results) -> dict:
+    """Phase 21 (a): the dry run's processes (``results`` of
+    :func:`run_at_once` over :func:`dryrun_cmds`): every cell ok; each
+    cell's dominant term, its three terms (H100 constants, not measured)
+    and its per-card bytes."""
+    for rc, stdout, stderr, _ in results:
+        assert rc == 0, (rc, stdout[-2000:], stderr[-2000:])
+    wall = max(r[3] for r in results)
+    out = Path(out)
     recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
     n_cells = sum(len(g) for g in DRYRUN_GROUPS) * len(DRYRUN_SHAPES)
     assert len(recs) == n_cells and all(r["ok"] for r in recs), \
@@ -4448,12 +4446,14 @@ def drive_dryrun_card(train_report, card) -> dict:
     allocation for the model and AdamW's moments (phase 20 (a)); its temp
     bytes beside the step's measured peak over them, its bound beside
     ``_train_bounds``' and the measured step."""
+    import dataclasses
+
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.distributed.sharding import MeshShape, make_rules
     from repro_torch.launch.dryrun import measure_cell
 
     r = train_report
-    cfg = get_config(DRYRUN_CARD["arch"])
+    cfg = dataclasses.replace(get_config(DRYRUN_CARD["arch"]), num_layers=r["layers"])
     assert (r["arch"], r["batch"], r["seq"], r["dtype"]) == (
         cfg.name, DRYRUN_CARD["batch"], DRYRUN_CARD["seq"], cfg.dtype)
     shape = ShapeSpec("phase20", DRYRUN_CARD["seq"], DRYRUN_CARD["batch"], "train")
@@ -4484,13 +4484,333 @@ def drive_dryrun_card(train_report, card) -> dict:
     return out
 
 
-def drive_phase21(card, scratch, train_report) -> dict:
+def drive_phase21(card, train_report, sweep) -> dict:
+    """Phase 21: (a) the sweep, whose processes ran beside phase 16 (f)'s
+    CLIs, and (b) phase 20's step as a cell."""
     t21 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        report = {"sweep": drive_dryrun_sweep(tmp)}
+    report = {"sweep": sweep}
     report["card"] = drive_dryrun_card(train_report, card)
     report["phase_s"] = time.perf_counter() - t21
     log(f"phase 21: {report['phase_s']:.1f} s")
+    return report
+
+
+# -- phase 22: the training step on a mesh of ranks ---------------------------
+# (a) qwen2.5-3b at full width and 4 of its 36 layers through the launcher
+# under torch.distributed.run on meshes 2 x 1 and 1 x 2, one rank a card
+# over NCCL (on one card a 1 x 1 NCCL mesh: gloo does not carry the step's
+# collectives on card tensors, PERF.md section 6), float32 and bf16,
+# against the one-process launcher run, whose resume of the first mesh's
+# checkpoint is phase 20 (f)'s resume
+MESH_ARGS = ["--arch", "qwen2.5-3b", "--layers", "4", "--batch", "8", "--seq", "512",
+             "--steps", "3", "--log-every", "1", "--lr", "3e-4", "--seed", "0"]
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_BF16_TOL = 1e-5, 2e-3, 1e-2
+# each parameter leaf after the steps against the one-process run's, as a
+# share of that run's own change from the initial parameters (norms of the
+# differences): an optimizer that moved nothing reads 1
+MESH_MOVE_TOL = 0.1
+MESH_MEM_TOL = 0.01          # each rank's allocation against cell_memory
+MESH_TIMEOUT = 600           # one launcher run, its processes included
+# (b) with 4 cards or more: full depth, bf16, 2 x 2 (and 4 x 1 for qwen)
+MESH_FULL = (("deepseek-v2-lite-16b", (2, 2)), ("qwen2.5-3b", (2, 2)),
+             ("qwen2.5-3b", (4, 1)))
+MESH_FULL_ARGS = ["--batch", "8", "--seq", "512", "--steps", "3", "--log-every", "1",
+                  "--lr", "3e-4", "--seed", "0"]
+
+
+def _torchrun(nproc: int, args: list, env_extra=None, timeout=MESH_TIMEOUT):
+    """``python -m torch.distributed.run --standalone`` from the repo root;
+    (exit code, rank 0's stdout, the tail of the output, wall seconds)."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), **(env_extra or {}))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "--tee", "3", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=root, env=env,
+                         timeout=timeout)
+    rank0 = "\n".join(ln.split(":", 1)[1] for ln in out.stdout.splitlines()
+                      if ln.startswith("[default0]:"))
+    text = out.stdout + out.stderr
+    errors = [ln for ln in text.splitlines() if "Error" in ln and "ChildFailed" not in ln]
+    tail = "\n".join(errors[-12:]) + "\n" + text[-1500:]
+    return out.returncode, rank0, tail, time.perf_counter() - t0
+
+
+def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
+    """One rank of a launcher run (``--mesh-rank DIR DTYPE -- ARGS``, under
+    torch.distributed.run or alone): ``repro_torch.launch.train.main``
+    with the config's weights in ``DTYPE``, the card's allocation read
+    once the model and the optimizer state exist, each step timed
+    (synchronised) and the peak memory read; ``DIR/rank<r>.json`` gets
+    them."""
+    import dataclasses
+    import os
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.launch import train as lt
+
+    rank = int(os.environ.get("RANK", 0))
+    rec = {"rank": rank, "step_ms": []}
+    plain_cfg, plain_init, plain_step = lt.build_cfg, lt.init_opt_state, lt.make_train_step
+
+    def local_bytes(tensors):
+        return sum((t.to_local() if is_dtensor(t) else t).nbytes for t in tensors)
+
+    card = torch.cuda.is_available()    # a CPU rehearsal reads the blocks alone
+    sync = torch.cuda.synchronize if card else (lambda: None)
+
+    def measured_init(model, cfg, device=None):
+        state = plain_init(model, cfg, device)
+        if str(device) != "meta":
+            sync()
+            rec["param_bytes"] = local_bytes(model.parameters())
+            rec["moment_bytes"] = local_bytes(
+                t for k, v in state.items() if k != "step" for t in v.values())
+            rec["allocated_bytes"] = (torch.cuda.memory_allocated() if card else
+                                      rec["param_bytes"] + rec["moment_bytes"])
+        return state
+
+    def timed_step(*a, **k):
+        step = plain_step(*a, **k)
+
+        def run(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = step(*args)
+            sync()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    lt.build_cfg = lambda args: dataclasses.replace(plain_cfg(args), dtype=dtype)
+    lt.init_opt_state, lt.make_train_step = measured_init, timed_step
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    lt.main(argv)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() if card else 0
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _launcher_run(tmp: Path, name: str, argv: list, dtype: str, mesh=None):
+    """The launcher once, its weights in ``dtype``: alone (``mesh`` None)
+    or under torch.distributed.run with a rank a mesh position; its lines,
+    history and each rank's record."""
+    out_dir = tmp / name
+    out_dir.mkdir(parents=True)
+    argv = [*argv, "--metrics-out", str(out_dir / "history.json")]
+    me = str(Path(__file__).resolve())
+    if mesh is None:
+        root = Path(__file__).resolve().parent
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, me, "--mesh-rank", str(out_dir), dtype, "--",
+                            *argv],
+                           capture_output=True, text=True, cwd=root, timeout=MESH_TIMEOUT)
+        rc, out, tail, wall = (p.returncode, p.stdout, (p.stdout + p.stderr)[-3000:],
+                               time.perf_counter() - t0)
+    else:
+        d, m = mesh
+        argv += ["--data-parallel", str(d), "--model-parallel", str(m)]
+        rc, out, tail, wall = _torchrun(d * m, [me, "--mesh-rank", str(out_dir), dtype,
+                                                "--", *argv])
+    assert rc == 0, (name, rc, tail)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    ranks = [json.loads(p.read_text()) for p in sorted(out_dir.glob("rank*.json"))]
+    hist = json.loads((out_dir / "history.json").read_text())
+    log(f"launcher {name}: exit 0 in {wall:.1f} s, {len(ranks)} rank(s): "
+        + " | ".join(lines))
+    return dict(name=name, wall_s=wall, lines=lines, history=hist, ranks=ranks, mesh=mesh)
+
+
+def _ckpt_params(directory, step: int):
+    """The parameters alone (its moments not read) of the checkpoint of
+    ``step``."""
+    from repro_torch.convert import flatten_paths, nest_paths
+    from repro_torch.train.checkpoint import restore_checkpoint
+
+    manifest = json.loads((Path(directory) / f"step_{step}" / "manifest.json").read_text())
+    like = nest_paths({k: None for k in manifest["leaves"] if k.startswith("params/")})
+    tree = restore_checkpoint(directory, step, like)
+    return {k: v.float() for k, v in flatten_paths(tree["params"]).items()}
+
+
+def _check_memory(run, cfg, card) -> list:
+    """Each rank's allocation for the model and its moments against
+    ``cell_memory`` on a ``MeshShape`` of the run's mesh."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import MeshShape, make_rules
+    from repro_torch.launch.dryrun import cell_memory
+
+    d, m = run["mesh"] or (1, 1)
+    B, S = int(MESH_ARGS[MESH_ARGS.index("--batch") + 1]), int(
+        MESH_ARGS[MESH_ARGS.index("--seq") + 1])
+    mem = cell_memory(cfg, ShapeSpec("phase22", S, B, "train"),
+                      MeshShape(("data", "model"), (d, m)), make_rules(cfg))
+    out = []
+    for r in run["ranks"]:
+        held = r["allocated_bytes"]
+        rel = abs(mem["argument"] - held) / held
+        log(f"  {run['name']} rank {r['rank']} ({d} x {m}): {held:,} bytes allocated for "
+            f"the model and its moments (blocks {r['param_bytes'] + r['moment_bytes']:,}) "
+            f"against cell_memory's {mem['argument']:,} ({rel:.2e} apart, bar "
+            f"{MESH_MEM_TOL}); peak {r['peak_bytes']:,}; steps "
+            f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms [{card}]")
+        assert rel <= MESH_MEM_TOL, (run["name"], r["rank"], held, mem["argument"])
+        out.append(dict(rank=r["rank"], allocated=held, cell_memory=mem["argument"],
+                        rel=rel, peak=r["peak_bytes"], step_ms=r["step_ms"]))
+    return out
+
+
+def _initial_params(cfg, seed: int) -> dict:
+    """The launcher's initial parameters (``init_params`` from ``seed`` on
+    card 0, or on the CPU without a card) in the checkpoint's layout,
+    float32 on the host."""
+    from repro_torch.convert import flatten_paths, lm_params_to_tensors
+    from repro_torch.models import init_params
+
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    out = {k: v.float().cpu() for k, v in flatten_paths(lm_params_to_tensors(model)).items()}
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moved_share(got: dict, want: dict, start: dict) -> tuple:
+    """The worst leaf's ``|got - want| / |want - start|`` (norms over the
+    leaf) and its path: 0 when ``got`` is ``want``, 1 when ``got`` never
+    moved from ``start``."""
+    def one(k):
+        gap, own = (got[k] - want[k]).norm().item(), (want[k] - start[k]).norm().item()
+        return gap / own if own else (0.0 if gap == 0 else math.inf)
+
+    share = {k: one(k) for k in want}
+    worst = max(share, key=share.get)
+    return share[worst], worst
+
+
+def drive_mesh_train(card, scratch) -> dict:
+    """Phase 22 (a)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    n_cards = torch.cuda.device_count()
+    shapes = MESH_SHAPES if n_cards >= 2 else ((1, 1),)
+    report = {"cards": n_cards, "shapes": [list(x) for x in shapes]}
+    if n_cards < 2:
+        log("phase 22: one card, and NCCL takes one rank a card: the meshes run as "
+            "1 x 1 over NCCL on it; no collective crossed ranks")
+    cfg32 = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4, dtype="float32")
+    seed = int(MESH_ARGS[MESH_ARGS.index("--seed") + 1])
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        # three lanes of runs at once (the runs' step times share the card):
+        # each mesh in float32, the first one's checkpoint then resumed by
+        # one process; each mesh in bf16; the one-process runs
+        def meshes_f32():
+            for i, (d, m) in enumerate(shapes):
+                tag = f"{d}x{m}"
+                runs[f"{tag} f32"] = _launcher_run(
+                    tmp, f"{tag}-f32", [*MESH_ARGS, "--ckpt-dir", str(tmp / f"ck-{tag}")],
+                    "float32", (d, m))
+                if i == 0:
+                    runs["resume"] = _launcher_run(
+                        tmp, "resume", [*MESH_ARGS, "--steps", "4", "--ckpt-dir",
+                                        str(tmp / f"ck-{tag}")], "float32")
+
+        def meshes_bf16():
+            for d, m in shapes:
+                runs[f"{d}x{m} bf16"] = _launcher_run(tmp, f"{d}x{m}-bf16", MESH_ARGS,
+                                                      "bfloat16", (d, m))
+
+        def one_process():
+            runs["one bf16"] = _launcher_run(tmp, "one-bf16", MESH_ARGS, "bfloat16")
+            runs["one f32"] = _launcher_run(
+                tmp, "one-f32", [*MESH_ARGS, "--ckpt-dir", str(tmp / "ck-one")], "float32")
+
+        with ThreadPoolExecutor(3) as pool:
+            lanes = [pool.submit(f) for f in (meshes_f32, meshes_bf16, one_process)]
+            for lane in lanes:
+                lane.result()
+        base = [h["loss"] for h in runs["one f32"]["history"]]
+        base16 = [h["loss"] for h in runs["one bf16"]["history"]]
+        steps = int(MESH_ARGS[MESH_ARGS.index("--steps") + 1])
+        want = _ckpt_params(tmp / "ck-one", steps)
+        start = _initial_params(cfg32, seed)
+        assert start.keys() == want.keys()
+        checks = []
+        for d, m in shapes:
+            tag = f"{d}x{m}"
+            r, r16 = runs[f"{tag} f32"], runs[f"{tag} bf16"]
+            losses = [h["loss"] for h in r["history"]]
+            loss_err = max(abs(a - b) for a, b in zip(losses, base))
+            # the checkpoint of the mesh's last step (the resume adds a later one)
+            got = _ckpt_params(tmp / f"ck-{tag}", steps)
+            assert got.keys() == want.keys()
+            param_err = max((got[k] - want[k]).abs().max().item() for k in want)
+            moved, worst = _moved_share(got, want, start)
+            bf16_err = max(abs(h["loss"] - b) for h, b in zip(r16["history"], base16))
+            log(f"  {tag}: float32 losses {losses} against one process {base}: "
+                f"{loss_err:.2e} (bar {MESH_LOSS_TOL}); parameters after {steps} steps "
+                f"{param_err:.2e} (bar {MESH_PARAM_TOL}), the worst leaf's gap "
+                f"{moved:.2e} of the one-process run's own change ({worst}; bar "
+                f"{MESH_MOVE_TOL}, unmoved parameters read 1); bf16 losses "
+                f"{bf16_err:.2e} (bar {MESH_BF16_TOL})")
+            assert len(losses) == len(base) == 3 and loss_err <= MESH_LOSS_TOL, (losses, base)
+            assert param_err <= MESH_PARAM_TOL, param_err
+            assert moved <= MESH_MOVE_TOL, (moved, worst)
+            assert bf16_err <= MESH_BF16_TOL, bf16_err
+            checks.append(dict(mesh=tag, loss_err=loss_err, param_err=param_err,
+                               moved_share=moved, moved_worst=worst,
+                               bf16_loss_err=bf16_err,
+                               memory=_check_memory(r, cfg32, card),
+                               memory_bf16=_check_memory(
+                                   r16, dataclasses.replace(cfg32, dtype="bfloat16"), card)))
+        del start, want
+        # the first mesh's checkpoint resumed by one process (phase 20 (f))
+        resume = runs.pop("resume")
+        assert resume["lines"][0] == "resumed from step 3", resume["lines"]
+        assert [h["step"] for h in resume["history"]] == [3], resume["history"]
+        report.update(checks=checks, resume_lines=resume["lines"],
+                      runs={k: dict(wall_s=v["wall_s"], lines=v["lines"],
+                                    step_ms=[x["step_ms"] for x in v["ranks"]])
+                            for k, v in runs.items()})
+    return report
+
+
+def drive_mesh_full(card, scratch) -> dict:
+    """Phase 22 (b): with 4 cards or more, full depth in bf16."""
+    from repro_torch.configs import get_config
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        log(f"phase 22 (b): left out: {n_cards} card(s) visible; deepseek-v2-lite-16b "
+            f"and qwen2.5-3b at full depth on 2 x 2 and 4 x 1 need 4")
+        return {"left_out": f"{n_cards} card(s)"}
+    out = []
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        for arch, (d, m) in MESH_FULL:
+            r = _launcher_run(Path(tmp), f"{arch}-{d}x{m}",
+                              ["--arch", arch, *MESH_FULL_ARGS], get_config(arch).dtype,
+                              (d, m))
+            out.append(dict(arch=arch, mesh=f"{d}x{m}", lines=r["lines"],
+                            memory=_check_memory(r, get_config(arch), card)))
+    return {"runs": out}
+
+
+def drive_phase22(card, scratch) -> dict:
+    t22 = time.perf_counter()
+    report = {"a": drive_mesh_train(card, scratch)}
+    report["b"] = drive_mesh_full(card, scratch)
+    report["phase_s"] = time.perf_counter() - t22
+    log(f"phase 22: {report['phase_s']:.1f} s")
     return report
 
 
@@ -4612,7 +4932,7 @@ def main() -> int:
                                       for name in PHASE15_MATRICES]}))
 
     # 16. sharded sweeps, Matrix Market, the on-disk plan cache, the
-    # multi-domain chip, the left-looking baseline and the CLI
+    # multi-domain chip, the left-looking baseline and the CLIs
     log(json.dumps({"sharded_report": drive_sharded(dev, clock, card)}))
     scratch = Path(__file__).resolve().parent / "build"
     scratch.mkdir(exist_ok=True)
@@ -4621,7 +4941,21 @@ def main() -> int:
         log(json.dumps({"plan_cache_report": drive_plan_cache(tmp)}))
     log(json.dumps({"multi_domain_report": drive_multi_domain(dev, clock)}))
     log(json.dumps({"leftlooking_report": drive_leftlooking()}))
-    log(json.dumps({"cli_report": drive_cli()}))
+    # the entry points in processes of their own, all at once: the
+    # simulator's CLI (16 (f)), the serving CLI of phases 17-19 and phase
+    # 21 (a)'s dry-run sweep (host only); each is judged in its phase
+    dry = tempfile.TemporaryDirectory(dir=scratch)
+    serve_cli_args = [LM_CLI_ARGS, MOE_CLI_ARGS, *SSM_CLI_ARGS]
+    t0 = time.perf_counter()
+    results = run_at_once([cli_cmd("repro_torch.launch.simulate", CLI_ARGS),
+                           *(cli_cmd("repro_torch.launch.serve", a) for a in serve_cli_args),
+                           *dryrun_cmds(dry.name)])
+    log(f"the CLIs and the dry-run sweep: {len(results)} processes at once, "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"cli_report": drive_cli(results[0])}))
+    serve_clis = results[1:1 + len(serve_cli_args)]
+    sweep = drive_dryrun_sweep(dry.name, results[1 + len(serve_cli_args):])
+    dry.cleanup()
 
     log(f"peak device memory (phases 4-16): "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
@@ -4637,7 +4971,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_report["cpu_card"] = drive_lm_cpu_card(dev)
     serve_report["others"] = drive_lm_others(dev, card)
-    serve_report["cli"] = drive_serve_cli()
+    serve_report["cli"] = drive_serve_cli(LM_CLI_ARGS, serve_clis[0])
     serve_report["phase_s"] = time.perf_counter() - t17
     log(json.dumps({"lm_serve_report": serve_report}))
 
@@ -4650,12 +4984,12 @@ def main() -> int:
     moe_report["float32"] = drive_moe_f32(dev)
     moe_report["cpu_card"] = drive_moe_cpu_card(dev)
     moe_report["mixtral"] = drive_mixtral(dev, card)
-    moe_report["cli"] = drive_serve_cli(MOE_CLI_ARGS)
+    moe_report["cli"] = drive_serve_cli(MOE_CLI_ARGS, serve_clis[1])
     moe_report["phase_s"] = time.perf_counter() - t18
     log(f"phase 18: {moe_report['phase_s']:.1f} s")
     log(json.dumps({"moe_serve_report": moe_report}))
 
-    # 19. the Mamba-2 (SSD) block: mamba2-2.7b at full width and depth
+    # 19. the Mamba-2 (SSD) block: mamba2-2.7b at full width and 32 layers
     # (bf16), its bf16 and float32 forced checks with planted faults, card
     # against CPU, jamba-v0.1-52b at full width and one 8-layer period,
     # the CLI
@@ -4668,12 +5002,13 @@ def main() -> int:
     ssm_report["cpu_card"] = drive_ssm_cpu_card(dev)
     ssm_report["scan"] = drive_ssd_scan(dev)
     ssm_report["jamba"] = drive_jamba(dev, card)
-    ssm_report["cli"] = [drive_serve_cli(args) for args in SSM_CLI_ARGS]
+    ssm_report["cli"] = [drive_serve_cli(a, r)
+                         for a, r in zip(SSM_CLI_ARGS, serve_clis[2:])]
     ssm_report["phase_s"] = time.perf_counter() - t19
     log(f"phase 19: {ssm_report['phase_s']:.1f} s")
     log(json.dumps({"ssm_serve_report": ssm_report}))
 
-    # 20. the training path: qwen2.5-3b at full width and depth (bf16,
+    # 20. the training path: qwen2.5-3b at full width and 6 layers (bf16,
     # AdamW) with a checkpoint and a bit-for-bit resume, reduced configs
     # card against CPU, float32 gradients against central differences,
     # mamba2-2.7b's SSD backward, the launcher and its resume
@@ -4681,9 +5016,16 @@ def main() -> int:
     log(json.dumps({"train_report": train_report}))
 
     # 21. the dry run: every arch's train_4k and decode_32k cell on the
-    # 16x16 mesh (fake process groups, fake tensors), and phase 20's step
+    # 16x16 mesh (fake process groups, fake tensors; its processes ran
+    # beside phase 16's CLIs), and phase 20's step
     # as a cell on a 1 x 1 mesh held against the card's allocation
-    log(json.dumps({"dryrun_report": drive_phase21(card, scratch, train_report)}))
+    log(json.dumps({"dryrun_report": drive_phase21(card, train_report, sweep)}))
+
+    # 22. the training step on a mesh of ranks: qwen2.5-3b (4 layers)
+    # through the launcher under torch.distributed.run against one
+    # process, each rank's allocation against cell_memory, the resume; with
+    # 4 cards deepseek-v2-lite-16b and qwen2.5-3b at full depth
+    log(json.dumps({"mesh_train_report": drive_phase22(card, scratch)}))
 
     names = {e["name"] for e in entries}
     assert names == {"level_run", "level_run_robust", "dense_lu",
@@ -4706,4 +5048,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2], sys.argv[3], sys.argv[5:]))
     sys.exit(main())

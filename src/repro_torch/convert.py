@@ -276,11 +276,22 @@ def _reference_leaves(cfg, tree: dict) -> dict:
     return out
 
 
+def _whole(t):
+    """A DTensor gathered whole (every rank of its mesh takes part); any
+    other tensor as it is."""
+    from .distributed.sharding import is_dtensor
+
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def load_lm_params(model, tree: dict):
     """Copy a parameter tree in the JAX package's layout (numpy arrays or
     tensors, on any device) into ``model``'s parameters, each cast to its
     parameter's dtype.  Every leaf must be there with its parameter's
-    shape, and no other.  Returns ``model``."""
+    shape, and no other.  A DTensor parameter takes its block of the
+    whole leaf.  Returns ``model``."""
+    from .distributed.sharding import is_dtensor, shard_of
+
     leaves = _reference_leaves(model.cfg, tree)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -291,7 +302,10 @@ def load_lm_params(model, tree: dict):
             if not isinstance(a, torch.Tensor):
                 a = np.asarray(a)
                 a = torch.from_numpy(a if a.flags.writeable else a.copy())
-            p.copy_(a)
+            if is_dtensor(p):
+                p.to_local().copy_(shard_of(a, p.device_mesh, p.placements))
+            else:
+                p.copy_(a)
     return model
 
 
@@ -305,7 +319,7 @@ def lm_params_from_arrays(cfg, tree: dict, device=None):
 
 
 def _host_arrays(named) -> dict:
-    return {n: t.detach().float().cpu().numpy().copy() for n, t in named}
+    return {n: _whole(t.detach()).float().cpu().numpy().copy() for n, t in named}
 
 
 def lm_params_to_arrays(model) -> dict:
@@ -341,7 +355,7 @@ def opt_state_to_arrays(state: dict) -> dict:
     out = {"step": np.asarray(state["step"].cpu(), dtype=np.int32)}
     for key, flat in state.items():
         if key != "step":
-            out[key] = nest_paths({p: t.detach().float().cpu().numpy().copy()
+            out[key] = nest_paths({p: _whole(t.detach()).float().cpu().numpy().copy()
                                    for p, t in flat.items()})
     return out
 

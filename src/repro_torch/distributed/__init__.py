@@ -25,8 +25,11 @@ from .sharding import (
     MeshShape,
     MeshSharding,
     axis_env,
+    distribute_batch,
+    distribute_model,
     logical_constraint,
     make_rules,
+    param_shardings,
     sharding_for_spec,
     spec_struct,
     tree_shardings,
@@ -44,6 +47,8 @@ __all__ = [
     "check_mesh",
     "compressed_psum",
     "dequantize_int8",
+    "distribute_batch",
+    "distribute_model",
     "fake_quantize_grads",
     "gather_rows",
     "logical_constraint",
@@ -51,6 +56,7 @@ __all__ = [
     "make_scenario_sharding",
     "make_sweep_mesh",
     "map_blocks",
+    "param_shardings",
     "psum_exact",
     "quantize_int8",
     "sharding_for_spec",

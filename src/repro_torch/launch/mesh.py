@@ -1,6 +1,12 @@
 """Production and host meshes (functions, not constants: importing this
 module touches no process group).
 
+A host mesh is a ``("data", "model")`` ``DeviceMesh`` over the ranks of
+this process's default group: one process a rank, as
+``python -m torch.distributed.run`` starts them, each on its own card over
+NCCL (``cuda:LOCAL_RANK``), or over gloo on the CPU.  A process that no
+launcher started is a group of one.
+
 The production meshes are the reference's 16x16 ``("data", "model")``
 (256 cards) and 2x16x16 ``("pod", "data", "model")`` (512 cards).  No
 machine here has 512 cards, so they are ``DeviceMesh`` objects over a
@@ -13,19 +19,41 @@ process initialises its default group once, so only a process of its own
 from __future__ import annotations
 
 import math
+import os
 import socket
 
 import torch
 
-__all__ = ["make_production_mesh", "make_host_mesh", "PRODUCTION_RANKS"]
+__all__ = ["make_production_mesh", "make_host_mesh", "rank_device",
+           "PRODUCTION_RANKS"]
 
 PRODUCTION_RANKS = 512
 
 
-def _default_group(world: int, fake: bool) -> int:
+def rank_device(device=None) -> torch.device:
+    """This rank's device: ``"cpu"``, or the card of its local rank
+    (``LOCAL_RANK``, 0 without a launcher); NCCL takes one rank a card, so
+    a rank without a card of its own raises."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return dev
+    local, count = int(os.environ.get("LOCAL_RANK", 0)), torch.cuda.device_count()
+    if local >= count:
+        raise RuntimeError(f"local rank {local} has no card of its own ({count} "
+                           f"visible); NCCL takes one rank a card")
+    return torch.device("cuda", local)
+
+
+def _default_group(world: int, fake: bool, device=None) -> int:
     """The world size of this process's default group, which is
-    initialised here when there is none: a fake group of ``world`` ranks,
-    or a real group of this one process."""
+    initialised here when there is none: a fake group of ``world`` ranks;
+    the group a launcher describes (``WORLD_SIZE``, ``RANK`` and
+    ``MASTER_ADDR``/``MASTER_PORT`` in the environment, as
+    ``torch.distributed.run`` sets them); or a group of this one process.
+    A real group is NCCL's on the cards and gloo's on the CPU; each rank
+    takes :func:`rank_device`."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -36,13 +64,21 @@ def _default_group(world: int, fake: bool) -> int:
 
             dist.init_process_group("fake", store=FakeStore(), rank=0,
                                     world_size=world)
+            return dist.get_world_size()
+        dev = rank_device(device if device is not None else
+                          ("cuda" if torch.cuda.is_available() else "cpu"))
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
         else:
             with socket.socket() as s:
                 s.bind(("localhost", 0))
                 port = s.getsockname()[1]
             dist.init_process_group(
-                "nccl" if torch.cuda.is_available() else "gloo",
-                init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+                backend, init_method=f"tcp://localhost:{port}", rank=0,
+                world_size=1)
     return dist.get_world_size()
 
 
@@ -66,13 +102,15 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh("cpu", shape, axes)
 
 
-def make_host_mesh(data: int = 1, model: int = 1):
+def make_host_mesh(data: int = 1, model: int = 1, device=None):
     """A ``("data", "model")`` mesh over the ranks of this process's group
-    (one process a card, as ``torchrun`` starts them; without a group, a
-    group of this one process): when ``data * model`` exceeds them it
-    shrinks to ``(ranks, 1)``, as the reference's does over its devices."""
-    n = _default_group(1, fake=False)
+    (initialised here when there is none, see :func:`_default_group`; on
+    ``device``'s type, the card by default when there is one): when
+    ``data * model`` exceeds the ranks it shrinks to ``(ranks, 1)``, as
+    the reference's does over its devices."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    n = _default_group(1, fake=False, device=device)
     if data * model > n:
         data, model = n, 1
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    return _mesh(device, (data, model), ("data", "model"))
+    return _mesh(torch.device(device).type, (data, model), ("data", "model"))

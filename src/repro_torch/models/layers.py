@@ -18,6 +18,11 @@ Conventions, as in the JAX package's layers:
   promote bfloat16 x float32 to float32).
 * The products the reference writes as einsums are ``matmul``/``einsum``
   here: no fused attention kernel stands in for them.
+* Activations take the reference's ``logical_constraint`` names at its
+  sites (no-ops off a mesh).  On a mesh of DTensors two parts run on
+  local tensors: the attention cores (each rank its block of batch and
+  heads), and the MoE dispatch, whose sort, scatter and gathers have no
+  DTensor sharding rule (each rank its groups and its experts).
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..distributed.sharding import env_placements, is_dtensor, local_fallback
+from ..distributed.sharding import logical_constraint as lc
 
 __all__ = [
     "Norm", "Attention", "CrossAttention", "MLP", "MLAttention", "MoE",
@@ -138,11 +146,44 @@ def decode_mask(slots: int, index: int, window: int, device) -> torch.Tensor:
     return (torch.arange(slots, device=device) < filled)[None, :]
 
 
+def _heads_placements(q):
+    """On a mesh: the placements of (B, S, heads, ...) activations (the
+    reference's names for queries), and those of a tensor the heads
+    share, (B, S, ...), and of the gradient each rank gives it (a partial
+    sum over the mesh axes that split the heads)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    heads = env_placements(("batch", None, "heads") + (None,) * (q.ndim - 3), q.shape)
+    shared = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in heads)
+    shared_grad = tuple(Partial() if isinstance(p, Shard) and p.dim == 2 else s
+                        for p, s in zip(heads, shared))
+    return heads, shared, shared_grad
+
+
+def _sdpa_on_mesh(q, k, v, mask, groups: int):
+    """:func:`sdpa` on a mesh: each rank attends its block of (batch,
+    heads) on local tensors (the products' batched dimensions would be
+    flattened across two sharded axes, which DTensor refuses); a kv head
+    whose group the heads' split cuts is repeated for its group first."""
+    from torch.distributed.tensor import Shard
+
+    pl, _, _ = _heads_placements(q)
+    ways = math.prod(q.device_mesh.size(i) for i, p in enumerate(pl)
+                     if isinstance(p, Shard) and p.dim == 2)
+    if groups > 1 and k.shape[2] % ways:
+        k, v, groups = k.repeat_interleave(groups, 2), v.repeat_interleave(groups, 2), 1
+    return local_fallback(lambda q, k, v: sdpa(q, k, v, mask, groups), (q, k, v),
+                          (pl, pl, pl), pl, (pl, pl, pl))
+
+
 def sdpa(q, k, v, mask: Optional[torch.Tensor], groups: int) -> torch.Tensor:
     """q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd), mask (Sq, Sk) or None (all
     visible).  Query head h reads kv head h // groups.  Scores in the input
     dtype scaled there, then float32 for the mask and softmax, and the
     weights cast back to v's dtype."""
+    if is_dtensor(q):
+        return _sdpa_on_mesh(q, k, v, mask, groups)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     q = q.reshape(B, Sq, KV, groups, hd)
@@ -203,6 +244,8 @@ class Attention(_Leaves):
         q, k, v = _project(x, self.wq), _project(x, self.wk), _project(x, self.wv)
         if self.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = lc(q, "batch", "seq", "heads", None)
+        k = lc(k, "batch", "seq", "kv_heads", None)
         if mode != "bidir" and rope is not None:
             q, k = rotate(q, *rope), rotate(k, *rope)
         if mode == "decode":
@@ -214,7 +257,7 @@ class Attention(_Leaves):
             out = sdpa(q, k, v, mask, self.groups)
             if cache is not None:
                 _fill_cache(cache, k, v, self.window)
-        return _out(out, self.wo)
+        return lc(_out(out, self.wo), "batch", "seq", None)
 
 
 def _fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, window: int):
@@ -291,7 +334,7 @@ class MLP(_Leaves):
         else:
             h = x @ self.w_up
             h = F.gelu(h, approximate="tanh") if self.act == "gelu" else F.relu(h) ** 2
-        return h @ self.w_down
+        return lc(h, "batch", "seq", "ffn") @ self.w_down
 
 
 # ---------------------------------------------------------------------------
@@ -344,11 +387,23 @@ class MLAttention(_Leaves):
             cache["ckv"][:, :x.shape[1]] = c_kv
             cache["krope"][:, :x.shape[1]] = k_rope
         k_nope, v = _project(c_kv, self.w_uk), _project(c_kv, self.w_uv)
-        scores = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
-                  + torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope)) * self.scale
-        scores = scores.float().masked_fill(~mask, -1e30)
-        w = torch.softmax(scores, dim=-1).to(v.dtype)
-        return _out(torch.einsum("bhqs,bshk->bqhk", w, v), self.wo)
+        args = (q_nope, q_rope, k_nope, k_rope, v)
+
+        def core(q_nope, q_rope, k_nope, k_rope, v):
+            scores = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
+                      + torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope)) * self.scale
+            scores = scores.float().masked_fill(~mask, -1e30)
+            w = torch.softmax(scores, dim=-1).to(v.dtype)
+            return torch.einsum("bhqs,bshk->bqhk", w, v)
+
+        if is_dtensor(q_nope):
+            # each rank attends its block of (batch, heads), as sdpa does
+            pl, shared, shared_grad = _heads_placements(q_nope)
+            out = local_fallback(core, args, (pl, pl, pl, shared, pl), pl,
+                                 (pl, pl, pl, shared_grad, pl))
+        else:
+            out = core(*args)
+        return lc(_out(out, self.wo), "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -380,11 +435,14 @@ def moe_capacity(cfg, N: int) -> tuple[int, int]:
 
 
 def moe_one_group(xg, router, w_gate, w_up, w_down, act: str, top_k: int,
-                  cap: int):
+                  cap: int, first: int = 0):
     """Sort-based capacity dispatch of G token groups, each routed, sorted
     and dropped on its own (the reference's ``_moe_one_group`` under its
     vmap): xg (G, n, D) -> (out (G, n, D), aux (G,) float32, dropped (G,)
-    assignments past their expert's ``cap`` slots).
+    assignments past their expert's ``cap`` slots).  Weights that hold
+    fewer experts than the router routes to are the block from expert
+    ``first`` on (a rank's block on a mesh): the other experts' slots
+    contribute nothing.
 
     The router and its softmax run in float32; the top-k gates are
     renormalised.  Assignments are stably sorted by expert; an
@@ -414,20 +472,73 @@ def moe_one_group(xg, router, w_gate, w_up, w_down, act: str, top_k: int,
     # kept slots are distinct: the dispatch writes each once
     xe = xg.new_zeros(G, E * cap + 1, D)
     xe[gi, slot] = xg[gi, order // K]
-    xe = xe[:, :E * cap].reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
+    E_w = w_gate.shape[0]
+    xe = xe[:, :E * cap].reshape(G, E, cap, D).transpose(0, 1)
+    if E_w < E:
+        xe = xe[first:first + E_w]
+    xe = xe.reshape(E_w, G * cap, D)
     if act in ("swiglu", "geglu"):
         g = torch.bmm(xe, w_gate)
         g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
         h = g * torch.bmm(xe, w_up)
     else:
         h = F.relu(torch.bmm(xe, w_up))
-    ye = torch.bmm(h, w_down).reshape(E, G, cap, D).transpose(0, 1)
+    ye = torch.bmm(h, w_down).reshape(E_w, G, cap, D)
+    if E_w < E:
+        ye = F.pad(ye, (0, 0, 0, 0, 0, 0, first, E - first - E_w))
+    ye = ye.transpose(0, 1)
     ye = torch.cat([ye.reshape(G, E * cap, D), ye.new_zeros(G, 1, D)], 1)
     contrib = ye[gi, slot] * gates.reshape(G, n * K).gather(1, order).to(
         xg.dtype)[..., None]
     per = torch.empty_like(contrib)
     per[gi, order] = contrib
     return per.reshape(G, n, K, D).sum(2), aux, (~keep).sum(-1)
+
+
+def _moe_on_mesh(dispatch, args):
+    """The MoE dispatch on a mesh, on local tensors (its sort, scatter and
+    gathers have no DTensor rule): each rank routes its groups over every
+    expert and computes the experts (or the expert widths) its block of
+    the weights holds, gathered whole over the axes that split the groups
+    (ZeRO-3's shards); the output is a partial sum over the axes that
+    split the experts, and the aux loss and the drop count come from the
+    first rank along them alone."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    xg, router, w_gate = args[0], args[1], args[2]
+    mesh = xg.device_mesh
+    groups = env_placements(("batch", None, None), xg.shape)
+    split = {i for i, p in enumerate(groups) if not isinstance(p, Shard)
+             and isinstance(w_gate.placements[i], Shard)}
+
+    def weight(w):
+        return tuple(w.placements[i] if i in split else Replicate()
+                     for i in range(mesh.ndim))
+
+    def own(p, i):        # an output's placement on mesh dimension i
+        return p if isinstance(p, Shard) else Partial() if i in split else Replicate()
+
+    out = tuple(own(p, i) for i, p in enumerate(groups))
+    per_group = tuple(own(p if isinstance(p, Shard) else Replicate(), i)
+                      for i, p in enumerate(env_placements(("batch",), xg.shape[:1])))
+    summed = tuple(Partial() if isinstance(p, Shard) or i in split else Replicate()
+                   for i, p in enumerate(groups))
+    experts = [i for i in split if w_gate.placements[i].dim == 0]
+    block = 0
+    for i in experts:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    E_w = router.shape[1] // math.prod(mesh.size(i) for i in experts)
+    lead = all(mesh.get_local_rank(i) == 0 for i in split)
+
+    def local(xg, router, w_gate, w_up, w_down):
+        out, aux, dropped = dispatch(xg, router, w_gate, w_up, w_down, block * E_w)
+        return out, aux * float(lead), dropped * int(lead)
+
+    ws = [weight(w) for w in args[2:]]
+    return local_fallback(
+        local, args, (groups, weight(router)) + tuple(ws), [out, per_group, per_group],
+        (out, summed) + tuple(tuple(Partial() if isinstance(groups[i], Shard) else p
+                                    for i, p in enumerate(w)) for w in ws))
 
 
 class MoE(_Leaves):
@@ -453,9 +564,19 @@ class MoE(_Leaves):
         B, S, D = x.shape
         G, cap = moe_capacity(self.cfg, B * S)
         e = self.experts
-        out, aux, dropped = moe_one_group(
-            x.reshape(G, B * S // G, D), self.router, e.w_gate, e.w_up,
-            e.w_down, self.cfg.act, self.cfg.top_k, cap)
+        xg = x.reshape(G, B * S // G, D)
+        if G > 1:
+            xg = lc(xg, "batch", None, None)
+        args = (xg, self.router, e.w_gate, e.w_up, e.w_down)
+
+        def dispatch(xg, router, w_gate, w_up, w_down, first=0):
+            return moe_one_group(xg, router, w_gate, w_up, w_down,
+                                 self.cfg.act, self.cfg.top_k, cap, first)
+
+        if is_dtensor(xg):
+            out, aux, dropped = _moe_on_mesh(dispatch, args)
+        else:
+            out, aux, dropped = dispatch(*args)
         self.dropped = dropped.sum()
         out = out.reshape(B, S, D)
         if hasattr(self, "shared"):

@@ -33,6 +33,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..device import resolve_device
+from ..distributed.sharding import distribute, is_dtensor, replicated
+from ..distributed.sharding import logical_constraint as lc
 from . import layers as L
 
 __all__ = [
@@ -154,7 +156,7 @@ class Block(nn.Module):
             x = x + f
         elif hasattr(self, "ffn"):
             x = x + self.ffn(self.norm2(x))
-        return x, aux
+        return lc(x, "batch", "seq", None), aux
 
 
 class EncoderBlock(nn.Module):
@@ -182,11 +184,11 @@ class LM(nn.Module):
     """The parameters of one config on one device, uninitialised (fill them
     with :func:`init_params` or :func:`repro_torch.convert.lm_params_from_arrays`).
     ``device=None`` is the card and raises without one; ``"cpu"`` runs
-    here."""
+    here; ``"meta"`` allocates nothing (shapes alone)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        dev = resolve_device(device)
+        dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         self.cfg = cfg
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = _param((V, d), cfg.dtype, dev)
@@ -201,31 +203,62 @@ class LM(nn.Module):
         self.device = self.embed.device
 
 
-def init_params(cfg, generator: torch.Generator, device=None) -> LM:
+def _init_leaf(name: str, p: torch.Tensor, generator: torch.Generator):
+    """Fill ``p`` (a whole leaf) by the init rule of :func:`init_params`."""
+    if name.endswith("scale") or name.endswith(".mamba.D"):
+        p.fill_(1.0)
+    elif name.endswith(".mamba.A_log"):
+        p.copy_(torch.log(torch.linspace(1.0, 16.0, p.shape[0],
+                                         dtype=torch.float32)))
+    elif name.endswith(".mamba.dt_bias"):
+        p.fill_(0.5)
+    elif p.ndim == 1:
+        p.zero_()
+    else:
+        std = min(0.02, 1.0 / math.sqrt(max(p.shape[-2], 1)))
+        w = torch.randn(p.shape, generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        p.copy_(w.mul_(std))
+        del w          # one float32 leaf alive at a time
+
+
+def init_params(cfg, generator: torch.Generator, device=None, mesh=None,
+                rules=None) -> LM:
     """A model with the reference's init rule (not its bits): ``*scale``
     leaves ones; Mamba-2's ``A_log`` ``log(linspace(1, 16, H))``, ``D``
     ones and ``dt_bias`` 0.5; other 1-D leaves zeros; the others normal
     with std ``min(0.02, 1/sqrt(shape[-2]))``, drawn in float32 from
     ``generator`` (on its own device) in ``named_parameters`` order, then
-    cast."""
-    model = LM(cfg, device)
+    cast.
+
+    With a ``mesh`` (a ``DeviceMesh`` of this process's group) and its
+    ``rules``, every parameter is a DTensor placed by
+    :func:`repro_torch.distributed.param_shardings`: every rank draws each
+    whole leaf in turn from the same seeded generator, as one process
+    does, and keeps its block, so the values are the one-process init's
+    bit for bit and one whole leaf at a time is the memory it takes
+    beyond the blocks."""
+    if mesh is None:
+        model = LM(cfg, device)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                _init_leaf(name, p, generator)
+        return model
+    from ..distributed.sharding import _owner, distribute, param_shardings
+
+    dev = resolve_device(device)
+    model = LM(cfg, "meta")
+    shardings = param_shardings(cfg, mesh, rules)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("scale") or name.endswith(".mamba.D"):
-                p.fill_(1.0)
-            elif name.endswith(".mamba.A_log"):
-                p.copy_(torch.log(torch.linspace(1.0, 16.0, p.shape[0],
-                                                 dtype=torch.float32)))
-            elif name.endswith(".mamba.dt_bias"):
-                p.fill_(0.5)
-            elif p.ndim == 1:
-                p.zero_()
-            else:
-                std = min(0.02, 1.0 / math.sqrt(max(p.shape[-2], 1)))
-                w = torch.randn(p.shape, generator=generator,
-                                dtype=torch.float32, device=generator.device)
-                p.copy_(w.mul_(std))
-                del w          # one float32 leaf alive at a time
+        for name, p in list(model.named_parameters()):
+            full = torch.empty(p.shape, dtype=p.dtype, device=dev)
+            _init_leaf(name, full, generator)
+            owner, leaf = _owner(model, name)
+            setattr(owner, leaf, nn.Parameter(
+                distribute(full, mesh, shardings[name].placements),
+                requires_grad=False))
+            del full
+    model.device = dev
     return model
 
 
@@ -240,12 +273,16 @@ def _check(model: LM, cfg):
 
 
 def _tokens(model: LM, tokens) -> torch.Tensor:
+    if is_dtensor(tokens):
+        return tokens.long()
     return torch.as_tensor(tokens, device=model.device).long()
 
 
 def _extra(model: LM, extras, key):
     if not extras or key not in extras:
         return None
+    if is_dtensor(extras[key]):
+        return extras[key]
     return torch.as_tensor(extras[key], device=model.device)
 
 
@@ -257,17 +294,49 @@ def _sinusoidal(positions, d, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
+def _embed_on_mesh(tokens, table):
+    """The embedding on a mesh: each rank looks up its batch block's tokens
+    in its block of the vocabulary, zeros for the others', a partial sum
+    over the axes that split the vocabulary (DTensor's own rule for a
+    sharded table returns a partial type its backward cannot convert)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..distributed.sharding import env_placements, local_fallback
+
+    mesh = table.device_mesh
+    vocab = env_placements(("vocab", None), table.shape)
+    tok = env_placements(("batch", None), tokens.shape)
+    split = [i for i, p in enumerate(vocab) if isinstance(p, Shard)]
+    block = 0
+    for i in split:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    rows = table.shape[0] // math.prod(mesh.size(i) for i in split)
+    out = tuple(Partial() if i in split else tok[i] for i in range(mesh.ndim))
+    grad = tuple(vocab[i] if i in split else
+                 Partial() if isinstance(tok[i], Shard) else Replicate()
+                 for i in range(mesh.ndim))
+
+    def lookup(tokens, table):
+        local = tokens - block * rows
+        inside = (local >= 0) & (local < rows)
+        x = F.embedding(torch.where(inside, local, 0), table)
+        return x * inside[..., None].to(x.dtype)
+
+    return local_fallback(lookup, (tokens, table), (tok, vocab), out, (tok, grad))
+
+
 def _embed(model: LM, tokens, cfg, extras) -> torch.Tensor:
     # F.embedding's backward sums the rows of repeated tokens in a fixed
     # order on the card; indexing's would add them atomically
-    x = F.embedding(tokens, model.embed)
+    x = (_embed_on_mesh(tokens, model.embed) if is_dtensor(model.embed)
+         else F.embedding(tokens, model.embed))
     pe = _extra(model, extras, "patch_embeds")
     # the patch prefix applies to full-sequence passes, never decode steps
     if cfg.frontend == "vision_stub" and pe is not None and x.shape[1] > 1:
         pe = pe.to(x.dtype) @ model.patch_proj
         n = pe.shape[1]
         x = pe[:, : x.shape[1]] if n >= x.shape[1] else torch.cat([pe, x[:, n:]], 1)
-    return x
+    return lc(x, "batch", "seq", None)
 
 
 def _encode(model: LM, frames, cfg) -> torch.Tensor:
@@ -355,6 +424,12 @@ def _causal_pass(model: LM, tokens, cfg, extras, caches):
     if _attn_layers(cfg):
         rope = _rope(cfg, positions, x.dtype)
         mask = L.causal_mask(S, _window(cfg), model.device)
+        if is_dtensor(x) and rope is not None:
+            # replicated DTensors: a remat layer's recomputed forward runs on
+            # the backward's thread, where plain tensors do not count as
+            # replicated
+            rope = tuple(distribute(t, x.device_mesh, replicated(x.device_mesh).placements)
+                         for t in rope)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
     remat = _remat(model, cfg) if caches is None else None
     for i, layer in enumerate(model.layers):
@@ -382,7 +457,7 @@ def forward_train(model: LM, tokens, cfg, extras: Optional[dict] = None,
     x, _, aux = _causal_pass(model, tokens, cfg, extras, None)
     if return_hidden:
         return model.final_norm(x), aux
-    return _logits(model, x, cfg), aux
+    return lc(_logits(model, x, cfg), "batch", "seq", "vocab"), aux
 
 
 def _cache_leaves(cfg, i: int, B: int, slots: int) -> dict:

@@ -9,7 +9,12 @@ Layout:  <dir>/step_<N>/
 * atomic commit: written to ``step_<N>.tmp``, then renamed;
 * integrity: a blake2b hash per leaf, checked on restore;
 * elasticity: whole tensors are stored; ``restore_checkpoint`` places
-  them on the ``device`` it is given (the reference's ``shardings``);
+  them on the ``device`` it is given (the reference's ``shardings``); a
+  mesh saves whole logical leaves too, streamed (``save_checkpoint`` of
+  ``(path, leaf)`` pairs, each leaf gathered as the writer takes it), and
+  a mesh of any shape reads them back leaf by leaf (:func:`iter_checkpoint`),
+  each rank keeping its blocks; either way no more than about
+  ``STREAM_BYTES`` of leaves (and one more leaf) are held at once;
 * retention: the ``keep`` newest checkpoints survive;
 * async: ``save_checkpoint(..., blocking=False)`` copies the leaves to the
   host, then hands the writing to a thread; a blocking save copies each
@@ -293,6 +298,17 @@ def _tensor(leaf) -> torch.Tensor:
         np.array(leaf, order="C"))
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _drained(items: list):
+    """The items of a list in order, each dropped from it as it is taken."""
+    items.reverse()
+    while items:
+        yield items.pop()
+
+
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
@@ -301,18 +317,37 @@ def _raw(t: torch.Tensor) -> memoryview:
     return memoryview(t.reshape(-1).view(torch.uint8).numpy())
 
 
-def _as_done(fn, items, workers: int):
+def _as_done(fn, items, workers: int, budget: float = math.inf, size=None):
     """``fn`` over ``items`` on a pool of threads, in the order given, at
-    most ``workers`` at a time; each result as soon as it is done."""
-    todo = list(items)[::-1]
+    most ``workers`` at a time; each result as soon as it is done.  The
+    items are taken one at a time on the calling thread, and none while
+    those running hold ``budget`` bytes or more (``size(item)`` each)."""
+    items, held = iter(items), 0
     with ThreadPoolExecutor(workers) as pool:
-        running = {pool.submit(fn, todo.pop()) for _ in range(min(workers, len(todo)))}
+        running = {}
+
+        def admit():
+            nonlocal held
+            while len(running) < workers and held < budget:
+                item = next(items, _END)
+                if item is _END:
+                    return
+                n = size(item) if size else 0
+                running[pool.submit(fn, item)] = n
+                held += n
+
+        admit()
         while running:
-            done, running = wait(running, return_when=FIRST_COMPLETED)
+            done, _ = wait(running, return_when=FIRST_COMPLETED)
             for fut in done:
-                if todo:
-                    running.add(pool.submit(fn, todo.pop()))
+                held -= running.pop(fut)
+            admit()
+            for fut in done:
                 yield fut.result()
+
+
+_END = object()
+STREAM_BYTES = 4 << 30      # leaves in flight in a streamed save or restore
 
 
 # ---------------------------------------------------------------------------
@@ -325,15 +360,28 @@ def save_checkpoint(directory, step: int, tree, *, host_id: int = 0, keep: int =
     ``blocking=False`` the leaves are copied to the host before this
     returns and a thread writes them; else each leaf is read (a device
     leaf copied to the host piece by piece) as the pool of threads gets to
-    it.  ``timings`` gets, once the write is done, ``wall_s`` and the
+    it.  ``tree`` may instead be an iterable of ``(path, leaf)`` pairs (a
+    blocking save only): they are taken in their order on the calling
+    thread, each when the pool has room for it (see ``STREAM_BYTES``), so a
+    generator can make each leaf when it is taken and the whole tree is
+    never held.  ``timings`` gets, once the write is done, ``wall_s`` and the
     seconds of ``host_s`` (the copies to the host), ``hash_s`` and
     ``compress_s`` summed over the pool's threads, and ``write_s`` (the
     file writes, on the calling thread or the writer thread)."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
-    arrays = {k: _tensor(v) if blocking else _host_copy(v)
-              for k, v in flatten_paths(tree).items()}
+    streamed = not isinstance(tree, (dict, list, tuple))
+    if streamed and not blocking:
+        raise ValueError("a save of (path, leaf) pairs is a blocking one")
+    if streamed:
+        items = ((k, _tensor(v)) for k, v in tree)
+    else:
+        # one thread a leaf, the largest first, so that no large leaf
+        # starts last; each is written when it is done
+        items = sorted(((k, _tensor(v) if blocking else _host_copy(v))
+                        for k, v in flatten_paths(tree).items()),
+                       key=lambda kv: -_nbytes(kv[1]))
     host_s = 0.0 if blocking else time.perf_counter() - t_start
 
     def _write():
@@ -343,8 +391,8 @@ def save_checkpoint(directory, step: int, tree, *, host_id: int = 0, keep: int =
         codec, compressor = _make_compressor()
         manifest = {"step": step, "codec": codec, "leaves": {}}
 
-        def work(key):
-            t = arrays.pop(key)
+        def work(item):
+            key, t = item
             times = [0.0, 0.0, 0.0]     # to the host, hash, compress
             hasher = hashlib.blake2b(digest_size=16)
             comp = compressor(t.numel() * t.element_size())
@@ -363,13 +411,15 @@ def save_checkpoint(directory, step: int, tree, *, host_id: int = 0, keep: int =
                     "hash": hasher.hexdigest()}
             return key, spec, parts, times
 
-        # one thread a leaf, the largest first, so that no large leaf starts
-        # last; each is written when it is done
-        keys = sorted(arrays, key=lambda k: -arrays[k].numel() * arrays[k].element_size())
         parts = {"host_s": host_s, "hash_s": 0.0, "compress_s": 0.0, "write_s": 0.0}
         with open(tmp / f"shard_{host_id}.msgpack", "wb") as f:
-            f.write(_map_header(len(keys)))
-            for key, spec, data, dts in _as_done(work, keys, _workers()):
+            # streamed, the leaves are counted as they come: the map's
+            # header takes its widest form (map32), filled in at the end
+            f.write(b"\xdf" + struct.pack(">I", 0) if streamed else _map_header(len(items)))
+            done = _as_done(work, items if streamed else _drained(items), _workers(),
+                            STREAM_BYTES if streamed else math.inf,
+                            lambda kv: _nbytes(kv[1]))
+            for key, spec, data, dts in done:
                 for part, dt in zip(("host_s", "hash_s", "compress_s"), dts):
                     parts[part] += dt
                 t0 = time.perf_counter()
@@ -378,6 +428,9 @@ def save_checkpoint(directory, step: int, tree, *, host_id: int = 0, keep: int =
                 for piece in data:
                     f.write(piece)
                 parts["write_s"] += time.perf_counter() - t0
+            if streamed:
+                f.seek(1)
+                f.write(struct.pack(">I", len(manifest["leaves"])))
         with open(tmp / "manifest.json", "w") as f:
             json.dump(manifest, f)
         if final.exists():
@@ -417,15 +470,25 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory, step: int, like=None, *, host_id: int = 0,
-                       device=None, timings: Optional[dict] = None):
-    """Restore into the structure of ``like`` (nested dicts and lists whose
-    leaves may be anything: only their paths are read), or, when ``like``
-    is None, every leaf of the checkpoint nested by its path.  Leaves come
-    back as tensors in their stored dtypes on ``device`` (the host when
-    None).  ``timings`` gets ``wall_s`` and the seconds of ``read_s``,
-    ``decompress_s``, ``hash_s`` and ``place_s`` (the bytes copied into
-    the leaf's tensor on ``device``) summed over the pool's threads."""
+def checkpoint_leaves(directory, step: int) -> dict:
+    """``{path: {"shape", "dtype", "hash"}}`` of the checkpoint's leaves,
+    from its manifest (no leaf is read)."""
+    with open(Path(directory) / f"step_{step}" / "manifest.json") as f:
+        return json.load(f)["leaves"]
+
+
+def iter_checkpoint(directory, step: int, paths=None, *, host_id: int = 0,
+                    device=None, budget: float = STREAM_BYTES,
+                    timings: Optional[dict] = None):
+    """``(path, tensor)`` for each leaf of ``paths`` (every leaf when None),
+    each as soon as it is read, in its stored dtype on ``device`` (the
+    host when None); the largest first, on the pool of threads, and no
+    more leaves started while those being read hold ``budget`` bytes.  A
+    caller that drops each leaf before it takes the next holds about
+    ``budget`` bytes and a leaf.  ``timings`` gets, at the end, ``wall_s``
+    and the seconds of ``read_s``, ``decompress_s``, ``hash_s`` and
+    ``place_s`` (the bytes copied into the leaf's tensor on ``device``)
+    summed over the pool's threads."""
     t_start = time.perf_counter()
     path = Path(directory) / f"step_{step}"
     with open(path / "manifest.json") as f:
@@ -436,15 +499,18 @@ def restore_checkpoint(directory, step: int, like=None, *, host_id: int = 0,
     codec = manifest.get("codec", "zstd")
     _check_codec(codec)
     specs = manifest["leaves"]
-    wanted = set(specs) if like is None else set(flatten_paths(like))
+    wanted = set(specs) if paths is None else set(paths)
     dev = torch.device("cpu" if device is None else device)
+
+    def nbytes(entry):
+        spec = specs[entry[0]]
+        return math.prod(spec["shape"]) * _DTYPES[spec["dtype"]].itemsize
 
     def work(entry):
         key, offset, size = entry
         spec = specs[key]
         dtype = _DTYPES[spec["dtype"]]
-        out = torch.empty(math.prod(spec["shape"]) * dtype.itemsize,
-                          dtype=torch.uint8, device=dev)
+        out = torch.empty(nbytes(entry), dtype=torch.uint8, device=dev)
         times = [0.0, 0.0, 0.0, 0.0]     # read, decompress, hash, place
         hasher, done = hashlib.blake2b(digest_size=16), 0
         for piece in _inflate(codec, _read_pieces(fd, offset, size, times), times):
@@ -459,20 +525,31 @@ def restore_checkpoint(directory, step: int, like=None, *, host_id: int = 0,
         return key, out.view(dtype).reshape(spec["shape"]), times
 
     parts = dict.fromkeys(("read_s", "decompress_s", "hash_s", "place_s"), 0.0)
-    out = {}
     with open(shard, "rb") as f:
         entries = sorted((e for e in _entries(f) if e[0] in wanted and e[0] in specs),
                          key=lambda e: -e[2])     # the largest first
+        missing = wanted - {e[0] for e in entries}
+        if missing:
+            raise IOError(f"checkpoint missing leaves: {sorted(missing)[:5]} ...")
         fd = f.fileno()
-        for key, t, dts in _as_done(work, entries, _workers()):
-            out[key] = t
+        for key, t, dts in _as_done(work, entries, _workers(), budget, nbytes):
             for part, dt in zip(parts, dts):
                 parts[part] += dt
-    missing = wanted - set(out)
-    if missing:
-        raise IOError(f"checkpoint missing leaves: {sorted(missing)[:5]} ...")
+            yield key, t
     if timings is not None:
         timings.update(parts, wall_s=time.perf_counter() - t_start, threads=_workers())
+
+
+def restore_checkpoint(directory, step: int, like=None, *, host_id: int = 0,
+                       device=None, timings: Optional[dict] = None):
+    """Restore into the structure of ``like`` (nested dicts and lists whose
+    leaves may be anything: only their paths are read), or, when ``like``
+    is None, every leaf of the checkpoint nested by its path.  Leaves come
+    back as tensors in their stored dtypes on ``device`` (the host when
+    None); ``timings`` as :func:`iter_checkpoint` gives them."""
+    out = dict(iter_checkpoint(directory, step, None if like is None else flatten_paths(like),
+                               host_id=host_id, device=device, budget=math.inf,
+                               timings=timings))
     return nest_paths(dict(sorted(out.items()))) if like is None else _rebuild(like, out)
 
 
@@ -487,10 +564,13 @@ class Checkpointer:
 
     def maybe_save(self, step: int, tree, force: bool = False, blocking: bool = True):
         """Save ``tree`` (or what ``tree()`` builds, called only when a
-        checkpoint is due) every ``every`` steps, or when ``force``."""
+        checkpoint is due) every ``every`` steps, or when ``force``; a tree
+        of None (a rank of a mesh that does not write) is not saved."""
         if force or (self.every and step % self.every == 0 and step > 0):
-            return save_checkpoint(self.directory, step,
-                                   tree() if callable(tree) else tree,
+            tree = tree() if callable(tree) else tree
+            if tree is None:
+                return None
+            return save_checkpoint(self.directory, step, tree,
                                    host_id=self.host_id, keep=self.keep,
                                    blocking=blocking)
         return None

@@ -2,7 +2,11 @@
 package's ``train/fault.py``).
 
 * ``PreemptionGuard`` installs SIGTERM/SIGINT handlers; the training loop
-  polls ``should_stop`` and flushes a checkpoint before it exits.
+  polls ``should_stop`` and flushes a checkpoint before it exits.  Over
+  the ranks of a process group it polls :meth:`PreemptionGuard.agreed`,
+  a max over the ranks: a rank that stopped alone would leave the others
+  waiting in the step's next collective, so all stop, and all take part
+  in the flush, when one is signalled.
 * ``StepWatchdog`` fires a callback when a step outlasts its wall-clock
   budget (checkpoint and abort, or re-dispatch).
 * Restarts resume from the newest checkpoint (``checkpoint.py``), which
@@ -38,6 +42,21 @@ class PreemptionGuard:
     @property
     def should_stop(self) -> bool:
         return self._stop.is_set()
+
+    def agreed(self, device) -> bool:
+        """``should_stop`` of any rank of the default process group (one
+        all-reduce of a flag on ``device``, the group's device); this
+        process's own without a group of several ranks."""
+        import torch
+        import torch.distributed as dist
+
+        if not (dist.is_initialized() and dist.get_world_size() > 1):
+            return self.should_stop
+        flag = torch.tensor([int(self.should_stop)], dtype=torch.int32, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if flag.item():
+            self._stop.set()
+        return bool(flag.item())
 
     def __exit__(self, *exc):
         for s, h in self._prev.items():

@@ -13,15 +13,26 @@ runs on the stacked leaf (a stacked norm scale (R, d) is factored across
 its layers, and a group's layers share one clip), as the reference does.
 Updates are computed in float32 and cast to each parameter's dtype, in
 place.
+
+On a mesh the parameters and gradients are DTensors.  Each moment is a
+DTensor placed as its parameter (a stacked leaf's layer axis replicated;
+Adafactor's statistics without the dimension they reduce): the per-card
+state.  AdamW updates each rank's blocks on their local tensors;
+:func:`global_norm` is the norm of the whole gradient (one all-reduce of
+each rank's share of the sum of squares); Adafactor's row and column
+means and its clip run as DTensor reductions across the ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
 
 from ..convert import reference_layout
+from ..distributed.sharding import MeshSharding, is_dtensor, moment_sharding, \
+    plain_as_replicated, spec_of, zeros_on
 
 __all__ = ["OptConfig", "init_opt_state", "apply_updates", "cosine_lr",
            "global_norm"]
@@ -54,9 +65,46 @@ def cosine_lr(cfg: OptConfig, step) -> torch.Tensor:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares over a dict (or list) of tensors, in
-    float32."""
-    leaves = grads.values() if isinstance(grads, dict) else grads
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    float32.  DTensors (placed as their parameters, none partial) count
+    whole: each rank sums the squares of its blocks, each divided by the
+    number of ranks that hold the same block, and one all-reduce adds the
+    shares; every rank gets the norm as a plain tensor."""
+    leaves = list(grads.values() if isinstance(grads, dict) else grads)
+    if not any(map(is_dtensor, leaves)):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = next(g for g in leaves if is_dtensor(g)).device_mesh
+    share = 0.0
+    for g in leaves:
+        if any(isinstance(p, Partial) for p in g.placements):
+            raise ValueError("global_norm takes gradients reduced to their "
+                             "parameters' placements, not partial sums")
+        copies = math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                           if isinstance(p, Replicate))
+        share = share + torch.sum(torch.square(g.to_local().float())) / copies
+    import torch.distributed as dist
+
+    if mesh.size() == dist.get_world_size():
+        dist.all_reduce(share)      # one collective over the whole mesh
+        return torch.sqrt(share)
+    total = DTensor.from_local(share, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.full_tensor())
+
+
+def _local(t):
+    """A DTensor's local block (a view: writes reach the DTensor), or the
+    tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _assign(dst, value):
+    """``dst.copy_(value)``; a DTensor ``value`` first takes ``dst``'s
+    placements."""
+    if is_dtensor(dst):
+        value = value.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(value)
 
 
 def _factored_dims(shape):
@@ -79,23 +127,32 @@ def init_opt_state(model, cfg: OptConfig, device=None) -> dict:
     (AdamW) or ``{"step", "vr", "vc"}`` (Adafactor), the moments ``{path:
     float32 tensor}``; ``step`` an int32 0-d tensor."""
     dev = model.device if device is None else device
+    leaves = _leaves(model)
+    first = {path: (ps[0][1], stacked) for path, ps, stacked in leaves}
+    meshed = str(dev) != "meta" and any(is_dtensor(p) for p, _ in first.values())
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    def zeros(path, shape, drop=None):
+        if not meshed:
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        p, stacked = first[path]
+        sh = moment_sharding(MeshSharding(p.device_mesh, spec_of(p)), stacked, drop)
+        return zeros_on(shape, sh, torch.float32, dev)
 
     shapes = {path: ((len(ps), *ps[0][1].shape) if stacked else tuple(ps[0][1].shape))
-              for path, ps, stacked in _leaves(model)}
+              for path, ps, stacked in leaves}
     state = {"step": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.kind == "adamw":
-        state["m"] = {p: zeros(s) for p, s in shapes.items()}
-        state["v"] = {p: zeros(s) for p, s in shapes.items()}
+        state["m"] = {p: zeros(p, s) for p, s in shapes.items()}
+        state["v"] = {p: zeros(p, s) for p, s in shapes.items()}
         return state
     if cfg.kind == "adafactor":
         state["vr"], state["vc"] = {}, {}
         for p, s in shapes.items():
             d = _factored_dims(s)
-            state["vr"][p] = zeros(s if d is None else s[:d[1]] + s[d[1] + 1:])
-            state["vc"][p] = zeros((1,) if d is None else s[:d[0]] + s[d[0] + 1:])
+            state["vr"][p] = (zeros(p, s) if d is None else
+                              zeros(p, s[:d[1]] + s[d[1] + 1:], d[1]))
+            state["vc"][p] = (zeros(p, (1,), 0) if d is None else
+                              zeros(p, s[:d[0]] + s[d[0] + 1:], d[0]))
         return state
     raise ValueError(cfg.kind)
 
@@ -115,41 +172,56 @@ def apply_updates(model, grads: dict, state: dict, cfg: OptConfig):
         bc1 = 1 - b1 ** step.float()
         bc2 = 1 - b2 ** step.float()
         for path, ps, stacked in _leaves(model):
+            ms, vs = _local(state["m"][path]), _local(state["v"][path])
             for r, (n, p) in enumerate(ps):
-                g = grads[n].float() * scale
-                m = state["m"][path][r] if stacked else state["m"][path]
-                v = state["v"][path][r] if stacked else state["v"][path]
+                g = _local(grads[n]).float() * scale
+                m = ms[r] if stacked else ms
+                v = vs[r] if stacked else vs
                 m.mul_(b1).add_((1 - b1) * g)
                 v.mul_(b2).add_((1 - b2) * g * g)
                 u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+                p = _local(p)
                 u = u + cfg.weight_decay * p.float()
                 p.copy_((p.float() - lr * u).to(p.dtype))
     elif cfg.kind == "adafactor":
         decay = 1.0 - step.float() ** -0.8
-        for path, ps, stacked in _leaves(model):
-            g = [grads[n].float() for n, _ in ps]
-            g = (torch.stack(g) if stacked else g[0]) * scale
-            vr, vc = state["vr"][path], state["vc"][path]
-            d = _factored_dims(g.shape)
-            if d is None:
-                vr.copy_(decay * vr + (1 - decay) * g * g)
-                u = g / (torch.sqrt(vr) + cfg.eps)
-            else:
-                r, c = d
-                vr.copy_(decay * vr + (1 - decay) * (g * g).mean(dim=c))
-                vc.copy_(decay * vc + (1 - decay) * (g * g).mean(dim=r))
-                rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
-                vhat = rfac.unsqueeze(c) * vc.unsqueeze(r)
-                u = g / (torch.sqrt(vhat) + cfg.eps)
-            # update clipping (Adafactor d = 1.0) over the whole leaf
-            rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp(rms_u, min=1.0)
-            pf = [p.float() for _, p in ps]
-            pf = torch.stack(pf) if stacked else pf[0]
-            new = pf - lr * (u + cfg.weight_decay * pf)
-            for i, (_, p) in enumerate(ps):
-                p.copy_((new[i] if stacked else new).to(p.dtype))
+        with _plain_replicated(grads):
+            _adafactor(model, grads, state, cfg, lr, scale, decay)
     else:
         raise ValueError(cfg.kind)
     state["step"] = step
     return model, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _plain_replicated(grads):
+    """On a mesh, plain tensors (the step's scalars) meeting DTensors count
+    as replicated."""
+    if not any(map(is_dtensor, grads.values())):
+        return contextlib.nullcontext()
+    return plain_as_replicated()
+
+
+def _adafactor(model, grads, state, cfg, lr, scale, decay):
+    for path, ps, stacked in _leaves(model):
+        g = [grads[n].float() for n, _ in ps]
+        g = (torch.stack(g) if stacked else g[0]) * scale
+        vr, vc = state["vr"][path], state["vc"][path]
+        d = _factored_dims(g.shape)
+        if d is None:
+            _assign(vr, decay * vr + (1 - decay) * g * g)
+            u = g / (torch.sqrt(vr) + cfg.eps)
+        else:
+            r, c = d
+            _assign(vr, decay * vr + (1 - decay) * (g * g).mean(dim=c))
+            _assign(vc, decay * vc + (1 - decay) * (g * g).mean(dim=r))
+            rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
+            vhat = rfac.unsqueeze(c) * vc.unsqueeze(r)
+            u = g / (torch.sqrt(vhat) + cfg.eps)
+        # update clipping (Adafactor d = 1.0) over the whole leaf
+        rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+        u = u / torch.clamp(rms_u, min=1.0)
+        pf = [p.float() for _, p in ps]
+        pf = torch.stack(pf) if stacked else pf[0]
+        new = pf - lr * (u + cfg.weight_decay * pf)
+        for i, (_, p) in enumerate(ps):
+            _assign(p, (new[i] if stacked else new).to(p.dtype))

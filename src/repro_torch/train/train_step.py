@@ -9,6 +9,16 @@ their gradients in float32 buffers, as the reference's ``g0`` does: a
 ``.grad``.  With ``compress_grads`` the gradients take the int8
 quantisation of :func:`repro_torch.distributed.fake_quantize_grads` before
 the update.
+
+On a mesh (inside :func:`repro_torch.distributed.axis_env` on a
+``DeviceMesh``, the parameters DTensors) each microbatch of the whole host
+batch is sharded over ``data`` as it starts, the logits take the
+reference's ``("batch", None, "vocab")`` constraint, the loss and the
+metrics come back replicated, and each gradient is reduced to its
+parameter's placements (and so quantised after the reduction, as the
+reference's are).  The cross-entropy's logsumexp and gather have no
+DTensor rule over a sharded vocabulary: each rank gathers its rows'
+logits over ``model`` and sums their losses, a partial sum over ``data``.
 """
 from __future__ import annotations
 
@@ -18,6 +28,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.collectives import fake_quantize_grads
+from ..distributed.sharding import current_env, distribute_batch, \
+    env_placements, is_dtensor, local_fallback, logical_constraint, on_mesh, \
+    replicate, summed_over
 from ..models.model import forward_train, lm_head_of
 from .optimizer import OptConfig, apply_updates
 
@@ -33,11 +46,21 @@ class TrainConfig:
     ce_chunk: int = 512          # sequence chunk of the cross-entropy
 
 
-def _chunk_loss(xc, head, labels):
-    logits = (xc @ head).float()
+def _ce_sums(logits, labels):
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None])[..., 0]
     return (lse - gold).sum(), (lse ** 2).sum()
+
+
+def _chunk_loss(xc, head, labels):
+    logits = logical_constraint((xc @ head).float(), "batch", None, "vocab")
+    if not (on_mesh() and is_dtensor(logits)):
+        return _ce_sums(logits, labels)
+    rows = env_placements(("batch", None, None), logits.shape)
+    lab = env_placements(("batch", None), labels.shape)
+    sums = summed_over(rows)
+    return local_fallback(_ce_sums, (logits, labels), (rows, lab),
+                          [sums, sums], (rows, lab))
 
 
 def _chunked_ce(x, head, labels, chunk: int):
@@ -67,10 +90,16 @@ def loss_fn(model, batch: dict, cfg, tcfg: TrainConfig):
     holds ``tokens`` and ``labels`` (B, S) and any extras (``frames``,
     ``patch_embeds``), numpy arrays or tensors."""
     extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    if on_mesh() and is_dtensor(model.embed):
+        mesh, rules = current_env()
+        batch = distribute_batch(batch, mesh, rules, model.device)
     x, aux = forward_train(model, batch["tokens"], cfg, extras or None,
                            return_hidden=True)
-    labels = torch.as_tensor(batch["labels"], device=model.device).long()
+    labels = batch["labels"]
+    labels = labels.long() if is_dtensor(labels) else \
+        torch.as_tensor(labels, device=model.device).long()
     nll, z = _chunked_ce(x, lm_head_of(model, cfg), labels, tcfg.ce_chunk)
+    nll, z, aux = replicate(nll), replicate(z), replicate(aux)
     loss = nll + tcfg.aux_loss_coef * aux + tcfg.z_loss_coef * z
     return loss, {"nll": nll, "aux": aux, "z": z}
 
@@ -82,7 +111,8 @@ def _value_and_grads(model, batch, cfg, tcfg):
                          "model.requires_grad_(True) on the model to train")
     loss, m = loss_fn(model, batch, cfg, tcfg)
     grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-    g = {n: torch.zeros_like(p) if gr is None else gr
+    g = {n: torch.zeros_like(p) if gr is None else
+         gr.redistribute(p.device_mesh, p.placements) if is_dtensor(gr) else gr
          for (n, p), gr in zip(named, grads)}
     return g, loss.detach(), {k: v.detach() for k, v in m.items()}
 
@@ -92,14 +122,15 @@ def grads_of(model, batch: dict, cfg, tcfg: TrainConfig = TrainConfig()):
     One microbatch: gradients in the parameters' dtype.  Several: the
     batch split along its leading axis into ``tcfg.microbatches`` equal
     parts in order, gradients summed in float32 and divided by their
-    number, the loss and metrics their means."""
+    number, the loss and metrics their means.  On a mesh the gradients
+    are DTensors placed as their parameters."""
     mb = tcfg.microbatches
     if mb <= 1:
         return _value_and_grads(model, batch, cfg, tcfg)
     B = len(batch["tokens"])
     if B % mb:
         raise ValueError(f"a batch of {B} does not split into {mb} microbatches")
-    acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    acc = {n: torch.zeros_like(p, dtype=torch.float32)
            for n, p in model.named_parameters()}
     loss_sum, ms = 0.0, []
     for i in range(mb):

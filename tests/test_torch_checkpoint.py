@@ -190,6 +190,69 @@ def test_pool_starts_items_in_order_and_returns_each_when_done():
     assert state["most"] <= 3
 
 
+
+def test_streamed_save_takes_leaves_as_the_pool_has_room(tmp_path, monkeypatch):
+    """A save of (path, leaf) pairs takes each from its generator only
+    while the leaves being written hold less than ``STREAM_BYTES``: no
+    more than that and one leaf are alive when a leaf is taken.  The
+    checkpoint is the tree's, and the JAX package reads its map32 header."""
+    import weakref
+
+    monkeypatch.setattr(tckpt, "_workers", lambda: 8)
+    monkeypatch.setattr(tckpt, "STREAM_BYTES", 3 * 4096)
+    tree = {"params": {f"w{i:02d}": torch.full((1024,), float(i)) for i in range(12)},
+            "opt": {"step": torch.tensor(5, dtype=torch.int32)}}
+    alive, seen = set(), []
+
+    def pairs():
+        for k, v in flatten_paths(tree).items():
+            seen.append(len(alive))
+            t = v.clone()
+            alive.add(k)
+            weakref.finalize(t, alive.discard, k)
+            yield k, t
+
+    save_checkpoint(tmp_path, 2, pairs())
+    assert len(seen) == 13 and max(seen) <= 4, seen
+    _assert_same(restore_checkpoint(tmp_path, 2, tree), tree)
+    like = {"params": {k: np.zeros(1024, np.float32) for k in tree["params"]},
+            "opt": {"step": np.int32(0)}}
+    out = jckpt.restore_checkpoint(tmp_path, 2, like)
+    assert int(out["opt"]["step"]) == 5
+    for k, v in tree["params"].items():
+        np.testing.assert_array_equal(np.asarray(out["params"][k]), v.numpy())
+    with pytest.raises(ValueError, match="blocking"):
+        save_checkpoint(tmp_path, 3, pairs(), blocking=False)
+
+
+def test_iter_checkpoint_reads_within_its_budget(tmp_path, monkeypatch):
+    """``iter_checkpoint`` reads no more leaves at once than its budget
+    holds, gives every leaf asked for once, and raises on one it lacks."""
+    import threading
+
+    monkeypatch.setattr(tckpt, "_workers", lambda: 8)
+    tree = {f"w{i:02d}": torch.full((1024,), float(i)) for i in range(12)}
+    save_checkpoint(tmp_path, 1, tree)
+    plain, lock, state = tckpt._inflate, threading.Lock(), {"now": 0, "most": 0}
+
+    def counted(*a):
+        with lock:
+            state["now"] += 1
+            state["most"] = max(state["most"], state["now"])
+        try:
+            yield from plain(*a)
+        finally:
+            with lock:
+                state["now"] -= 1
+
+    monkeypatch.setattr(tckpt, "_inflate", counted)
+    got = {k: v.clone() for k, v in tckpt.iter_checkpoint(tmp_path, 1, budget=2 * 4096)}
+    _assert_same(got, tree)
+    assert 1 <= state["most"] <= 2
+    assert [k for k, _ in tckpt.iter_checkpoint(tmp_path, 1, ["w03"])] == ["w03"]
+    with pytest.raises(IOError, match="missing leaves"):
+        next(tckpt.iter_checkpoint(tmp_path, 1, ["w03", "nope"]))
+
 # -- msgpack -------------------------------------------------------------------
 
 @pytest.mark.parametrize("n_keys,key_len,value_len", [
@@ -430,9 +493,11 @@ def test_launcher_resume_is_bit_for_bit(tmp_path, capsys, monkeypatch):
 
 
 def test_launcher_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="does not run on a mesh of cards"):
+    # a mesh of several ranks runs one process a rank, under a launcher
+    # (tests/test_torch_mesh_train.py); one process alone refuses it
+    with pytest.raises(ValueError, match="mesh takes 2 ranks, one a process"):
         launch_train.main(TINY + ["--data-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="does not run on a mesh of cards"):
+    with pytest.raises(ValueError, match="mesh takes 2 ranks, one a process"):
         launch_train.main(TINY + ["--model-parallel", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
