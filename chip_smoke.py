@@ -257,10 +257,13 @@ Phases, in order; any failure exits non-zero before the result line:
     allocated for the model and AdamW's moments, its temp bytes beside
     the step's measured peak over them, its bound beside
     ``_train_bounds``' and the measured step;
-22. the training step on a mesh of ranks (no kernel): (a) qwen2.5-3b at
-    full width and 4 of its 36 layers, B = 8, S = 512, AdamW, 3 steps,
+22. the training step on a mesh of ranks (no kernel), under the
+    reference's rules (``make_rules(cfg)``: qwen2.5-3b, deepseek and
+    jamba shard the sequence over ``model``): (a) qwen2.5-3b at
+    full width and 4 of its 36 layers, and mamba2-2.7b at full width and
+    4 of its 64, B = 8, S = 512, AdamW, 3 steps, each
     through ``python -m repro_torch.launch.train`` alone and under
-    ``torch.distributed.run`` (in three lanes of runs at once) on
+    ``torch.distributed.run`` (in four lanes of runs at once) on
     meshes 2 x 1 and 1 x 2 (one rank a card
     over NCCL; on one card a 1 x 1 NCCL mesh and a line that says no
     collective crossed ranks), in float32 (losses 1e-5, parameters after
@@ -268,10 +271,12 @@ Phases, in order; any failure exits non-zero before the result line:
     of the one-process run's own change from the initial parameters) and
     bf16 (losses 1e-2) against the one-process run; each rank's allocation
     for the model and its moments within 1 % of ``cell_memory`` on a
-    ``MeshShape`` of its mesh, its step times and peak memory; one
-    process resumes the first mesh's checkpoint ("resumed from step
+    ``MeshShape`` of its mesh, its step times and peak memory; whether
+    a 1 x 1 mesh is one process bit for bit; one
+    process resumes qwen's first mesh's checkpoint ("resumed from step
     3"); (b) with 4 cards or more, deepseek-v2-lite-16b at full width and
-    depth on 2 x 2 and qwen2.5-3b at full depth on 2 x 2 and 4 x 1, bf16,
+    depth on 2 x 2, qwen2.5-3b at full depth on 2 x 2 and 4 x 1 and
+    jamba-v0.1-52b at full width and one 8-layer period on 2 x 2, bf16,
     3 steps: per card step ms, peak memory and the allocation against
     ``cell_memory`` (left out, and said so, on fewer cards).
 
@@ -4504,6 +4509,9 @@ def drive_phase21(card, train_report, sweep) -> dict:
 # checkpoint is phase 20 (f)'s resume
 MESH_ARGS = ["--arch", "qwen2.5-3b", "--layers", "4", "--batch", "8", "--seq", "512",
              "--steps", "3", "--log-every", "1", "--lr", "3e-4", "--seed", "0"]
+# mamba2-2.7b at full width and 4 of its 64 layers, the same batch and steps
+MESH_SSM_ARGS = ["--arch", "mamba2-2.7b", *MESH_ARGS[2:]]
+MESH_MODELS = (("qwen2.5-3b", MESH_ARGS), ("mamba2-2.7b", MESH_SSM_ARGS))
 MESH_SHAPES = ((2, 1), (1, 2))
 MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_BF16_TOL = 1e-5, 2e-3, 1e-2
 # each parameter leaf after the steps against the one-process run's, as a
@@ -4513,8 +4521,8 @@ MESH_MOVE_TOL = 0.1
 MESH_MEM_TOL = 0.01          # each rank's allocation against cell_memory
 MESH_TIMEOUT = 600           # one launcher run, its processes included
 # (b) with 4 cards or more: full depth, bf16, 2 x 2 (and 4 x 1 for qwen)
-MESH_FULL = (("deepseek-v2-lite-16b", (2, 2)), ("qwen2.5-3b", (2, 2)),
-             ("qwen2.5-3b", (4, 1)))
+MESH_FULL = (("deepseek-v2-lite-16b", (2, 2), 0), ("qwen2.5-3b", (2, 2), 0),
+             ("qwen2.5-3b", (4, 1), 0), ("jamba-v0.1-52b", (2, 2), 8))
 MESH_FULL_ARGS = ["--batch", "8", "--seq", "512", "--steps", "3", "--log-every", "1",
                   "--lr", "3e-4", "--seed", "0"]
 
@@ -4706,75 +4714,93 @@ def drive_mesh_train(card, scratch) -> dict:
     if n_cards < 2:
         log("phase 22: one card, and NCCL takes one rank a card: the meshes run as "
             "1 x 1 over NCCL on it; no collective crossed ranks")
-    cfg32 = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4, dtype="float32")
     seed = int(MESH_ARGS[MESH_ARGS.index("--seed") + 1])
     runs = {}
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         tmp = Path(tmp)
-        # three lanes of runs at once (the runs' step times share the card):
-        # each mesh in float32, the first one's checkpoint then resumed by
-        # one process; each mesh in bf16; the one-process runs
-        def meshes_f32():
-            for i, (d, m) in enumerate(shapes):
-                tag = f"{d}x{m}"
-                runs[f"{tag} f32"] = _launcher_run(
-                    tmp, f"{tag}-f32", [*MESH_ARGS, "--ckpt-dir", str(tmp / f"ck-{tag}")],
-                    "float32", (d, m))
-                if i == 0:
-                    runs["resume"] = _launcher_run(
-                        tmp, "resume", [*MESH_ARGS, "--steps", "4", "--ckpt-dir",
-                                        str(tmp / f"ck-{tag}")], "float32")
+        # four lanes of runs at once (the runs' step times share the card):
+        # qwen's meshes in float32, then one process resumes the first
+        # one's checkpoint; mamba2's meshes in float32 and bf16; qwen's
+        # meshes in bf16 and its one-process bf16 run; the other
+        # one-process runs
+        def f32(arch, args, mesh):
+            d, m = mesh
+            ck = tmp / f"ck-{arch}-{d}x{m}"
+            return f"{arch} {d}x{m} f32", [*args, "--ckpt-dir", str(ck)], "float32", mesh
 
-        def meshes_bf16():
-            for d, m in shapes:
-                runs[f"{d}x{m} bf16"] = _launcher_run(tmp, f"{d}x{m}-bf16", MESH_ARGS,
-                                                      "bfloat16", (d, m))
+        def bf16(arch, args, mesh):
+            return f"{arch} {mesh[0]}x{mesh[1]} bf16", args, "bfloat16", mesh
 
-        def one_process():
-            runs["one bf16"] = _launcher_run(tmp, "one-bf16", MESH_ARGS, "bfloat16")
-            runs["one f32"] = _launcher_run(
-                tmp, "one-f32", [*MESH_ARGS, "--ckpt-dir", str(tmp / "ck-one")], "float32")
+        def one(arch, args, dtype):
+            if dtype == "bfloat16":
+                return f"{arch} one bf16", args, dtype, None
+            return (f"{arch} one f32", [*args, "--ckpt-dir", str(tmp / f"ck-{arch}-one")],
+                    dtype, None)
 
-        with ThreadPoolExecutor(3) as pool:
-            lanes = [pool.submit(f) for f in (meshes_f32, meshes_bf16, one_process)]
-            for lane in lanes:
-                lane.result()
-        base = [h["loss"] for h in runs["one f32"]["history"]]
-        base16 = [h["loss"] for h in runs["one bf16"]["history"]]
+        (qwen, qargs), (ssm, sargs) = MESH_MODELS
+        resume = ("resume", [*qargs, "--steps", "4", "--ckpt-dir",
+                             str(tmp / f"ck-{qwen}-{shapes[0][0]}x{shapes[0][1]}")],
+                  "float32", None)
+        lanes = [[*(f32(qwen, qargs, x) for x in shapes), resume],
+                 [*(f32(ssm, sargs, x) for x in shapes),
+                  *(bf16(ssm, sargs, x) for x in shapes)],
+                 [*(bf16(qwen, qargs, x) for x in shapes), one(qwen, qargs, "bfloat16")],
+                 [one(qwen, qargs, "float32"), one(ssm, sargs, "bfloat16"),
+                  one(ssm, sargs, "float32")]]
+
+        def lane(jobs):
+            for key, argv, dtype, mesh in jobs:
+                runs[key] = _launcher_run(tmp, key.replace(" ", "-"), argv, dtype, mesh)
+
+        with ThreadPoolExecutor(len(lanes)) as pool:
+            for done in [pool.submit(lane, jobs) for jobs in lanes]:
+                done.result()
         steps = int(MESH_ARGS[MESH_ARGS.index("--steps") + 1])
-        want = _ckpt_params(tmp / "ck-one", steps)
-        start = _initial_params(cfg32, seed)
-        assert start.keys() == want.keys()
         checks = []
-        for d, m in shapes:
-            tag = f"{d}x{m}"
-            r, r16 = runs[f"{tag} f32"], runs[f"{tag} bf16"]
-            losses = [h["loss"] for h in r["history"]]
-            loss_err = max(abs(a - b) for a, b in zip(losses, base))
-            # the checkpoint of the mesh's last step (the resume adds a later one)
-            got = _ckpt_params(tmp / f"ck-{tag}", steps)
-            assert got.keys() == want.keys()
-            param_err = max((got[k] - want[k]).abs().max().item() for k in want)
-            moved, worst = _moved_share(got, want, start)
-            bf16_err = max(abs(h["loss"] - b) for h, b in zip(r16["history"], base16))
-            log(f"  {tag}: float32 losses {losses} against one process {base}: "
-                f"{loss_err:.2e} (bar {MESH_LOSS_TOL}); parameters after {steps} steps "
-                f"{param_err:.2e} (bar {MESH_PARAM_TOL}), the worst leaf's gap "
-                f"{moved:.2e} of the one-process run's own change ({worst}; bar "
-                f"{MESH_MOVE_TOL}, unmoved parameters read 1); bf16 losses "
-                f"{bf16_err:.2e} (bar {MESH_BF16_TOL})")
-            assert len(losses) == len(base) == 3 and loss_err <= MESH_LOSS_TOL, (losses, base)
-            assert param_err <= MESH_PARAM_TOL, param_err
-            assert moved <= MESH_MOVE_TOL, (moved, worst)
-            assert bf16_err <= MESH_BF16_TOL, bf16_err
-            checks.append(dict(mesh=tag, loss_err=loss_err, param_err=param_err,
-                               moved_share=moved, moved_worst=worst,
-                               bf16_loss_err=bf16_err,
-                               memory=_check_memory(r, cfg32, card),
-                               memory_bf16=_check_memory(
-                                   r16, dataclasses.replace(cfg32, dtype="bfloat16"), card)))
-        del start, want
-        # the first mesh's checkpoint resumed by one process (phase 20 (f))
+        for arch, args in MESH_MODELS:
+            cfg32 = dataclasses.replace(get_config(arch), num_layers=int(
+                args[args.index("--layers") + 1]), dtype="float32")
+            base = [h["loss"] for h in runs[f"{arch} one f32"]["history"]]
+            base16 = [h["loss"] for h in runs[f"{arch} one bf16"]["history"]]
+            want = _ckpt_params(tmp / f"ck-{arch}-one", steps)
+            start = _initial_params(cfg32, seed)
+            assert start.keys() == want.keys()
+            for d, m in shapes:
+                tag = f"{arch} {d}x{m}"
+                r, r16 = runs[f"{tag} f32"], runs[f"{tag} bf16"]
+                losses = [h["loss"] for h in r["history"]]
+                loss_err = max(abs(a - b) for a, b in zip(losses, base))
+                # the checkpoint of the mesh's last step (the resume adds a later one)
+                got = _ckpt_params(tmp / f"ck-{arch}-{d}x{m}", steps)
+                assert got.keys() == want.keys()
+                param_err = max((got[k] - want[k]).abs().max().item() for k in want)
+                moved, worst = _moved_share(got, want, start)
+                losses16 = [h["loss"] for h in r16["history"]]
+                bf16_err = max(abs(a - b) for a, b in zip(losses16, base16))
+                exact = (losses == base and losses16 == base16
+                         and all(torch.equal(got[k], want[k]) for k in want))
+                log(f"  {tag}: float32 losses {losses} against one process {base}: "
+                    f"{loss_err:.2e} (bar {MESH_LOSS_TOL}); parameters after {steps} "
+                    f"steps {param_err:.2e} (bar {MESH_PARAM_TOL}), the worst leaf's gap "
+                    f"{moved:.2e} of the one-process run's own change ({worst}; bar "
+                    f"{MESH_MOVE_TOL}, unmoved parameters read 1); bf16 losses "
+                    f"{bf16_err:.2e} (bar {MESH_BF16_TOL}); bit for bit one process: "
+                    f"{exact}")
+                assert len(losses) == len(base) == 3 and loss_err <= MESH_LOSS_TOL, (
+                    tag, losses, base)
+                assert param_err <= MESH_PARAM_TOL, (tag, param_err)
+                assert moved <= MESH_MOVE_TOL, (tag, moved, worst)
+                assert bf16_err <= MESH_BF16_TOL, (tag, bf16_err)
+                checks.append(dict(arch=arch, mesh=f"{d}x{m}", loss_err=loss_err,
+                                   param_err=param_err, moved_share=moved,
+                                   moved_worst=worst, bf16_loss_err=bf16_err,
+                                   bit_for_bit=exact,
+                                   memory=_check_memory(r, cfg32, card),
+                                   memory_bf16=_check_memory(
+                                       r16, dataclasses.replace(cfg32, dtype="bfloat16"),
+                                       card)))
+            del start, want
+        # qwen's first mesh's checkpoint resumed by one process (phase 20 (f))
         resume = runs.pop("resume")
         assert resume["lines"][0] == "resumed from step 3", resume["lines"]
         assert [h["step"] for h in resume["history"]] == [3], resume["history"]
@@ -4786,22 +4812,28 @@ def drive_mesh_train(card, scratch) -> dict:
 
 
 def drive_mesh_full(card, scratch) -> dict:
-    """Phase 22 (b): with 4 cards or more, full depth in bf16."""
+    """Phase 22 (b): with 4 cards or more, full width in bf16 (full depth
+    but for jamba's one period)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
 
     n_cards = torch.cuda.device_count()
     if n_cards < 4:
-        log(f"phase 22 (b): left out: {n_cards} card(s) visible; deepseek-v2-lite-16b "
-            f"and qwen2.5-3b at full depth on 2 x 2 and 4 x 1 need 4")
+        log(f"phase 22 (b): left out: {n_cards} card(s) visible; deepseek-v2-lite-16b, "
+            f"qwen2.5-3b and jamba-v0.1-52b on 2 x 2 and 4 x 1 need 4")
         return {"left_out": f"{n_cards} card(s)"}
     out = []
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        for arch, (d, m) in MESH_FULL:
+        for arch, (d, m), layers in MESH_FULL:
+            cfg = get_config(arch)
+            depth = ["--layers", str(layers)] if layers else []
             r = _launcher_run(Path(tmp), f"{arch}-{d}x{m}",
-                              ["--arch", arch, *MESH_FULL_ARGS], get_config(arch).dtype,
-                              (d, m))
-            out.append(dict(arch=arch, mesh=f"{d}x{m}", lines=r["lines"],
-                            memory=_check_memory(r, get_config(arch), card)))
+                              ["--arch", arch, *depth, *MESH_FULL_ARGS], cfg.dtype, (d, m))
+            if layers:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            out.append(dict(arch=arch, mesh=f"{d}x{m}", layers=cfg.num_layers,
+                            lines=r["lines"], memory=_check_memory(r, cfg, card)))
     return {"runs": out}
 
 
@@ -5021,10 +5053,12 @@ def main() -> int:
     # as a cell on a 1 x 1 mesh held against the card's allocation
     log(json.dumps({"dryrun_report": drive_phase21(card, train_report, sweep)}))
 
-    # 22. the training step on a mesh of ranks: qwen2.5-3b (4 layers)
-    # through the launcher under torch.distributed.run against one
-    # process, each rank's allocation against cell_memory, the resume; with
-    # 4 cards deepseek-v2-lite-16b and qwen2.5-3b at full depth
+    # 22. the training step on a mesh of ranks under the reference's
+    # rules: qwen2.5-3b and mamba2-2.7b (4 layers each) through the
+    # launcher under torch.distributed.run against one process, each
+    # rank's allocation against cell_memory, the resume; with 4 cards
+    # deepseek-v2-lite-16b and qwen2.5-3b at full depth, jamba-v0.1-52b at
+    # one period
     log(json.dumps({"mesh_train_report": drive_phase22(card, scratch)}))
 
     names = {e["name"] for e in entries}

@@ -49,6 +49,7 @@ __all__ = [
     "env_placements",
     "is_dtensor",
     "local_fallback",
+    "local_rows",
     "logical_constraint",
     "moment_sharding",
     "on_mesh",
@@ -444,6 +445,22 @@ def env_placements(names, shape) -> tuple:
     ``shape`` in the current environment."""
     mesh, rules = _env()
     return MeshSharding(mesh, tuple(_resolve_spec(names, shape, mesh, rules))).placements
+
+
+def local_rows(placements, mesh, size: int, dim: int = 1) -> tuple:
+    """(offset, rows): this rank's block of dimension ``dim`` (``size``
+    long) of a tensor placed as ``placements`` on ``mesh``, as
+    :func:`shard_of` cuts it; ``(0, size)`` where no mesh axis shards it.
+    A local function over a sequence-sharded tensor reads its rows'
+    positions from it (an attention core's mask rows)."""
+    from torch.distributed.tensor import Shard
+
+    offset, rows = 0, size
+    for mdim, pl in enumerate(placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            rows //= mesh.size(mdim)
+            offset += mesh.get_local_rank(mdim) * rows
+    return offset, rows
 
 
 def summed_over(placements) -> tuple:

@@ -39,8 +39,17 @@ parameters          each leaf's block over the model axis (the rules'
 kv heads            sharded with the heads when the rule resolves; when
                     only the query heads shard, the card computes the kv
                     heads its queries read, ``max(1, KV * H_l / H)``
-Mamba-2             by heads: ``di / m`` inner width (``P`` per head),
-                    B and C (one group) whole
+Mamba-2             train: the whole block on the card's batch rows,
+                    its whole sequence, every leaf gathered (what the
+                    meshed step runs on local tensors); prefill and
+                    decode (no meshed serving runs): by heads, ``di / m``
+                    inner width (``P`` per head), B and C (one group)
+                    whole
+sequence            with ``rules["seq"] = "model"`` the activations
+                    shard along the sequence between the products, not
+                    the work: the trace keeps the tensor-parallel widths
+                    (a core's S / m query rows against all S keys is the
+                    work of H / m heads over S rows)
 MoE, experts split  ``E / m`` experts with the global slots per expert;
                     the router is cut to them, ``top_k`` to at most them
 optimizer           AdamW / Adafactor on the card's parameter shards
@@ -69,11 +78,44 @@ all-to-all          two per MoE layer per use when the experts shard:
 kv_seq (long_500k)  per attention layer: an all-gather of the query and
                     an all-reduce of the float32 partial output with its
                     max and sum
+Mamba-2 (train)     each leaf the model axis shards gathered whole, once
+                    per use (no all-reduce of ``out_proj``'s output; the
+                    model axis' ranks compute the same gradients)
 ==================  ====================================================
 
-Not modelled: sequence parallelism (``rules["seq"]``), the vocab-parallel
-softmax statistics of the loss and the gated norm's statistics across a
-sharded Mamba width (vectors of floats a token).  A cell that raises is a
+With the sequence sharded over the model axis (train and prefill of a
+``seq_shard`` config, the axis above one card and dividing the
+sequence), what the meshed step does, per use (each layer's
+redistributions are explicit, ``layers._seq_for``, so DTensor moves
+nothing on its own at a product):
+
+==================  ====================================================
+all-gather          the input (T, d) of each mixer (attention, MLA,
+                    Mamba-2) and of each MLP, once (its products'
+                    input); a GQA core's k (B, S, KV, hd), and v where
+                    the kv heads shard; an MoE layer's tokens (its
+                    groups cut across the sequence); the loss's head
+                    whole, once; where ``wo`` or ``w_down`` does not
+                    shard its rows, its input whole
+all-to-all          the queries (heads to sequence) at their ``"seq"``
+                    site and the core's output back before ``wo``; the
+                    MLP's hidden state (its width to sequence) at its
+                    site and back before ``w_down``
+reduce-scatter      in place of the all-reduce of each product whose
+                    contracted dimension shards over model (``wo``,
+                    ``w_down``, the embedding's lookup) and of an MoE
+                    layer's partial output: the sum lands on the
+                    sequence's split; train: the head's gradient
+all-reduce          train: the gradient of each leaf the model axis
+                    does not shard (a partial sum over the sequence's
+                    split), Mamba-2's aside (its output is whole along
+                    the sequence: the backward gathers its gradient)
+==================  ====================================================
+
+Not modelled: the vocab-parallel softmax statistics of the loss and the
+scalar sums of the loss (floats a step).  The MoE layers keep the
+reference's all-to-all dispatch above, which the port's meshed step does
+not run (it gathers ZeRO-3's expert shards).  A cell that raises is a
 record with its error and traceback; the CLI exits 1 if any cell failed.
 """
 from __future__ import annotations
@@ -330,12 +372,15 @@ class _Shards:
         return iter(self._params.items())
 
 
-def _card_model(cfg, mesh, rules, device) -> LM:
+def _card_model(cfg, mesh, rules, device, whole_mamba: bool = False) -> LM:
     """``LM(cfg)`` with every parameter replaced by one card's block (the
     rules of the module docstring) and the modules' widths set to match;
-    under a ``FakeTensorMode`` nothing is allocated."""
+    under a ``FakeTensorMode`` nothing is allocated.  ``whole_mamba``
+    keeps the Mamba-2 leaves whole (the meshed training step gathers
+    them)."""
     model = LM(cfg, device)
-    shapes = {n: list(sharding_for_spec(s, ax, mesh, rules).shard_shape(s))
+    shapes = {n: list(s if whole_mamba and ".mamba." in n else
+                      sharding_for_spec(s, ax, mesh, rules).shard_shape(s))
               for n, (s, _, ax) in _param_leaves(cfg).items()}
     for name, mod in model.named_modules():
         pre = f"{name}." if name else ""
@@ -417,7 +462,7 @@ def trace_step(cfg, shape, mesh, rules, tcfg: TrainConfig | None = None) -> dict
     B, S = _card_batch(cfg, shape, mesh, rules)
     dt = L.torch_dtype(cfg.dtype)
     with FakeTensorMode():
-        model = _card_model(cfg, mesh, rules, dev)
+        model = _card_model(cfg, mesh, rules, dev, whole_mamba=shape.kind == "train")
         # the frontend stubs' embeddings arrive in the model's dtype here
         # (the reference declares them bf16, as the argument bytes count them)
         extras = {k: torch.empty(s, dtype=dt, device=dev)
@@ -522,6 +567,16 @@ def _used(name: str, kind: str) -> bool:
                                     or ".cross.wk" in name or ".cross.wv" in name)
 
 
+def _seq_parallel(cfg, shape, mesh, rules) -> bool:
+    """Whether the step shards the sequence over the model axis: the
+    rules put ``"seq"`` there (``seq_shard`` configs), the axis holds
+    more than one card and the sequence divides over it (the rules'
+    guard); decode's one token never splits."""
+    m = mesh_axes(mesh).get("model", 1)
+    return (shape.kind != "decode" and rules.get("seq") == "model" and m > 1
+            and shape.seq_len % m == 0)
+
+
 def count_collectives(cfg, shape, mesh, rules) -> dict:
     """One card's collectives by kind (result bytes), with ``counts``: the
     rules of the module docstring."""
@@ -534,6 +589,8 @@ def count_collectives(cfg, shape, mesh, rules) -> dict:
     # a collective over an axis of one card moves nothing
     split = {a for a, n in sizes.items() if n > 1}
     batch_axes = _batch_sharding(mesh, shape.global_batch, rules).axes_used() & split
+    sp = _seq_parallel(cfg, shape, mesh, rules)
+    m = sizes.get("model", 1)
     out = {k: 0.0 for k in COLLECTIVES}
     counts = {k: 0 for k in COLLECTIVES}
 
@@ -545,6 +602,7 @@ def count_collectives(cfg, shape, mesh, rules) -> dict:
 
     G, cap = moe_capacity(cfg, T) if cfg.n_experts else (0, 0)
     E_l = cfg.n_experts
+    head = "embed" if cfg.tie_embeddings else "lm_head"
     for name, (shp, dt, axes) in _param_leaves(cfg).items():
         if not _used(name, kind):
             continue
@@ -552,9 +610,11 @@ def count_collectives(cfg, shape, mesh, rules) -> dict:
         shard = _nbytes(sh.shard_shape(shp), dt)
         used = sh.axes_used() & split
         spec = sh.spec + (None,) * (len(shp) - len(sh.spec))
+        dims = _contracted(name, len(shp))
         on_model = "model" in split and any(
             s == "model" or (isinstance(s, tuple) and "model" in s)
-            for i, s in enumerate(spec) if i in _contracted(name, len(shp)))
+            for i, s in enumerate(spec) if i in dims)
+        mamba = ".mamba." in name and kind == "train"
         if ".experts." in name:
             E_l = sh.shard_shape(shp)[0]
             rows = G * E_l * cap
@@ -562,18 +622,63 @@ def count_collectives(cfg, shape, mesh, rules) -> dict:
             rows = T_enc
         else:
             rows = T
-        if on_model:
-            dims = _contracted(name, len(shp))
+        if mamba:
+            # the meshed step gathers every leaf of the block whole
+            if "model" in used:
+                add("all-gather", shard * m, uses)
+        elif on_model:
             width = math.prod(s for i, s in enumerate(shp)
                               if i not in dims and not (".experts." in name and i == 0))
-            add("all-reduce", rows * width * act, uses)
+            if sp and ".experts." not in name:
+                # the sum lands on the sequence's split
+                add("reduce-scatter", rows * width * act // m, uses)
+            elif not sp:
+                add("all-reduce", rows * width * act, uses)
+        if sp and name == head and "model" in used:
+            # the loss's head, gathered whole once for the rank's rows
+            add("all-gather", shard * m)
+            if kind == "train":
+                add("reduce-scatter", shard)
         if "data" in used:
             add("all-gather", shard * sizes["data"], uses)
             if kind == "train":
                 add("reduce-scatter", shard)
         if kind == "train" and batch_axes - used:
             add("all-reduce", shard)
+        if kind == "train" and sp and "model" not in used and not mamba:
+            add("all-reduce", shard)        # a partial sum over the sequence's split
     d = cfg.d_model
+    if sp:
+        def sharded(leaf):        # whether a leaf shards over the model axis
+            shp, _, axes = _param_leaves(cfg)[leaf]
+            return "model" in sharding_for_spec(shp, axes, mesh, rules).axes_used()
+
+        def mlp(pre, f):          # a dense MLP or the shared experts
+            add("all-gather", T * d * act, uses)                  # its input
+            if sharded(pre + "w_up"):
+                add("all-to-all", T * f * act // m, uses)         # ffn -> seq site
+            add("all-to-all" if sharded(pre + "w_down") else "all-gather",
+                T * f * act // (m if sharded(pre + "w_down") else 1), uses)
+
+        for i in range(cfg.num_layers):
+            pre = f"layers.{i}."
+            add("all-gather", T * d * act, uses)    # the mixer's input, once
+            if cfg.is_attn_layer(i) and cfg.attention != "mla":
+                qo = T * cfg.num_heads * cfg.hd * act
+                if sharded(pre + "attn.wq"):
+                    add("all-to-all", qo // m, uses)              # heads -> seq site
+                kv = B * S * cfg.num_kv_heads * cfg.hd * act
+                add("all-gather", kv, uses * (1 + sharded(pre + "attn.wv")))   # k (, v)
+                add("all-to-all" if sharded(pre + "attn.wo") else "all-gather",
+                    qo // (m if sharded(pre + "attn.wo") else 1), uses)   # seq -> wo
+            if cfg.is_moe_layer(i):
+                add("all-gather", T * d * act, uses)              # the tokens' groups
+                add("reduce-scatter", T * d * act // m, uses)     # the partial output
+                if cfg.n_shared_experts:
+                    mlp(pre + "ffn.shared.", cfg.n_shared_experts
+                        * (cfg.moe_d_ff or cfg.d_ff))
+            elif cfg.d_ff:
+                mlp(pre + "ffn.", cfg.d_ff)
     if cfg.n_experts and E_l < cfg.n_experts:
         n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
         add("all-to-all", G * E_l * cap * d * act, 2 * uses * n_moe)

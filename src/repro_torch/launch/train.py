@@ -22,10 +22,11 @@ As the reference's launcher does, the parameters are placed by the rules'
 ``tree_shardings`` (ZeRO-3 over ``data`` with ``cfg.fsdp``), the moments
 take their parameters' placements, and each step's batch (every rank
 draws the same one from the pipeline) is sharded over ``data``; the
-activations take the reference's logical constraints, with ``"seq"``
-replicated (tensor parallelism over ``model``; the reference's
-``seq_shard`` configs resolve it to ``model``, which this launcher does
-not yet do).  Rank 0 prints the lines and writes ``--metrics-out`` and
+activations take the reference's logical constraints under the same
+``make_rules(cfg)``: tensor parallelism over ``model``, and for a
+``seq_shard`` config (``rules["seq"] = "model"``) the sequence sharded
+over ``model`` at the ``"seq"`` sites, so ``--seq`` must divide over the
+model ranks.  Rank 0 prints the lines and writes ``--metrics-out`` and
 the checkpoints: whole logical leaves, each gathered as the writer takes
 it and read back leaf by leaf on a mesh of any shape, each rank keeping
 its blocks.  The batch must divide by ``d`` times ``--microbatches``.  A
@@ -199,9 +200,11 @@ def _put_block(dst, whole, name):
         dst.copy_(whole)
 
 
-def _check_mesh_run(args):
+def _check_mesh_run(args, cfg):
     """Refuse a mesh that this run's ranks (1 without a launcher) cannot
-    hold, and a batch that does not divide over it."""
+    hold, a batch that does not divide over it, and a sequence that a
+    ``seq_shard`` config cannot split over its model ranks (the rules'
+    divisibility guard would leave it whole without a word)."""
     d, m = args.data_parallel, args.model_parallel
     world = int(os.environ.get("WORLD_SIZE", 1))
     if d * m != world:
@@ -211,6 +214,10 @@ def _check_mesh_run(args):
     if args.batch % (d * args.microbatches):
         raise ValueError(f"a batch of {args.batch} does not divide over {d} data "
                          f"ranks times {args.microbatches} microbatches")
+    if make_rules(cfg)["seq"] == "model" and args.seq % m:
+        raise ValueError(f"{cfg.name} shards the sequence over the model axis "
+                         f"(seq_shard: rules[\"seq\"] = \"model\"); --seq {args.seq} "
+                         f"does not divide over {m} model ranks")
 
 
 def main(argv=None):
@@ -242,11 +249,10 @@ def main(argv=None):
     meshed = "WORLD_SIZE" in os.environ or args.data_parallel * args.model_parallel > 1
     mesh = rules = None
     if meshed:
-        _check_mesh_run(args)
+        _check_mesh_run(args, cfg)
         dev = rank_device(args.device)
         mesh = make_host_mesh(args.data_parallel, args.model_parallel, device=dev.type)
-        # tensor parallelism over "model": the sequence stays whole
-        rules = make_rules(cfg, seq=None)
+        rules = make_rules(cfg)
     else:
         dev = resolve_device(args.device)
     try:

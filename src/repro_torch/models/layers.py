@@ -19,10 +19,17 @@ Conventions, as in the JAX package's layers:
 * The products the reference writes as einsums are ``matmul``/``einsum``
   here: no fused attention kernel stands in for them.
 * Activations take the reference's ``logical_constraint`` names at its
-  sites (no-ops off a mesh).  On a mesh of DTensors two parts run on
-  local tensors: the attention cores (each rank its block of batch and
-  heads), and the MoE dispatch, whose sort, scatter and gathers have no
-  DTensor sharding rule (each rank its groups and its experts).
+  sites (no-ops off a mesh).  On a mesh of DTensors three parts run on
+  local tensors: the attention cores (each rank its block of the
+  queries: (batch, seq) where the rules shard the sequence, the keys and
+  values gathered and the mask cut to the rank's rows, else (batch,
+  heads)), the MoE dispatch, whose sort, scatter and gathers have no
+  DTensor sharding rule (each rank its groups and its experts), and the
+  Mamba-2 block (each rank its batch rows' whole sequence, the leaves
+  gathered).  Where the rules shard the sequence, each branch's input is
+  gathered (or split along its width) before its products and its output
+  placed back on the sequence's split explicitly (``_seq_for``,
+  ``_rows``): PyTorch 2.11's DTensor flattens no sharded sequence.
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import env_placements, is_dtensor, local_fallback
+from ..distributed.sharding import env_placements, is_dtensor, local_fallback, \
+    local_rows
 from ..distributed.sharding import logical_constraint as lc
 
 __all__ = [
@@ -146,35 +154,57 @@ def decode_mask(slots: int, index: int, window: int, device) -> torch.Tensor:
     return (torch.arange(slots, device=device) < filled)[None, :]
 
 
-def _heads_placements(q):
-    """On a mesh: the placements of (B, S, heads, ...) activations (the
-    reference's names for queries), and those of a tensor the heads
-    share, (B, S, ...), and of the gradient each rank gives it (a partial
-    sum over the mesh axes that split the heads)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+def _splits(p, dim: int) -> bool:
+    from torch.distributed.tensor import Shard
 
-    heads = env_placements(("batch", None, "heads") + (None,) * (q.ndim - 3), q.shape)
-    shared = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-                   for p in heads)
-    shared_grad = tuple(Partial() if isinstance(p, Shard) and p.dim == 2 else s
-                        for p, s in zip(heads, shared))
-    return heads, shared, shared_grad
+    return isinstance(p, Shard) and p.dim == dim
+
+
+def _core_placements(q, seq: bool):
+    """On a mesh, an attention core's placements: those of the queries and
+    the output, (B, S, heads, ...) as ``("batch", "seq", "heads")`` resolve
+    (``seq`` False: the sequence whole); of a key or value tensor, (B, S,
+    heads, ...) gathered whole along the sequence, and of the gradient
+    each rank gives it (a partial sum over the mesh axes that split the
+    queries' rows); and of a tensor the heads share, (B, S, ...), with
+    its gradient (a partial sum over the mesh axes that split the heads
+    or the rows)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    qp = env_placements(("batch", "seq" if seq else None, "heads")
+                        + (None,) * (q.ndim - 3), q.shape)
+    kv = tuple(Replicate() if _splits(p, 1) else p for p in qp)
+    kv_grad = tuple(Partial() if _splits(p, 1) else p for p in qp)
+    shared = tuple(p if _splits(p, 0) else Replicate() for p in qp)
+    shared_grad = tuple(p if _splits(p, 0) else Partial() if p.is_shard() else Replicate()
+                        for p in qp)
+    return qp, kv, kv_grad, shared, shared_grad
+
+
+def _mask_rows(mask, q, qp):
+    """The rows of an (Sq, Sk) mask that this rank's block of the queries
+    placed as ``qp`` holds (the whole mask when the rows are whole)."""
+    if mask is None:
+        return None
+    off, rows = local_rows(qp, q.device_mesh, q.shape[1])
+    return mask[off:off + rows]
 
 
 def _sdpa_on_mesh(q, k, v, mask, groups: int):
-    """:func:`sdpa` on a mesh: each rank attends its block of (batch,
-    heads) on local tensors (the products' batched dimensions would be
-    flattened across two sharded axes, which DTensor refuses); a kv head
-    whose group the heads' split cuts is repeated for its group first."""
-    from torch.distributed.tensor import Shard
-
-    pl, _, _ = _heads_placements(q)
-    ways = math.prod(q.device_mesh.size(i) for i, p in enumerate(pl)
-                     if isinstance(p, Shard) and p.dim == 2)
+    """:func:`sdpa` on a mesh, on local tensors (the products' batched
+    dimensions would be flattened across two sharded axes, which DTensor
+    refuses): each rank attends its block of the queries, (batch, seq)
+    where the rules shard the sequence (keys and values gathered whole
+    along it, the mask cut to the rank's rows, a band's offset with
+    them), else (batch, heads); a kv head whose group the heads' split
+    cuts is repeated for its group first."""
+    qp, kv, kv_grad, _, _ = _core_placements(q, seq=True)
+    ways = math.prod(q.device_mesh.size(i) for i, p in enumerate(qp) if _splits(p, 2))
     if groups > 1 and k.shape[2] % ways:
         k, v, groups = k.repeat_interleave(groups, 2), v.repeat_interleave(groups, 2), 1
-    return local_fallback(lambda q, k, v: sdpa(q, k, v, mask, groups), (q, k, v),
-                          (pl, pl, pl), pl, (pl, pl, pl))
+    rows = _mask_rows(mask, q, qp)
+    return local_fallback(lambda q, k, v: sdpa(q, k, v, rows, groups), (q, k, v),
+                          (qp, kv, kv), qp, (qp, kv_grad, kv_grad))
 
 
 def sdpa(q, k, v, mask: Optional[torch.Tensor], groups: int) -> torch.Tensor:
@@ -214,6 +244,39 @@ def attention_specs(cfg) -> Specs:
     return p
 
 
+def _seq_for(x, w=None):
+    """On a mesh, x (B, S, ..., d) with its sequence whole again over each
+    mesh axis that shards it, so that a product with ``w`` (d rows)
+    flattens no sharded sequence (PyTorch 2.11's DTensor refuses to
+    flatten one; 2.13 redistributes on its own, the same way): split
+    along d instead where ``w``'s rows shard over that axis (an
+    all-to-all), else gathered whole (an all-gather).  Anything else is
+    returned as it is."""
+    if not is_dtensor(x) or x.ndim < 3:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = list(x.placements)
+    for i, p in enumerate(x.placements):
+        if _splits(p, 1):
+            rows = is_dtensor(w) and _splits(w.placements[i], 0)
+            pl[i] = Shard(x.ndim - 1) if rows else Replicate()
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def _rows(y):
+    """On a mesh, a branch's output (B, S, d) placed explicitly as the
+    residual stream's ``("batch", "seq", None)`` resolves (a partial sum
+    reduce-scattered onto the sequence's split, as DTensor would do at
+    the residual add), so that in the backward its gradient comes back
+    whole along the sequence to the product that made it (PyTorch 2.11's
+    DTensor cannot flatten a sharded sequence there).  Anything else is
+    returned as it is."""
+    if not is_dtensor(y):
+        return y
+    return y.redistribute(y.device_mesh, env_placements(("batch", "seq", None), y.shape))
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk")."""
     d, h, k = w.shape
@@ -223,7 +286,8 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd")."""
     h, k, d = wo.shape
-    return o.flatten(-2) @ wo.reshape(h * k, d)
+    wo = wo.reshape(h * k, d)
+    return _seq_for(o.flatten(-2), wo) @ wo
 
 
 class Attention(_Leaves):
@@ -241,6 +305,7 @@ class Attention(_Leaves):
 
     def forward(self, x, rope, mask, *, mode: str = "causal",
                 cache: Optional[dict] = None, index: int = 0):
+        x = _seq_for(x)     # on a mesh: the projections' input, gathered once
         q, k, v = _project(x, self.wq), _project(x, self.wk), _project(x, self.wv)
         if self.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
@@ -327,6 +392,7 @@ class MLP(_Leaves):
         self.act = cfg.act
 
     def forward(self, x):
+        x = _seq_for(x)     # on a mesh: the up products' input, gathered once
         if self.act in ("swiglu", "geglu"):
             g = x @ self.w_gate
             g = F.silu(g) if self.act == "swiglu" else F.gelu(g, approximate="tanh")
@@ -334,7 +400,7 @@ class MLP(_Leaves):
         else:
             h = x @ self.w_up
             h = F.gelu(h, approximate="tanh") if self.act == "gelu" else F.relu(h) ** 2
-        return lc(h, "batch", "seq", "ffn") @ self.w_down
+        return _rows(_seq_for(lc(h, "batch", "seq", "ffn"), self.w_down) @ self.w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +440,7 @@ class MLAttention(_Leaves):
 
     def forward(self, x, rope, mask, *, mode: str = "causal",
                 cache: Optional[dict] = None, index: int = 0):
+        x = _seq_for(x)     # on a mesh: the projections' input, gathered once
         q = _project(x, self.wq)
         q_nope, q_rope = q[..., :self.dn], rotate(q[..., self.dn:], *rope)
         dkv = x @ self.w_dkv
@@ -389,7 +456,7 @@ class MLAttention(_Leaves):
         k_nope, v = _project(c_kv, self.w_uk), _project(c_kv, self.w_uv)
         args = (q_nope, q_rope, k_nope, k_rope, v)
 
-        def core(q_nope, q_rope, k_nope, k_rope, v):
+        def core(q_nope, q_rope, k_nope, k_rope, v, mask=mask):
             scores = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
                       + torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope)) * self.scale
             scores = scores.float().masked_fill(~mask, -1e30)
@@ -397,10 +464,14 @@ class MLAttention(_Leaves):
             return torch.einsum("bhqs,bshk->bqhk", w, v)
 
         if is_dtensor(q_nope):
-            # each rank attends its block of (batch, heads), as sdpa does
-            pl, shared, shared_grad = _heads_placements(q_nope)
-            out = local_fallback(core, args, (pl, pl, pl, shared, pl), pl,
-                                 (pl, pl, pl, shared_grad, pl))
+            # no "seq" site here in the reference: q arrives split by heads
+            # from its projection, and each rank attends its block of
+            # (batch, heads), k_rope gathered whole
+            qp, kv, kv_grad, shared, shared_grad = _core_placements(q_nope, seq=False)
+            rows = _mask_rows(mask, q_nope, qp)
+            out = local_fallback(lambda *a: core(*a, mask=rows), args,
+                                 (qp, qp, kv, shared, kv), qp,
+                                 (qp, qp, kv_grad, shared_grad, kv_grad))
         else:
             out = core(*args)
         return lc(_out(out, self.wo), "batch", "seq", None)
@@ -564,7 +635,8 @@ class MoE(_Leaves):
         B, S, D = x.shape
         G, cap = moe_capacity(self.cfg, B * S)
         e = self.experts
-        xg = x.reshape(G, B * S // G, D)
+        # on a mesh the groups cut across a sharded sequence: gathered first
+        xg = _seq_for(x).reshape(G, B * S // G, D)
         if G > 1:
             xg = lc(xg, "batch", None, None)
         args = (xg, self.router, e.w_gate, e.w_up, e.w_down)
@@ -578,7 +650,7 @@ class MoE(_Leaves):
         else:
             out, aux, dropped = dispatch(*args)
         self.dropped = dropped.sum()
-        out = out.reshape(B, S, D)
+        out = _rows(out.reshape(B, S, D))
         if hasattr(self, "shared"):
             out = out + self.shared(x)
         return out, aux.mean()
@@ -695,7 +767,19 @@ class Mamba2(_Leaves):
 
     Casts land where the reference's promotions do: the step sizes, the
     scan and the state in float32; ``y + D x`` in float32, cast to the
-    input dtype before the gate and the gated RMSNorm."""
+    input dtype before the gate and the gated RMSNorm.
+
+    On a mesh (a training pass on DTensors) the block runs on local
+    tensors: the reference has no constraint site inside it, and its
+    fused ``in_proj`` columns (z | xBC | dt) do not split as the heads
+    do.  Each rank takes its batch rows' whole sequence (gathered over
+    the axes that split it) and every leaf whole (gathered over the axes
+    that shard it: ``model``'s ``ffn`` columns, ZeRO-3's ``data``) and
+    runs the one-process block; its output, whole along the sequence,
+    is then placed as the residual stream (each rank keeps its rows, and
+    the backward gathers the output's gradient whole), so each leaf's
+    gradient is a partial sum over the batch's axes alone, the model
+    axis' ranks computing the same."""
 
     def __init__(self, cfg, device):
         specs = mamba2_specs(cfg)
@@ -706,23 +790,47 @@ class Mamba2(_Leaves):
         self.P, self.N, self.K = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
         self.H = self.di // self.P
 
+    def _leaves(self) -> tuple:
+        return (self.in_proj, self.conv_w, self.conv_b, self.A_log, self.D,
+                self.dt_bias, self.out_norm.scale, self.out_proj)
+
     def forward(self, x, *, mode: str = "causal", cache: Optional[dict] = None):
+        if is_dtensor(x):
+            if mode != "causal" or cache is not None:
+                raise NotImplementedError("a Mamba-2 block on a mesh runs causal "
+                                          "passes without a cache (training)")
+            return self._on_mesh(x)
+        return self._block(x, *self._leaves(), mode=mode, cache=cache)
+
+    def _on_mesh(self, x):
+        from torch.distributed.tensor import Partial, Replicate
+
+        whole = tuple(p if _splits(p, 0) else Replicate() for p in x.placements)
+        leaf_grad = tuple(Partial() if p.is_shard() else Replicate() for p in whole)
+        leaves = self._leaves()
+        rep = tuple(Replicate() for _ in whole)
+        return _rows(local_fallback(self._block, (x, *leaves),
+                                    (whole,) + (rep,) * len(leaves), whole,
+                                    (whole,) + (leaf_grad,) * len(leaves)))
+
+    def _block(self, x, in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_scale,
+               out_proj, *, mode: str = "causal", cache: Optional[dict] = None):
         B, S, _ = x.shape
         di, H, P, N, K = self.di, self.H, self.P, self.N, self.K
-        z, xbc, dt_raw = (x @ self.in_proj).split([di, di + 2 * N, H], -1)
-        dt_h = F.softplus(dt_raw.float() + self.dt_bias)          # (B, S, H)
+        z, xbc, dt_raw = (x @ in_proj).split([di, di + 2 * N, H], -1)
+        dt_h = F.softplus(dt_raw.float() + dt_bias)               # (B, S, H)
         if mode == "decode":
             hist = torch.cat([cache["conv"], xbc], 1)              # (B, K, conv)
-            xbc = _causal_taps(hist, self.conv_w)
+            xbc = _causal_taps(hist, conv_w)
             cache["conv"].copy_(hist[:, 1:])
         else:
             xp = F.pad(xbc, (0, 0, K - 1, 0))
-            xbc = _causal_taps(xp, self.conv_w)
+            xbc = _causal_taps(xp, conv_w)
             if cache is not None:   # the last K - 1 inputs, zeros before
                 cache["conv"].copy_(xp[:, xp.shape[1] - (K - 1):])
-        xs, B_s, C_s = F.silu(xbc + self.conv_b).split([di, N, N], -1)
+        xs, B_s, C_s = F.silu(xbc + conv_b).split([di, N, N], -1)
         xh = xs.reshape(B, S, H, P)
-        A = -torch.exp(self.A_log)
+        A = -torch.exp(A_log)
         if mode == "decode":
             y = ssd_step(cache["h"], dt_h[:, 0], A, B_s[:, 0], C_s[:, 0],
                          xh[:, 0])[:, None]
@@ -731,6 +839,6 @@ class Mamba2(_Leaves):
                                SSD_CHUNK, cache["h"] if cache is not None else None)
             if cache is not None:
                 cache["h"].copy_(h)
-        y = (y + self.D[:, None] * xh.float()).reshape(B, S, di).to(x.dtype)
-        y = apply_norm(y * F.silu(z), self.out_norm.scale, None, "rmsnorm")
-        return y @ self.out_proj
+        y = (y + D[:, None] * xh.float()).reshape(B, S, di).to(x.dtype)
+        y = apply_norm(y * F.silu(z), norm_scale, None, "rmsnorm")
+        return y @ out_proj

@@ -383,7 +383,28 @@ def lm_head_of(model: LM, cfg):
 
 def _logits(model: LM, x, cfg):
     x = model.final_norm(x)
-    return (x @ lm_head_of(model, cfg)).float()
+    head = lm_head_of(model, cfg)
+    if is_dtensor(x) and any(p.is_shard(1) for p in x.placements):
+        return _rows_times_head(x, head).float()
+    return (x @ head).float()
+
+
+def _rows_times_head(x, head):
+    """``x @ head`` on a mesh for x (B, S, d) whose sequence is sharded:
+    each rank multiplies its block of (batch, seq) by the head gathered
+    whole, so neither the hidden states (B, S, d) nor the logits (B, S, V)
+    move between ranks (DTensor's product would gather the sequence and
+    then move the logits to the sequence's split).  The result is placed
+    as x's rows, its vocabulary whole; the head's gradient is a partial
+    sum over the axes that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from ..distributed.sharding import env_placements, local_fallback
+
+    xp = env_placements(("batch", "seq", None), x.shape)
+    rep = tuple(Replicate() for _ in xp)
+    summed = tuple(Partial() if p.is_shard() else Replicate() for p in xp)
+    return local_fallback(torch.matmul, (x, head), (xp, rep), xp, (xp, summed))
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,9 @@ parameter's placements (and so quantised after the reduction, as the
 reference's are).  The cross-entropy's logsumexp and gather have no
 DTensor rule over a sharded vocabulary: each rank gathers its rows'
 logits over ``model`` and sums their losses, a partial sum over ``data``.
+Where the rules shard the sequence over ``model`` (``seq_shard``
+configs) each rank instead chunks its own block of (batch, seq) against
+the head gathered whole, its sums partial over both axes.
 """
 from __future__ import annotations
 
@@ -63,13 +66,12 @@ def _chunk_loss(xc, head, labels):
                           [sums, sums], (rows, lab))
 
 
-def _chunked_ce(x, head, labels, chunk: int):
-    """Cross-entropy over sequence chunks (and a remainder chunk), so that
-    the (B, S, V) float32 logits never exist at once: while gradients are
-    recorded each chunk is checkpointed, its logits recomputed in the
-    backward.  x (B, S, d), head (d, V), labels (B, S) -> (nll mean, z
-    mean), z = lse²."""
-    B, S, _ = x.shape
+def _chunk_sums(x, head, labels, chunk: int):
+    """(nll sum, z sum) over x's rows in sequence chunks (and a remainder
+    chunk), so that the (B, S, V) float32 logits never exist at once:
+    while gradients are recorded each chunk is checkpointed, its logits
+    recomputed in the backward."""
+    S = x.shape[1]
     chunk = min(chunk, S)
     bounds = list(range(0, S - chunk + 1, chunk))
     if S % chunk:
@@ -81,6 +83,32 @@ def _chunked_ce(x, head, labels, chunk: int):
         n, zz = (checkpoint(_chunk_loss, *args, use_reentrant=False)
                  if torch.is_grad_enabled() else _chunk_loss(*args))
         nll, z = nll + n, z + zz
+    return nll, z
+
+
+def _chunk_sums_on_rows(x, head, labels, chunk: int):
+    """:func:`_chunk_sums` on a mesh where x's sequence is sharded: each rank
+    chunks its own block of (batch, seq) on local tensors, against the
+    head gathered whole (slicing the sharded sequence would gather the
+    hidden states once a chunk); the sums are partial over the axes that
+    split the rows, and so is the head's gradient."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    xp = env_placements(("batch", "seq", None), x.shape)
+    lp = env_placements(("batch", "seq"), labels.shape)
+    rep = tuple(Replicate() for _ in xp)
+    summed = tuple(Partial() if p.is_shard() else Replicate() for p in xp)
+    return local_fallback(lambda x, h, lab: _chunk_sums(x, h, lab, chunk),
+                          (x, head, labels), (xp, rep, lp), [summed, summed],
+                          (xp, summed, lp))
+
+
+def _chunked_ce(x, head, labels, chunk: int):
+    """Cross-entropy over sequence chunks: x (B, S, d), head (d, V), labels
+    (B, S) -> (nll mean, z mean) over the B * S tokens, z = lse²."""
+    B, S, _ = x.shape
+    on_rows = is_dtensor(x) and any(p.is_shard(1) for p in x.placements)
+    nll, z = (_chunk_sums_on_rows if on_rows else _chunk_sums)(x, head, labels, chunk)
     return nll / (B * S), z / (B * S)
 
 

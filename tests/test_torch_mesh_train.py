@@ -1,11 +1,15 @@
 """PyTorch port, the training step on a mesh of ranks (gloo on the CPU):
-reduced qwen2.5-3b (tensor parallelism over ``model``) and reduced
-deepseek-v2-lite-16b (MLA + MoE, experts over ``model``, and ``fsdp``
-forced on so that ZeRO-3 sharding over ``data`` runs) on meshes 2x2, 4x1
-and 1x4 of four processes, against the port's one-process step and the
+reduced qwen2.5-3b (tensor and sequence parallelism over ``model``) and
+reduced deepseek-v2-lite-16b (MLA + MoE, experts over ``model``, and
+``fsdp`` forced on so that ZeRO-3 sharding over ``data`` runs) on meshes
+2x2, 4x1 and 1x4 of four processes, under the reference's rules
+(``make_rules(cfg)``: both configs shard the sequence over ``model``),
+against the port's one-process step and the
 reference's jitted step on the same parameters and batch (GSPMD makes the
 reference's meshed step equal to its one-device step in exact
-arithmetic).
+arithmetic).  The worker's DTensor refuses, as PyTorch 2.11's does, a
+view that flattens a sharded dimension other than the first
+(``strict_views``).
 
 One ``torch.distributed.run`` job of four ranks runs this file as a
 script (``_worker``) over every arch and mesh, writing the gathered
@@ -92,6 +96,31 @@ def _torchrun(nproc: int, args: list, timeout: int, log_dir: Path):
 # the worker: one process a rank, every arch on every mesh
 # ---------------------------------------------------------------------------
 
+def strict_views():
+    """Make this process's DTensor refuse, as PyTorch 2.11's does, a view
+    that flattens a sharded dimension other than the first; 2.13 keeps it
+    sharded with a strided placement.  The workers call it first, so that
+    the CPU tests hold the meshed step to what PyTorch 2.11 takes.  A
+    DTensor without this propagator is left as it is."""
+    try:
+        from torch.distributed.tensor._ops import _view_ops as vo
+        prop = vo._ViewShardingPropagator
+        plain = prop._analyze_flatten
+    except (ImportError, AttributeError):
+        return
+
+    def analyze_flatten(self, cmd):
+        if self.strict_view:
+            for i, dim in enumerate(cmd.input_dims):
+                if i and isinstance(dim, vo.InputDim) and \
+                        self._find_plain_shard(dim)[1] is not None:
+                    raise RuntimeError(f"a view flattens dimension {dim.input_dim}, "
+                                       f"which is sharded (PyTorch 2.11 refuses it)")
+        return plain(self, cmd)
+
+    prop._analyze_flatten = analyze_flatten
+
+
 def _save(path, tree):
     np.savez(path, **{k.replace("/", "|"): np.asarray(v) for k, v in
                       flatten_paths(tree).items()})
@@ -140,6 +169,7 @@ def _worker(directory: str):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
 
+    strict_views()
     out = Path(directory)
     mesh0 = make_host_mesh(1, 1, device="cpu")   # initialises the group
     del mesh0
@@ -150,7 +180,7 @@ def _worker(directory: str):
         layout = reference_layout(cfg)
         for dp, mp in MESHES:
             mesh = make_host_mesh(dp, mp, device="cpu")
-            rules = make_rules(cfg, seq=None)
+            rules = make_rules(cfg)
             res = {}
             # the init: the one-process draws bit for bit, placed as the rules say
             sh = param_shardings(cfg, mesh, rules)
@@ -209,7 +239,7 @@ def _worker(directory: str):
     cfg = _cfg("qwen2.5-3b", num_layers=8)
     inp = _load(out / "in_adafactor.npz")
     mesh = make_host_mesh(2, 2, device="cpu")
-    rules = make_rules(cfg, seq=None)
+    rules = make_rules(cfg)
     model = distribute_model(lm_params_from_arrays(cfg, inp["arrays"], device="cpu"),
                              mesh, rules).requires_grad_(True)
     with axis_env(mesh, rules):
