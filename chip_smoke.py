@@ -271,13 +271,23 @@ Phases, in order; any failure exits non-zero before the result line:
     of the one-process run's own change from the initial parameters) and
     bf16 (losses 1e-2) against the one-process run; each rank's allocation
     for the model and its moments within 1 % of ``cell_memory`` on a
-    ``MeshShape`` of its mesh, its step times and peak memory; whether
-    a 1 x 1 mesh is one process bit for bit; one
+    ``MeshShape`` of its mesh (for the run's own batch and sequence),
+    its step times and peak memory; a 1 x 1 mesh is one process bit for
+    bit in float32 (histories and every parameter leaf); one
     process resumes qwen's first mesh's checkpoint ("resumed from step
-    3"); (b) with 4 cards or more, deepseek-v2-lite-16b at full width and
-    depth on 2 x 2, qwen2.5-3b at full depth on 2 x 2 and 4 x 1 and
-    jamba-v0.1-52b at full width and one 8-layer period on 2 x 2, bf16,
-    3 steps: per card step ms, peak memory and the allocation against
+    3"); after them whisper-base at full depth (6 + 6), phi-3-vision-4.2b
+    and stablelm-3b at 4 layers and mixtral-8x7b at 1 (in three lanes,
+    mixtral's runs one at a time), float32 on the same meshes against
+    their one-process runs (the same float32 bars, gradient norms 1e-5
+    too, each leaf's bytes hashed and up to ``MESH_SAMPLES`` of its
+    entries compared where qwen's and mamba2's checkpoints give whole
+    leaves); (b) with 4 cards or more, bf16, 3 steps:
+    deepseek-v2-lite-16b at full width and depth on 2 x 2, qwen2.5-3b at
+    full depth on 2 x 2 and 4 x 1, jamba-v0.1-52b at one 8-layer period,
+    nemotron-4-340b at 1 of 96 layers (2 did not fit a card),
+    mixtral-8x7b at 8 of 32 over S = 5120 (B = 4: its band active),
+    phi-3-vision-4.2b, whisper-base and stablelm-1.6b at full depth, all
+    on 2 x 2: per card step ms, peak memory and the allocation against
     ``cell_memory`` (left out, and said so, on fewer cards).
 
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
@@ -4512,6 +4522,14 @@ MESH_ARGS = ["--arch", "qwen2.5-3b", "--layers", "4", "--batch", "8", "--seq", "
 # mamba2-2.7b at full width and 4 of its 64 layers, the same batch and steps
 MESH_SSM_ARGS = ["--arch", "mamba2-2.7b", *MESH_ARGS[2:]]
 MESH_MODELS = (("qwen2.5-3b", MESH_ARGS), ("mamba2-2.7b", MESH_SSM_ARGS))
+# the other configs at full width, float32 alone, the same batch and
+# steps, after MESH_MODELS' runs: whisper-base at its full depth (6 + 6
+# layers), phi-3-vision-4.2b and stablelm-3b at 4 layers, mixtral-8x7b at
+# 1 of its 32 (20.6 GB of model and moments, a peak of 36.9 GB: never
+# two of its runs at once)
+MESH_MORE = tuple((arch, ["--arch", arch, "--layers", str(n), *MESH_ARGS[4:]])
+                  for arch, n in (("whisper-base", 6), ("phi-3-vision-4.2b", 4),
+                                  ("stablelm-3b", 4), ("mixtral-8x7b", 1)))
 MESH_SHAPES = ((2, 1), (1, 2))
 MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_BF16_TOL = 1e-5, 2e-3, 1e-2
 # each parameter leaf after the steps against the one-process run's, as a
@@ -4519,17 +4537,33 @@ MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_BF16_TOL = 1e-5, 2e-3, 1e-2
 # differences): an optimizer that moved nothing reads 1
 MESH_MOVE_TOL = 0.1
 MESH_MEM_TOL = 0.01          # each rank's allocation against cell_memory
+# MESH_MORE's runs write no checkpoint (phase 20's and qwen's and
+# mamba2's already write some 40 GB, and a machine may cap a run's disk
+# writes near that): each parameter leaf is read whole at the end of a run, its
+# bytes hashed (a 1 x 1 mesh is one process bit for bit) and this many of
+# its entries kept for the float32 bars on several ranks
+MESH_SAMPLES = 1 << 16
 MESH_TIMEOUT = 600           # one launcher run, its processes included
-# (b) with 4 cards or more: full depth, bf16, 2 x 2 (and 4 x 1 for qwen)
-MESH_FULL = (("deepseek-v2-lite-16b", (2, 2), 0), ("qwen2.5-3b", (2, 2), 0),
-             ("qwen2.5-3b", (4, 1), 0), ("jamba-v0.1-52b", (2, 2), 8))
+# (b) with 4 cards or more: full width, bf16, 2 x 2 (and 4 x 1 for qwen):
+# (arch, mesh, layers (0: all), the run's own arguments after the common
+# ones); nemotron-4-340b at 1 of its 96 layers (2 do not fit an 80 GB
+# card), mixtral-8x7b at 8 of its 32 over a sequence longer than its band
+# (the common arguments first: the run's own override them)
+MESH_FULL = (("deepseek-v2-lite-16b", (2, 2), 0, ()), ("qwen2.5-3b", (2, 2), 0, ()),
+             ("qwen2.5-3b", (4, 1), 0, ()), ("jamba-v0.1-52b", (2, 2), 8, ()),
+             ("nemotron-4-340b", (2, 2), 1, ()),
+             ("mixtral-8x7b", (2, 2), 8, ("--seq", "5120", "--batch", "4")),
+             ("phi-3-vision-4.2b", (2, 2), 0, ()), ("whisper-base", (2, 2), 0, ()),
+             ("stablelm-1.6b", (2, 2), 0, ()))
 MESH_FULL_ARGS = ["--batch", "8", "--seq", "512", "--steps", "3", "--log-every", "1",
                   "--lr", "3e-4", "--seed", "0"]
 
 
 def _torchrun(nproc: int, args: list, env_extra=None, timeout=MESH_TIMEOUT):
     """``python -m torch.distributed.run --standalone`` from the repo root;
-    (exit code, rank 0's stdout, the tail of the output, wall seconds)."""
+    (exit code, rank 0's stdout, the tail of the output, wall seconds).
+    Past ``timeout`` the launcher and its ranks are killed and
+    ``subprocess.TimeoutExpired`` raised."""
     import os
 
     root = Path(__file__).resolve().parent
@@ -4537,23 +4571,56 @@ def _torchrun(nproc: int, args: list, env_extra=None, timeout=MESH_TIMEOUT):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(nproc), "--tee", "3", *args]
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, cwd=root, env=env,
-                         timeout=timeout)
-    rank0 = "\n".join(ln.split(":", 1)[1] for ln in out.stdout.splitlines()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=root, env=env)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill_tree(proc.pid)
+        proc.communicate()
+        raise
+    rank0 = "\n".join(ln.split(":", 1)[1] for ln in stdout.splitlines()
                       if ln.startswith("[default0]:"))
-    text = out.stdout + out.stderr
+    text = stdout + stderr
     errors = [ln for ln in text.splitlines() if "Error" in ln and "ChildFailed" not in ln]
     tail = "\n".join(errors[-12:]) + "\n" + text[-1500:]
-    return out.returncode, rank0, tail, time.perf_counter() - t0
+    return proc.returncode, rank0, tail, time.perf_counter() - t0
+
+
+def _kill_tree(pid: int):
+    """SIGKILL ``pid`` and every process under it (torch.distributed.run
+    starts each rank in a session of its own, which outlives it)."""
+    import os
+    import signal
+
+    tree, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        tree.append(p)
+        try:
+            todo += [int(c) for c in Path(f"/proc/{p}/task/{p}/children").read_text().split()]
+        except OSError:
+            pass
+    for p in tree:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
 
 
 def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
     """One rank of a launcher run (``--mesh-rank DIR DTYPE -- ARGS``, under
     torch.distributed.run or alone): ``repro_torch.launch.train.main``
-    with the config's weights in ``DTYPE``, the card's allocation read
-    once the model and the optimizer state exist, each step timed
-    (synchronised) and the peak memory read; ``DIR/rank<r>.json`` gets
-    them."""
+    with the config's weights in ``DTYPE``, the run's batch and sequence,
+    the card's allocation read once the model and the optimizer state
+    exist, each step timed (synchronised), each checkpoint's save and
+    resume timed, and the card's and the host's peak memory read;
+    ``DIR/rank<r>.json`` gets them.  ``MESH_RANK_STATE`` in the
+    environment records the state at the end: ``blocks``, the SHA-256 of
+    the bytes of the rank's block of every parameter and moment, in that
+    json (``tools/mesh_checkpoint.py`` reads them); ``leaves``, each
+    parameter leaf gathered whole, its bytes' SHA-256 and its values at
+    ``_sample_at``'s positions, into ``DIR/leaves.pt`` (rank 0)."""
     import dataclasses
     import os
 
@@ -4561,9 +4628,13 @@ def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
     from repro_torch.distributed.sharding import is_dtensor
     from repro_torch.launch import train as lt
 
+    import resource
+
     rank = int(os.environ.get("RANK", 0))
-    rec = {"rank": rank, "step_ms": []}
+    rec = {"rank": rank, "step_ms": [], "save_s": []}
     plain_cfg, plain_init, plain_step = lt.build_cfg, lt.init_opt_state, lt.make_train_step
+    plain_save, plain_resume = lt.Checkpointer.maybe_save, lt.resume_on_mesh
+    last = {}
 
     def local_bytes(tensors):
         return sum((t.to_local() if is_dtensor(t) else t).nbytes for t in tensors)
@@ -4591,47 +4662,127 @@ def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
             out = step(*args)
             sync()
             rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            last["model"], last["opt"] = out[0], out[1]
             return out
         return run
 
-    lt.build_cfg = lambda args: dataclasses.replace(plain_cfg(args), dtype=dtype)
+    def timed_save(self, step, tree, force=False, blocking=True):
+        t0 = time.perf_counter()
+        out = plain_save(self, step, tree, force, blocking)
+        if force or (self.every and step % self.every == 0 and step > 0):
+            rec["save_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_resume(model, *a, **k):
+        t0 = time.perf_counter()
+        out = plain_resume(model, *a, **k)
+        rec["resume_s"] = time.perf_counter() - t0
+        last["model"], last["opt"] = model, out
+        return out
+
+    def build_cfg(args):
+        rec["batch"], rec["seq"] = args.batch, args.seq
+        return dataclasses.replace(plain_cfg(args), dtype=dtype)
+
+    lt.build_cfg = build_cfg
     lt.init_opt_state, lt.make_train_step = measured_init, timed_step
+    lt.Checkpointer.maybe_save, lt.resume_on_mesh = timed_save, timed_resume
     if card:
         torch.cuda.reset_peak_memory_stats()
-    lt.main(argv)
+    # the group outlives the launcher's main until the state is read
+    dist, done = torch.distributed, torch.distributed.destroy_process_group
+    dist.destroy_process_group = lambda *a, **k: None
+    try:
+        lt.main(argv)
+    finally:
+        dist.destroy_process_group = done
     rec["peak_bytes"] = torch.cuda.max_memory_allocated() if card else 0
+    rec["host_peak_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    state = os.environ.get("MESH_RANK_STATE")
+    if state == "blocks":
+        # the rank's blocks of every parameter and moment after the last
+        # step (or after a resume that took none)
+        def block(t):
+            return _sha(t.to_local() if is_dtensor(t) else t)
+
+        rec["hash"] = {n: block(p) for n, p in last["model"].named_parameters()}
+        rec["opt_hash"] = {f"{k}/{path}": block(t) for k, v in last["opt"].items()
+                           if k != "step" for path, t in v.items()}
+    elif state == "leaves":
+        leaves = {}
+        for n, p in last["model"].named_parameters():
+            whole = (p.full_tensor() if is_dtensor(p) else p).detach()
+            if rank == 0:
+                leaves[n] = (_sha(whole), _samples(n, whole))
+            del whole
+        if rank == 0:
+            torch.save(leaves, Path(out_dir, "leaves.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
     return 0
 
 
-def _launcher_run(tmp: Path, name: str, argv: list, dtype: str, mesh=None):
+def _sha(t) -> str:
+    """The SHA-256 of a tensor's bytes."""
+    import hashlib
+
+    t = t.detach().contiguous().reshape(-1)
+    return hashlib.sha256(t.view(torch.uint8).cpu().numpy()).hexdigest()
+
+
+def _sample_at(name: str, n: int):
+    """The positions of a leaf of ``n`` entries that phase 22 compares on
+    several ranks: all of them up to ``MESH_SAMPLES``, else that many drawn
+    from a generator seeded with the leaf's name."""
+    import zlib
+
+    if n <= MESH_SAMPLES:
+        return torch.arange(n)
+    g = torch.Generator().manual_seed(zlib.crc32(name.encode()))
+    return torch.randint(n, (MESH_SAMPLES,), generator=g)
+
+
+def _samples(name: str, leaf):
+    """A whole leaf's float32 values at ``_sample_at``'s positions, on the
+    host."""
+    flat = leaf.detach().reshape(-1)
+    return flat[_sample_at(name, flat.numel()).to(flat.device)].float().cpu()
+
+
+def _launcher_run(tmp: Path, name: str, argv: list, dtype: str, mesh=None,
+                  timeout=MESH_TIMEOUT, env_extra=None):
     """The launcher once, its weights in ``dtype``: alone (``mesh`` None)
-    or under torch.distributed.run with a rank a mesh position; its lines,
-    history and each rank's record."""
+    or under torch.distributed.run with a rank a mesh position, with
+    ``env_extra`` in its environment; its lines, history and each rank's
+    record."""
     out_dir = tmp / name
     out_dir.mkdir(parents=True)
     argv = [*argv, "--metrics-out", str(out_dir / "history.json")]
     me = str(Path(__file__).resolve())
     if mesh is None:
+        import os
+
         root = Path(__file__).resolve().parent
         t0 = time.perf_counter()
         p = subprocess.run([sys.executable, me, "--mesh-rank", str(out_dir), dtype, "--",
-                            *argv],
-                           capture_output=True, text=True, cwd=root, timeout=MESH_TIMEOUT)
+                            *argv], capture_output=True, text=True, cwd=root,
+                           env={**os.environ, **(env_extra or {})}, timeout=timeout)
         rc, out, tail, wall = (p.returncode, p.stdout, (p.stdout + p.stderr)[-3000:],
                                time.perf_counter() - t0)
     else:
         d, m = mesh
         argv += ["--data-parallel", str(d), "--model-parallel", str(m)]
         rc, out, tail, wall = _torchrun(d * m, [me, "--mesh-rank", str(out_dir), dtype,
-                                                "--", *argv])
+                                                "--", *argv], env_extra, timeout)
     assert rc == 0, (name, rc, tail)
     lines = [ln for ln in out.splitlines() if ln.strip()]
     ranks = [json.loads(p.read_text()) for p in sorted(out_dir.glob("rank*.json"))]
     hist = json.loads((out_dir / "history.json").read_text())
     log(f"launcher {name}: exit 0 in {wall:.1f} s, {len(ranks)} rank(s): "
         + " | ".join(lines))
-    return dict(name=name, wall_s=wall, lines=lines, history=hist, ranks=ranks, mesh=mesh)
+    return dict(name=name, wall_s=wall, lines=lines, history=hist, ranks=ranks, mesh=mesh,
+                dir=out_dir)
 
 
 def _ckpt_params(directory, step: int):
@@ -4648,28 +4799,34 @@ def _ckpt_params(directory, step: int):
 
 def _check_memory(run, cfg, card) -> list:
     """Each rank's allocation for the model and its moments against
-    ``cell_memory`` on a ``MeshShape`` of the run's mesh."""
+    ``cell_memory``'s on a ``MeshShape`` of the run's mesh, for the batch
+    and sequence the rank recorded (its ``alias``: the parameters and the
+    optimizer state; its ``argument`` adds the step's batch, which the
+    card holds only inside a step)."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.distributed.sharding import MeshShape, make_rules
     from repro_torch.launch.dryrun import cell_memory
 
     d, m = run["mesh"] or (1, 1)
-    B, S = int(MESH_ARGS[MESH_ARGS.index("--batch") + 1]), int(
-        MESH_ARGS[MESH_ARGS.index("--seq") + 1])
-    mem = cell_memory(cfg, ShapeSpec("phase22", S, B, "train"),
-                      MeshShape(("data", "model"), (d, m)), make_rules(cfg))
     out = []
     for r in run["ranks"]:
+        B, S = r["batch"], r["seq"]
+        mem = cell_memory(cfg, ShapeSpec("phase22", S, B, "train"),
+                          MeshShape(("data", "model"), (d, m)), make_rules(cfg))
         held = r["allocated_bytes"]
-        rel = abs(mem["argument"] - held) / held
-        log(f"  {run['name']} rank {r['rank']} ({d} x {m}): {held:,} bytes allocated for "
-            f"the model and its moments (blocks {r['param_bytes'] + r['moment_bytes']:,}) "
-            f"against cell_memory's {mem['argument']:,} ({rel:.2e} apart, bar "
-            f"{MESH_MEM_TOL}); peak {r['peak_bytes']:,}; steps "
+        rel = abs(mem["alias"] - held) / held
+        log(f"  {run['name']} rank {r['rank']} ({d} x {m}, B = {B}, S = {S}): {held:,} "
+            f"bytes allocated for the model and its moments (blocks "
+            f"{r['param_bytes'] + r['moment_bytes']:,}) against cell_memory's "
+            f"{mem['alias']:,} ({rel:.2e} apart, bar {MESH_MEM_TOL}; with the batch "
+            f"{mem['argument']:,}); peak {r['peak_bytes']:,}; host peak "
+            f"{r['host_peak_bytes']:,}; steps "
             f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms [{card}]")
-        assert rel <= MESH_MEM_TOL, (run["name"], r["rank"], held, mem["argument"])
-        out.append(dict(rank=r["rank"], allocated=held, cell_memory=mem["argument"],
-                        rel=rel, peak=r["peak_bytes"], step_ms=r["step_ms"]))
+        assert rel <= MESH_MEM_TOL, (run["name"], r["rank"], held, mem["alias"])
+        out.append(dict(rank=r["rank"], batch=B, seq=S, allocated=held,
+                        cell_memory=mem["alias"], argument=mem["argument"], rel=rel,
+                        peak=r["peak_bytes"], host_peak=r["host_peak_bytes"],
+                        step_ms=r["step_ms"]))
     return out
 
 
@@ -4683,6 +4840,20 @@ def _initial_params(cfg, seed: int) -> dict:
     dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
     out = {k: v.float().cpu() for k, v in flatten_paths(lm_params_to_tensors(model)).items()}
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _initial_samples(cfg, seed: int) -> dict:
+    """The launcher's initial parameters (as ``_initial_params``) at
+    ``_sample_at``'s positions, by parameter name."""
+    from repro_torch.models import init_params
+
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    out = {n: _samples(n, p) for n, p in model.named_parameters()}
     del model
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4703,7 +4874,8 @@ def _moved_share(got: dict, want: dict, start: dict) -> tuple:
 
 
 def drive_mesh_train(card, scratch) -> dict:
-    """Phase 22 (a)."""
+    """Phase 22 (a): qwen2.5-3b and mamba2-2.7b, then the configs of
+    ``MESH_MORE``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4715,132 +4887,213 @@ def drive_mesh_train(card, scratch) -> dict:
         log("phase 22: one card, and NCCL takes one rank a card: the meshes run as "
             "1 x 1 over NCCL on it; no collective crossed ranks")
     seed = int(MESH_ARGS[MESH_ARGS.index("--seed") + 1])
+    (qwen, qargs), (ssm, sargs) = MESH_MODELS
     runs = {}
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         tmp = Path(tmp)
-        # four lanes of runs at once (the runs' step times share the card):
-        # qwen's meshes in float32, then one process resumes the first
-        # one's checkpoint; mamba2's meshes in float32 and bf16; qwen's
-        # meshes in bf16 and its one-process bf16 run; the other
-        # one-process runs
-        def f32(arch, args, mesh):
-            d, m = mesh
-            ck = tmp / f"ck-{arch}-{d}x{m}"
-            return f"{arch} {d}x{m} f32", [*args, "--ckpt-dir", str(ck)], "float32", mesh
 
-        def bf16(arch, args, mesh):
-            return f"{arch} {mesh[0]}x{mesh[1]} bf16", args, "bfloat16", mesh
+        def f32(arch, args, mesh=None):        # float32 with its checkpoint
+            tag = "one" if mesh is None else f"{mesh[0]}x{mesh[1]}"
+            return (f"{arch} {tag} f32", [*args, "--ckpt-dir", str(tmp / f"ck-{arch}-{tag}")],
+                    "float32", mesh, None)
 
-        def one(arch, args, dtype):
-            if dtype == "bfloat16":
-                return f"{arch} one bf16", args, dtype, None
-            return (f"{arch} one f32", [*args, "--ckpt-dir", str(tmp / f"ck-{arch}-one")],
-                    dtype, None)
+        def bf16(arch, args, mesh=None):
+            tag = "one" if mesh is None else f"{mesh[0]}x{mesh[1]}"
+            return f"{arch} {tag} bf16", args, "bfloat16", mesh, None
 
-        (qwen, qargs), (ssm, sargs) = MESH_MODELS
+        def leaves(arch, mesh=None):           # float32, its leaves read at the end
+            tag = "one" if mesh is None else f"{mesh[0]}x{mesh[1]}"
+            return (f"{arch} {tag} f32", dict(MESH_MORE)[arch], "float32", mesh,
+                    {"MESH_RANK_STATE": "leaves"})
+
+        # lanes of runs at once (the runs share the card), in two stages
+        # whose peaks fit the card together (on an H100 80GB, float32 /
+        # bf16: qwen 20.2 / 18.9 GB, mamba2 9.5 / 8.6, mixtral 36.9,
+        # phi-3-vision 12.6, whisper 12.3, stablelm 11.9; four lanes at
+        # 68.8 GB ran, four at 71.3 ran the card out of memory): qwen's
+        # meshes in float32, then one process's resume of the first one's
+        # checkpoint; mamba2's meshes; qwen's meshes in bf16 and its
+        # one-process bf16 run; the other one-process runs; then, while
+        # qwen's and mamba2's runs are checked, mixtral's runs (62.1 GB at
+        # most beside the other two lanes); whisper's runs and
+        # phi-3-vision's meshes; stablelm's runs and phi-3-vision's one
         resume = ("resume", [*qargs, "--steps", "4", "--ckpt-dir",
                              str(tmp / f"ck-{qwen}-{shapes[0][0]}x{shapes[0][1]}")],
-                  "float32", None)
-        lanes = [[*(f32(qwen, qargs, x) for x in shapes), resume],
-                 [*(f32(ssm, sargs, x) for x in shapes),
-                  *(bf16(ssm, sargs, x) for x in shapes)],
-                 [*(bf16(qwen, qargs, x) for x in shapes), one(qwen, qargs, "bfloat16")],
-                 [one(qwen, qargs, "float32"), one(ssm, sargs, "bfloat16"),
-                  one(ssm, sargs, "float32")]]
+                  "float32", None, None)
+
+        def both(arch):
+            return [*(leaves(arch, x) for x in shapes), leaves(arch)]
+
+        phi = "phi-3-vision-4.2b"
+        stages = [[[*(f32(qwen, qargs, x) for x in shapes), resume],
+                   [*(f32(ssm, sargs, x) for x in shapes), *(bf16(ssm, sargs, x) for x in shapes)],
+                   [*(bf16(qwen, qargs, x) for x in shapes), bf16(qwen, qargs)],
+                   [f32(qwen, qargs), bf16(ssm, sargs), f32(ssm, sargs)]],
+                  [both("mixtral-8x7b"), [*both("whisper-base"), *(leaves(phi, x) for x in shapes)],
+                   [*both("stablelm-3b"), leaves(phi)]]]
+        assert {a for a, _ in MESH_MORE} == {"mixtral-8x7b", "whisper-base",
+                                              "phi-3-vision-4.2b", "stablelm-3b"}
 
         def lane(jobs):
-            for key, argv, dtype, mesh in jobs:
-                runs[key] = _launcher_run(tmp, key.replace(" ", "-"), argv, dtype, mesh)
+            for key, argv, dtype, mesh, env in jobs:
+                runs[key] = _launcher_run(tmp, key.replace(" ", "-"), argv, dtype, mesh,
+                                          env_extra=env)
 
-        with ThreadPoolExecutor(len(lanes)) as pool:
-            for done in [pool.submit(lane, jobs) for jobs in lanes]:
-                done.result()
+        def stage(lanes):
+            with ThreadPoolExecutor(len(lanes)) as pool:
+                for done in [pool.submit(lane, jobs) for jobs in lanes]:
+                    done.result()
+
         steps = int(MESH_ARGS[MESH_ARGS.index("--steps") + 1])
-        checks = []
-        for arch, args in MESH_MODELS:
+
+        def check(arch, args):
+            checks = []
             cfg32 = dataclasses.replace(get_config(arch), num_layers=int(
                 args[args.index("--layers") + 1]), dtype="float32")
-            base = [h["loss"] for h in runs[f"{arch} one f32"]["history"]]
-            base16 = [h["loss"] for h in runs[f"{arch} one bf16"]["history"]]
-            want = _ckpt_params(tmp / f"ck-{arch}-one", steps)
-            start = _initial_params(cfg32, seed)
+            if arch in (qwen, ssm):
+                # whole leaves from the checkpoints of the last step (the
+                # resume adds a later one)
+                want = _ckpt_params(tmp / f"ck-{arch}-one", steps)
+                start = _initial_params(cfg32, seed)
+            else:
+                # each leaf's samples, and its bytes' hash (mesh_rank_main)
+                base = torch.load(runs[f"{arch} one f32"]["dir"] / "leaves.pt")
+                want = {k: v for k, (_, v) in base.items()}
+                start = _initial_samples(cfg32, seed)
             assert start.keys() == want.keys()
             for d, m in shapes:
-                tag = f"{arch} {d}x{m}"
-                r, r16 = runs[f"{tag} f32"], runs[f"{tag} bf16"]
-                losses = [h["loss"] for h in r["history"]]
-                loss_err = max(abs(a - b) for a, b in zip(losses, base))
-                # the checkpoint of the mesh's last step (the resume adds a later one)
-                got = _ckpt_params(tmp / f"ck-{arch}-{d}x{m}", steps)
-                assert got.keys() == want.keys()
-                param_err = max((got[k] - want[k]).abs().max().item() for k in want)
-                moved, worst = _moved_share(got, want, start)
-                losses16 = [h["loss"] for h in r16["history"]]
-                bf16_err = max(abs(a - b) for a, b in zip(losses16, base16))
-                exact = (losses == base and losses16 == base16
-                         and all(torch.equal(got[k], want[k]) for k in want))
-                log(f"  {tag}: float32 losses {losses} against one process {base}: "
-                    f"{loss_err:.2e} (bar {MESH_LOSS_TOL}); parameters after {steps} "
-                    f"steps {param_err:.2e} (bar {MESH_PARAM_TOL}), the worst leaf's gap "
-                    f"{moved:.2e} of the one-process run's own change ({worst}; bar "
-                    f"{MESH_MOVE_TOL}, unmoved parameters read 1); bf16 losses "
-                    f"{bf16_err:.2e} (bar {MESH_BF16_TOL}); bit for bit one process: "
-                    f"{exact}")
-                assert len(losses) == len(base) == 3 and loss_err <= MESH_LOSS_TOL, (
-                    tag, losses, base)
-                assert param_err <= MESH_PARAM_TOL, (tag, param_err)
-                assert moved <= MESH_MOVE_TOL, (tag, moved, worst)
-                assert bf16_err <= MESH_BF16_TOL, (tag, bf16_err)
-                checks.append(dict(arch=arch, mesh=f"{d}x{m}", loss_err=loss_err,
-                                   param_err=param_err, moved_share=moved,
-                                   moved_worst=worst, bf16_loss_err=bf16_err,
-                                   bit_for_bit=exact,
-                                   memory=_check_memory(r, cfg32, card),
-                                   memory_bf16=_check_memory(
-                                       r16, dataclasses.replace(cfg32, dtype="bfloat16"),
-                                       card)))
-            del start, want
+                if arch in (qwen, ssm):
+                    got = _ckpt_params(tmp / f"ck-{arch}-{d}x{m}", steps)
+                    same = got.keys() == want.keys() and all(
+                        torch.equal(got[k], want[k]) for k in want)
+                    kept = "every leaf"
+                else:
+                    mine = torch.load(runs[f"{arch} {d}x{m} f32"]["dir"] / "leaves.pt")
+                    got = {k: v for k, (_, v) in mine.items()}
+                    same = {k: h for k, (h, _) in mine.items()} == {
+                        k: h for k, (h, _) in base.items()}
+                    kept = f"the bytes of every leaf; each leaf at up to {MESH_SAMPLES:,} entries"
+                one = _check_f32(runs, arch, (d, m), cfg32, card, (got, want, start),
+                                 same, steps, kept)
+                if arch in (qwen, ssm):
+                    one.update(_check_bf16(runs, arch, (d, m), cfg32, card))
+                checks.append(one)
+            return checks
+
+        def check_all(configs):
+            return [c for arch, args in configs for c in check(arch, args)]
+
+        stage(stages[0])
+        with ThreadPoolExecutor(1) as side:
+            early = side.submit(check_all, MESH_MODELS)
+            stage(stages[1])
+            checks = early.result()
+        checks += check_all(MESH_MORE)
         # qwen's first mesh's checkpoint resumed by one process (phase 20 (f))
         resume = runs.pop("resume")
         assert resume["lines"][0] == "resumed from step 3", resume["lines"]
         assert [h["step"] for h in resume["history"]] == [3], resume["history"]
         report.update(checks=checks, resume_lines=resume["lines"],
                       runs={k: dict(wall_s=v["wall_s"], lines=v["lines"],
+                                    peak=[x["peak_bytes"] for x in v["ranks"]],
                                     step_ms=[x["step_ms"] for x in v["ranks"]])
                             for k, v in runs.items()})
     return report
 
 
+def _check_f32(runs, arch, mesh, cfg32, card, leaves, same, steps, kept) -> dict:
+    """A float32 mesh run against the one-process run: the losses within
+    ``MESH_LOSS_TOL``, the gradient norms within it relative; of
+    ``leaves`` = (the mesh's, the one process's, the initial), each
+    parameter leaf's values after ``steps`` (what ``kept`` says of them)
+    within ``MESH_PARAM_TOL`` of the one-process run's, and its gap within
+    ``MESH_MOVE_TOL`` of that run's own change from the initial; a 1 x 1
+    mesh is one process bit for bit (the histories, and ``same``: every
+    leaf); each rank's allocation against ``cell_memory``."""
+    d, m = mesh
+    tag = f"{arch} {d}x{m}"
+    r, base = runs[f"{tag} f32"], runs[f"{arch} one f32"]
+    losses = [h["loss"] for h in r["history"]]
+    base_losses = [h["loss"] for h in base["history"]]
+    loss_err = max(abs(a - b) for a, b in zip(losses, base_losses))
+    norms = [h["grad_norm"] for h in r["history"]]
+    base_norms = [h["grad_norm"] for h in base["history"]]
+    norm_err = max(abs(a - b) / b for a, b in zip(norms, base_norms))
+    got, want, start = leaves
+    assert got.keys() == want.keys()
+    param_err = max((got[k] - want[k]).abs().max().item() for k in want)
+    moved, worst = _moved_share(got, want, start)
+
+    def metrics(run):
+        return [{k: v for k, v in h.items() if k != "elapsed_s"} for h in run["history"]]
+
+    exact = metrics(r) == metrics(base) and same
+    log(f"  {tag}: float32 losses {losses} against one process {base_losses}: "
+        f"{loss_err:.2e}; gradient norms {norm_err:.2e} apart (bars {MESH_LOSS_TOL}); "
+        f"parameters after {steps} steps {param_err:.2e} (bar {MESH_PARAM_TOL}), the "
+        f"worst leaf's gap {moved:.2e} of the one-process run's own change ({worst}; bar "
+        f"{MESH_MOVE_TOL}, unmoved parameters read 1; compared: {kept}); bit for bit one "
+        f"process (histories and every leaf): {exact}")
+    assert len(losses) == len(base_losses) == steps and loss_err <= MESH_LOSS_TOL, (
+        tag, losses, base_losses)
+    assert norm_err <= MESH_LOSS_TOL, (tag, norms, base_norms)
+    assert param_err <= MESH_PARAM_TOL, (tag, param_err)
+    assert moved <= MESH_MOVE_TOL, (tag, moved, worst)
+    assert exact or (d, m) != (1, 1), (tag, "a 1 x 1 mesh is not one process bit for bit")
+    return dict(arch=arch, mesh=f"{d}x{m}", loss_err=loss_err, grad_norm_err=norm_err,
+                param_err=param_err, moved_share=moved, moved_worst=worst,
+                bit_for_bit=exact, memory=_check_memory(r, cfg32, card))
+
+
+def _check_bf16(runs, arch, mesh, cfg32, card) -> dict:
+    """A bf16 mesh run's losses against the one-process bf16 run's within
+    ``MESH_BF16_TOL``; each rank's allocation against ``cell_memory``."""
+    import dataclasses
+
+    tag = f"{arch} {mesh[0]}x{mesh[1]}"
+    r16 = runs[f"{tag} bf16"]
+    losses16 = [h["loss"] for h in r16["history"]]
+    base16 = [h["loss"] for h in runs[f"{arch} one bf16"]["history"]]
+    bf16_err = max(abs(a - b) for a, b in zip(losses16, base16))
+    log(f"  {tag}: bf16 losses {losses16} against one process {base16}: {bf16_err:.2e} "
+        f"(bar {MESH_BF16_TOL}); the same: {losses16 == base16}")
+    assert len(losses16) == len(base16) and bf16_err <= MESH_BF16_TOL, (tag, bf16_err)
+    return dict(bf16_loss_err=bf16_err, bf16_same=losses16 == base16,
+                memory_bf16=_check_memory(r16, dataclasses.replace(cfg32, dtype="bfloat16"),
+                                          card))
+
+
 def drive_mesh_full(card, scratch) -> dict:
     """Phase 22 (b): with 4 cards or more, full width in bf16 (full depth
-    but for jamba's one period)."""
+    but where ``MESH_FULL`` cuts it)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     n_cards = torch.cuda.device_count()
     if n_cards < 4:
-        log(f"phase 22 (b): left out: {n_cards} card(s) visible; deepseek-v2-lite-16b, "
-            f"qwen2.5-3b and jamba-v0.1-52b on 2 x 2 and 4 x 1 need 4")
+        log(f"phase 22 (b): left out: {n_cards} card(s) visible; "
+            + ", ".join(f"{a} on {d} x {m}" for a, (d, m), _, _ in MESH_FULL) + " need 4")
         return {"left_out": f"{n_cards} card(s)"}
     out = []
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        for arch, (d, m), layers in MESH_FULL:
+        for arch, (d, m), layers, extra in MESH_FULL:
             cfg = get_config(arch)
-            depth = ["--layers", str(layers)] if layers else []
-            r = _launcher_run(Path(tmp), f"{arch}-{d}x{m}",
-                              ["--arch", arch, *depth, *MESH_FULL_ARGS], cfg.dtype, (d, m))
+            argv = ["--arch", arch, *(["--layers", str(layers)] if layers else []),
+                    *MESH_FULL_ARGS, *extra]
+            r = _launcher_run(Path(tmp), f"{arch}-{d}x{m}", argv, cfg.dtype, (d, m))
             if layers:
                 cfg = dataclasses.replace(cfg, num_layers=layers)
             out.append(dict(arch=arch, mesh=f"{d}x{m}", layers=cfg.num_layers,
-                            lines=r["lines"], memory=_check_memory(r, cfg, card)))
+                            lines=r["lines"], history=r["history"],
+                            memory=_check_memory(r, cfg, card)))
     return {"runs": out}
 
 
 def drive_phase22(card, scratch) -> dict:
+    """Phase 22: (a) on one card or more, (b) with four cards or more."""
     t22 = time.perf_counter()
-    report = {"a": drive_mesh_train(card, scratch)}
-    report["b"] = drive_mesh_full(card, scratch)
+    report = {"a": drive_mesh_train(card, scratch), "b": drive_mesh_full(card, scratch)}
     report["phase_s"] = time.perf_counter() - t22
     log(f"phase 22: {report['phase_s']:.1f} s")
     return report
@@ -5054,11 +5307,13 @@ def main() -> int:
     log(json.dumps({"dryrun_report": drive_phase21(card, train_report, sweep)}))
 
     # 22. the training step on a mesh of ranks under the reference's
-    # rules: qwen2.5-3b and mamba2-2.7b (4 layers each) through the
-    # launcher under torch.distributed.run against one process, each
-    # rank's allocation against cell_memory, the resume; with 4 cards
-    # deepseek-v2-lite-16b and qwen2.5-3b at full depth, jamba-v0.1-52b at
-    # one period
+    # rules: qwen2.5-3b and mamba2-2.7b (4 layers each), whisper-base,
+    # phi-3-vision-4.2b, stablelm-3b and mixtral-8x7b through the launcher
+    # under torch.distributed.run against one process, each rank's
+    # allocation against cell_memory, the resume; with 4 cards the configs
+    # at full width in bf16 on 2 x 2 (and 4 x 1); the launcher runs' lanes
+    # share the card with what this process keeps cached
+    torch.cuda.empty_cache()
     log(json.dumps({"mesh_train_report": drive_phase22(card, scratch)}))
 
     names = {e["name"] for e in entries}

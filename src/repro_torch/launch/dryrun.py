@@ -71,7 +71,10 @@ all-reduce          the output of each product whose contracted
                     ``out_proj``, the vocab-sharded embedding lookup),
                     once per use; train: each gradient shard over the
                     batch axes its leaf does not shard over
-all-gather          each FSDP-sharded weight, once per use
+all-gather          each FSDP-sharded weight, once per use; train: each
+                    sequence chunk's float32 logits (its rows by the
+                    padded vocabulary) where the head shards the
+                    vocabulary, in the forward and the chunk's recompute
 reduce-scatter      train: each FSDP-sharded weight's gradient
 all-to-all          two per MoE layer per use when the experts shard:
                     the card's dispatched tokens out and back
@@ -112,10 +115,9 @@ all-reduce          train: the gradient of each leaf the model axis
                     the sequence: the backward gathers its gradient)
 ==================  ====================================================
 
-Not modelled: the vocab-parallel softmax statistics of the loss and the
-scalar sums of the loss (floats a step).  The MoE layers keep the
-reference's all-to-all dispatch above, which the port's meshed step does
-not run (it gathers ZeRO-3's expert shards).  A cell that raises is a
+Not modelled: the scalar sums of the loss (floats a step).  The MoE
+layers keep the reference's all-to-all dispatch above, which the port's
+meshed step does not run (it gathers ZeRO-3's expert shards).  A cell that raises is a
 record with its error and traceback; the CLI exits 1 if any cell failed.
 """
 from __future__ import annotations
@@ -577,9 +579,10 @@ def _seq_parallel(cfg, shape, mesh, rules) -> bool:
             and shape.seq_len % m == 0)
 
 
-def count_collectives(cfg, shape, mesh, rules) -> dict:
+def count_collectives(cfg, shape, mesh, rules, tcfg: TrainConfig | None = None) -> dict:
     """One card's collectives by kind (result bytes), with ``counts``: the
-    rules of the module docstring."""
+    rules of the module docstring (``tcfg``'s ``ce_chunk`` sets how many
+    pieces the loss gathers its logits in)."""
     sizes = mesh_axes(mesh)
     kind = shape.kind
     uses = 2 + int(cfg.remat) if kind == "train" else 1
@@ -639,6 +642,13 @@ def count_collectives(cfg, shape, mesh, rules) -> dict:
             add("all-gather", shard * m)
             if kind == "train":
                 add("reduce-scatter", shard)
+        elif kind == "train" and name == head and "model" in used:
+            # the loss gathers each sequence chunk's float32 logits whole
+            # over the vocabulary, in the forward and the chunk's recompute
+            c = min((tcfg or TrainConfig()).ce_chunk, S)
+            add("all-gather", B * c * cfg.padded_vocab * 4, 2 * (S // c))
+            if S % c:
+                add("all-gather", B * (S % c) * cfg.padded_vocab * 4, 2)
         if "data" in used:
             add("all-gather", shard * sizes["data"], uses)
             if kind == "train":
@@ -743,7 +753,8 @@ def measure_cell(cfg, shape, mesh, rules, tcfg: TrainConfig | None = None,
     trace_s = time.perf_counter() - t0
     mem = cell_memory(cfg, shape, mesh, rules)
     roof = analyze(arch or cfg.name, shape.name, mesh_name_of(mesh), chips, cost,
-                   count_collectives(cfg, shape, mesh, rules), model_flops_for(cfg, shape))
+                   count_collectives(cfg, shape, mesh, rules, tcfg),
+                   model_flops_for(cfg, shape))
     temp = int(cost["temp_bytes"])
     memory = {
         "argument_bytes": mem["argument"] * chips,

@@ -168,8 +168,10 @@ class EncoderBlock(nn.Module):
         self.ffn = L.MLP(cfg, device)
 
     def forward(self, x):
+        # placed as the residual stream, as a decoder layer's output is: in
+        # the backward the gradient comes back to each layer whole
         x = x + self.attn(self.norm1(x), None, None, mode="bidir")
-        return x + self.ffn(self.norm2(x))
+        return lc(x + self.ffn(self.norm2(x)), "batch", "seq", None)
 
 
 class Encoder(nn.Module):
@@ -330,13 +332,43 @@ def _embed(model: LM, tokens, cfg, extras) -> torch.Tensor:
     # order on the card; indexing's would add them atomically
     x = (_embed_on_mesh(tokens, model.embed) if is_dtensor(model.embed)
          else F.embedding(tokens, model.embed))
+    x = lc(x, "batch", "seq", None)
     pe = _extra(model, extras, "patch_embeds")
     # the patch prefix applies to full-sequence passes, never decode steps
     if cfg.frontend == "vision_stub" and pe is not None and x.shape[1] > 1:
         pe = pe.to(x.dtype) @ model.patch_proj
-        n = pe.shape[1]
-        x = pe[:, : x.shape[1]] if n >= x.shape[1] else torch.cat([pe, x[:, n:]], 1)
+        x = pe[:, :x.shape[1]] if pe.shape[1] >= x.shape[1] else _splice(x, pe)
     return lc(x, "batch", "seq", None)
+
+
+def _splice(x, pe):
+    """x (B, S, d) with its first n positions taken from pe (B, n, d), n <
+    S.  On a mesh each rank writes the prefix rows that its block of the
+    sequence holds (x placed as the residual stream, pe whole along its
+    rows), wherever the prefix ends; pe's gradient is a partial sum over
+    the axes that split the sequence."""
+    n = pe.shape[1]
+    if not is_dtensor(x):
+        return torch.cat([pe, x[:, n:]], 1)
+    from torch.distributed.tensor import Partial, Replicate
+
+    from ..distributed.sharding import env_placements, local_fallback, local_rows
+
+    xp = env_placements(("batch", "seq", None), x.shape)
+    pp = tuple(p if p.is_shard(0) else Replicate() for p in xp)
+    grad = tuple(Partial() if p.is_shard(1) else q for p, q in zip(xp, pp))
+    S = x.shape[1]
+    off, rows = local_rows(xp, x.device_mesh, S)
+
+    def splice(x, pe):
+        # the same ops and shapes on every rank (only the offset differs),
+        # so that every rank's backward runs its collectives in one order
+        B, _, d = pe.shape
+        full = torch.cat([pe, pe.new_zeros(B, S - n, d)], 1)[:, off:off + rows]
+        take = torch.arange(off, off + rows, device=x.device)[:, None] < n
+        return torch.where(take, full, x)
+
+    return local_fallback(splice, (x, pe), (xp, pp), xp, (xp, grad))
 
 
 def _encode(model: LM, frames, cfg) -> torch.Tensor:

@@ -12,11 +12,11 @@ the update.
 
 On a mesh (inside :func:`repro_torch.distributed.axis_env` on a
 ``DeviceMesh``, the parameters DTensors) each microbatch of the whole host
-batch is sharded over ``data`` as it starts, the logits take the
-reference's ``("batch", None, "vocab")`` constraint, the loss and the
-metrics come back replicated, and each gradient is reduced to its
-parameter's placements (and so quantised after the reduction, as the
-reference's are).  The cross-entropy's logsumexp and gather have no
+batch (its extras with it) is sharded over ``data`` as it starts, the
+logits take the reference's ``("batch", None, "vocab")`` constraint, the
+loss and the metrics come back replicated, and each gradient is reduced
+to its parameter's placements (and so quantised after the reduction, as
+the reference's are).  The cross-entropy's logsumexp and gather have no
 DTensor rule over a sharded vocabulary: each rank gathers its rows'
 logits over ``model`` and sums their losses, a partial sum over ``data``.
 Where the rules shard the sequence over ``model`` (``seq_shard``
@@ -117,10 +117,10 @@ def loss_fn(model, batch: dict, cfg, tcfg: TrainConfig):
     z-loss, z = mean(lse²)) -> (loss, {"nll", "aux", "z"}).  ``batch``
     holds ``tokens`` and ``labels`` (B, S) and any extras (``frames``,
     ``patch_embeds``), numpy arrays or tensors."""
-    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     if on_mesh() and is_dtensor(model.embed):
         mesh, rules = current_env()
         batch = distribute_batch(batch, mesh, rules, model.device)
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     x, aux = forward_train(model, batch["tokens"], cfg, extras or None,
                            return_hidden=True)
     labels = batch["labels"]

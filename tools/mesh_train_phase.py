@@ -4,8 +4,8 @@ ranks, (a) and, with 4 cards or more, (b).
     python3 tools/mesh_train_phase.py [--log FILE]
 
 On a machine with four cards this is the phase's whole cost, without
-the phases before it (about 3 minutes on one H100 80GB HBM3 at 700 W,
-7.5 on four).  The card's name
+the phases before it (about 5.5 minutes on one H100 80GB HBM3 at
+700 W).  The card's name
 and power limit come first; the last line is the phase's report as one
 JSON object (``chip_smoke.drive_phase22``'s); ``--log`` keeps every line
 (default ``build/mesh_train_phase.log``).
