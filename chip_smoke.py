@@ -290,6 +290,28 @@ Phases, in order; any failure exits non-zero before the result line:
     on 2 x 2: per card step ms, peak memory and the allocation against
     ``cell_memory`` (left out, and said so, on fewer cards).
 
+23. complex values in the native layout (the JAX package's default
+    complex route; every level a flat step, the dense tail on K3), run
+    after phase 16 while the plan cache still holds rajat12's plan:
+    ``GLU(rajat12_ac, dtype=complex128, layout="native")`` with the
+    counters at 0, no K1 and one K3 launch a factorization over the
+    refactorizations, replays bit for bit the steps one by one, factors
+    within 1e-12 of the planar route's (relative to the largest factor
+    entry), the refined residual < 1e-9, K3 on this route's recorded tile
+    against its plain version; B = 8 frequencies batched (one K3 launch a
+    batched factorization, each matrix's residual < 1e-9, the replay bit
+    for bit the steps one by one and each row one ``GLU``'s); phase 14's
+    ``ac_sweep`` with ``layout="native"`` (``escalation="none"``: one
+    batched factorization, no K1 and one K3 launch in the AC phase): every
+    point within 1e-9 of scipy's ``splu`` and within 1e-12 of the planar
+    sweep relative to the point's largest voltage, bit for bit the sweep
+    with the steps one by one; replay times of both layouts'
+    factorizations and solves;
+24. the six examples (``examples/torch_*.py``) in this process on the
+    card at their defaults (the training example's checkpoints and
+    metrics in a temporary directory under ``build/``), each example's
+    lines printed.
+
 Phase 7 also drives ``GLU(rajat12_ac, static_pivot=...)`` (the complex
 robust K1 inside the graph, bump counts equal to the steps one by one) and
 times the complex robust K1 on its recorded run with the diagonals crushed
@@ -2146,6 +2168,250 @@ def drive_ac_sweep(dev, clock, card):
     ent["frequencies"] = F
     return report, ent
 
+
+
+# phase 23: complex values in the native layout
+NATIVE_TOL = 1e-12           # native against planar, of the largest entry
+NATIVE_BATCH = 8
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| over max |b|, as numpy arrays or tensors."""
+    a, b = (t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+            for t in (a, b))
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def drive_native(dev, clock, card):
+    """Phase 23: complex values in the native layout on rajat12_ac (single,
+    then B = 8 frequencies) and on phase 14's AC sweep; the counters at 0
+    just before each path and read just after."""
+    from repro_torch import GLU
+    from repro_torch.circuit import ac_sweep, rc_grid_circuit
+    from repro_torch.kernels import dense_lu_planar
+    from repro_torch.kernels.ref import dense_lu_planar_ref, lu_backward_error
+    from repro_torch.sparse import CSC
+
+    t_phase = time.perf_counter()
+    A = make_matrix("rajat12_ac")
+    rng = np.random.default_rng(SEED + 23)
+    b = rng.normal(size=A.n) + 1j * rng.normal(size=A.n)
+    kw = dict(dtype=torch.complex128, layout="native")
+    report = dict(matrix="rajat12_ac", card=card, layout="native")
+
+    # -- single: K1 never, K3 once a factorization --------------------------
+    vals_set = [np.asarray(A.data)] + refactor_values("rajat12_ac", A, rng)
+    reset_counts()
+    g = GLU(A, **kw)
+    per = []
+    for i, new in enumerate(vals_set):
+        before = launch_counts()
+        g.factorize(new)
+        after = launch_counts()
+        per.append(tuple(a - c for a, c in zip(after, before)))
+        if i:
+            assert g.solve_info["n_dispatches"] == 1, g.solve_info
+    x = g.solve(b, refine=2)
+    k1, k2, k3 = launch_counts()
+    fz = g._factorizer
+    info = g.solve_info
+    assert info["layout"] == "native", info
+    assert "layout='native'" in info["kernels_disabled_reason"], info
+    assert set(fz.step_kinds) == {"flat", "dense"} and \
+        fz.step_kinds[-1] == "dense", fz.step_kinds
+    assert per == [(0, 0, 1)] * len(vals_set), per
+    assert (k1, k2, k3) == (0, 0, len(vals_set)), (k1, k2, k3)
+    assert g.plan_from_cache, "rajat12_ac's plan should come from the cache"
+    S = A.to_scipy()
+    S.data = vals_set[-1]
+    res = float(np.abs(S @ x - b).max() / np.abs(b).max())
+    assert info["converged"] and res < 1e-9, (res, info)
+    gp = GLU(A, dtype=torch.complex128)
+    log(f"native rajat12_ac: {len(vals_set)} factorizations with K1 "
+        f"launches {k1}, K2 {k2}, K3 {k3} (one a factorization), "
+        f"{fz.step_kinds.count('flat')} flat steps and the dense tail "
+        f"(planar route: steps {gp._factorizer.step_kinds}); refine=2 "
+        f"residual {res:.3e} < 1e-9; reason: "
+        f"{info['kernels_disabled_reason']}")
+
+    # -- replays bit for bit the steps one by one; against the planar route -
+    ge = GLU(A, jit_schedule=False, **kw)
+    planar_err = 0.0
+    for new in vals_set:
+        x = g.factorize(new).solve(b)
+        xe = ge.factorize(new).solve(b)
+        assert torch.equal(g.factorized_values(), ge.factorized_values())
+        assert x.tobytes() == xe.tobytes()
+        planar_err = max(planar_err, _rel_max(
+            g.factorized_values(), gp.factorize(new).factorized_values()))
+    assert g.solve(b, refine=2).tobytes() == ge.solve(b, refine=2).tobytes()
+    assert planar_err < NATIVE_TOL, planar_err
+    log(f"native rajat12_ac: replays bit-identical to the steps one by one "
+        f"({ge.solve_info['n_dispatches']} steps), factors within "
+        f"{planar_err:.3e} of the planar route's (bar {NATIVE_TOL:g})")
+    report.update(k1_launches=k1, k2_launches=k2, k3_launches=k3,
+                  factorizations=len(vals_set), steps=len(fz.step_kinds),
+                  refined_residual=res, max_rel_diff_planar=planar_err)
+
+    # -- K3 on this route's recorded tile -------------------------------------
+    rec = record_kernel_inputs(ge, vals_set[0])
+    assert len(rec["k3"]) == 1 and not rec["k1"] and not rec["k2"], rec.keys()
+    tile = rec["k3"][0]
+    got = dense_lu_planar(tile)
+    err = compare(got, dense_lu_planar_ref(tile), K2_TOL["float64"])
+    bwd = lu_backward_error(tile, got)
+    bwd_tol = K2_BWD * tile.shape[-1] * torch.finfo(tile.dtype).eps
+    assert bwd <= bwd_tol, (bwd, bwd_tol)
+    report.update(k3_tile_N=int(tile.shape[-1]), k3_max_abs_err=err,
+                  k3_backward_error=bwd)
+    log(f"native rajat12_ac: K3 on the recorded (2, {tile.shape[-1]}, "
+        f"{tile.shape[-1]}) tile against its plain version: max abs err "
+        f"{err:.3e}, backward error {bwd:.3e} <= {bwd_tol:.3e}")
+
+    # -- timings: replays of both layouts ------------------------------------
+    bp = torch.as_tensor((b * g.Dr)[g._inv_row], dtype=g.dtype, device=dev)
+    g.factorize(vals_set[0])
+    gp.factorize(vals_set[0])
+    times = dict(
+        native_factorize_ms=clock.ms(g._factorizer.run, reps=20),
+        planar_factorize_ms=clock.ms(gp._factorizer.run, reps=20),
+        native_solve_ms=clock.ms(lambda: g._solver.solve(g._vals, bp),
+                                 reps=20),
+        planar_solve_ms=clock.ms(lambda: gp._solver.solve(gp._vals, bp),
+                                 reps=20))
+    report.update(times)
+    log(f"native rajat12_ac: one replay each, CUDA events: factorize native "
+        f"{times['native_factorize_ms']:.4f} ms, planar "
+        f"{times['planar_factorize_ms']:.4f} ms; solve native "
+        f"{times['native_solve_ms']:.4f} ms, planar "
+        f"{times['planar_solve_ms']:.4f} ms ({card})")
+
+    # -- B = 8 frequencies ----------------------------------------------------
+    B = NATIVE_BATCH
+    batch = batch_values("rajat12_ac", A, B, rng)
+    bs = rng.normal(size=(B, A.n)) + 1j * rng.normal(size=(B, A.n))
+    gb = GLU(A, **kw)
+    gbe = GLU(A, jit_schedule=False, **kw)
+    gb.factorize_batched(batch)          # the warm-up and the capture
+    reset_counts()
+    gb.factorize_batched(batch)
+    xb = gb.solve_batched(bs)
+    kb = launch_counts()
+    assert kb == (0, 0, 1) and gb.solve_info["n_dispatches"] == 1, kb
+    resid = _residuals(A, batch, xb, bs)
+    assert max(resid) < 1e-9, resid
+    fb = gb.factorized_values_batched()
+    assert torch.equal(fb, gbe.factorize_batched(batch)
+                       .factorized_values_batched())
+    assert xb.tobytes() == gbe.solve_batched(bs).tobytes()
+    for k in range(B):
+        assert torch.equal(fb[k], ge.factorize(batch[k]).factorized_values()), k
+    report["batched"] = dict(B=B, k1_launches=kb[0], k3_launches=kb[2],
+                             max_residual=max(resid),
+                             factorize_ms=clock.ms(gb._factorizer.run_batched,
+                                                   reps=10))
+    log(f"native rajat12_ac B={B}: one batched factorization with K1 {kb[0]} "
+        f"and K3 {kb[2]} launches, residuals at most {max(resid):.3e} < 1e-9, "
+        f"bit-identical to the steps one by one and each row to one GLU; "
+        f"{report['batched']['factorize_ms']:.4f} ms a batched replay")
+
+    # -- the AC sweep ----------------------------------------------------------
+    c = AC_SWEEP
+    ckt = rc_grid_circuit(c["nx"], c["ny"], with_diodes=True, seed=0)
+    ckt.add_ac_current_source(c["node"], 0, 1.0)
+    freqs = np.logspace(*c["decades"], c["points"])
+    # one batched AC factorization: the ladder's rebuilds on the points
+    # whose far voltages underflow (phase 14 drives the ladder) would
+    # take this phase past its budget
+    skw = dict(refine=c["refine"], escalation="none")
+    report["single_batched_s"] = time.perf_counter() - t_phase
+    reset_counts()
+    t0 = time.perf_counter()
+    nat = ac_sweep(ckt, freqs, layout="native", **skw)
+    wall_s = time.perf_counter() - t0
+    ks = launch_counts()
+    it, n_ac = nat.op_newton_iters, nat.n_batched_factorizations
+    pat = ckt.pattern()
+    dc = GLU(CSC(pat.n, pat.indptr, pat.indices,
+                 ckt.assemble(nat.op_point, nat.op_point, 0.0, 0.0)[0]),
+             refine=c["refine"])._factorizer.step_kinds
+    ac = GLU(CSC(pat.n, pat.indptr, pat.indices,
+                 ckt.assemble_ac(nat.op_point, freqs[:1])[0][0]),
+             refine=c["refine"], **kw)._factorizer.step_kinds
+    # the DC Newton loop's real factorizations keep their K1 run and K2;
+    # each batched AC factorization is flat steps and one K3 launch
+    assert ac.count("dense") == 1 and set(ac) == {"flat", "dense"}, ac
+    assert n_ac == 1 and ks == (it * dc.count("run"), it * dc.count("dense"),
+                                1), (ks, it, n_ac, dc)
+    assert nat.op_converged
+    err, _, _ = _ac_point_checks(ckt, nat)
+    assert nat.voltages.shape == (len(freqs), ckt.n)
+    assert np.isfinite(nat.voltages).all() and err.max() < 1e-9, err
+    planar = ac_sweep(ckt, freqs, **skw)
+    scale = np.abs(planar.voltages).max(axis=1, keepdims=True)
+    lay_err = float((np.abs(nat.voltages - planar.voltages) / scale).max())
+    assert lay_err < NATIVE_TOL, lay_err
+    eager = ac_sweep(ckt, freqs, layout="native", jit_schedule=False, **skw)
+    assert eager.voltages.tobytes() == nat.voltages.tobytes()
+    report["ac_sweep"] = dict(
+        n=ckt.n, freqs=len(freqs), op_newton_iters=it,
+        n_batched_factorizations=n_ac, k1_launches=ks[0], k2_launches=ks[1],
+        k3_launches=ks[2], max_rel_err_scipy=float(err.max()),
+        max_rel_diff_planar=lay_err, solve_s=nat.solve_seconds,
+        planar_solve_s=planar.solve_seconds, wall_s=wall_s)
+    log(f"native ac sweep: n={ckt.n}, {len(freqs)} points, K1 {ks[0]} (the "
+        f"{it} DC factorizations), K2 {ks[1]}, K3 {ks[2]} ({n_ac} batched AC "
+        f"factorization(s)); error against scipy splu at most "
+        f"{err.max():.3e}; within {lay_err:.3e} of the planar sweep; "
+        f"bit-identical to the steps one by one; solve {nat.solve_seconds:.3f}"
+        f" s (planar {planar.solve_seconds:.3f} s)")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 23: {report['phase_s']:.1f} s")
+    return report
+
+
+# phase 24: the examples in this process on the card, at their defaults
+EXAMPLES = ("quickstart", "circuit_transient", "transient_sweep", "ac_sweep",
+            "serve_lm", "train_lm")
+
+
+def drive_examples(tmp) -> dict:
+    """Phase 24: each ``examples/torch_<name>.py``'s ``main`` on the card at
+    its defaults (the training example's checkpoints and metrics under
+    ``tmp``); its lines are printed as it runs."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent / "examples"
+    report = {}
+    for name in EXAMPLES:
+        path = root / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = []
+        if name == "train_lm":
+            argv = ["--ckpt-dir", str(Path(tmp) / "train_lm"),
+                    "--metrics-out", str(Path(tmp) / "train_lm.json")]
+        log(f"-- examples/torch_{name}.py {' '.join(argv)}")
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if name == "quickstart":
+            assert max(out["residuals"]) < 1e-9, out["residuals"]
+            summary = dict(max_residual=max(out["residuals"]))
+        elif name == "serve_lm":
+            assert out["batch"].shape == (4, 12) and len(out["requests"]) == 4
+            summary = dict(batch=list(out["batch"].shape))
+        elif name == "train_lm":
+            assert len(out) == 11 and out[-1]["loss"] < out[0]["loss"], out
+            summary = dict(first_loss=out[0]["loss"], last_loss=out[-1]["loss"])
+        else:
+            assert np.isfinite(out.voltages).all()
+            summary = dict(voltages=list(out.voltages.shape))
+        report[name] = dict(seconds=seconds, **summary)
+        log(f"examples/torch_{name}.py: {seconds:.2f} s {summary}")
+    return report
 
 
 # phase 15: the matrices of the detection, ablation and verification runs,
@@ -4614,7 +4880,9 @@ def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
     with the config's weights in ``DTYPE``, the run's batch and sequence,
     the card's allocation read once the model and the optimizer state
     exist, each step timed (synchronised), each checkpoint's save and
-    resume timed, and the card's and the host's peak memory read;
+    resume timed with its parts (``save_checkpoint``'s and
+    ``iter_checkpoint``'s ``timings``: to the host, hash, compress, write
+    or read seconds), and the card's and the host's peak memory read;
     ``DIR/rank<r>.json`` gets them.  ``MESH_RANK_STATE`` in the
     environment records the state at the end: ``blocks``, the SHA-256 of
     the bytes of the rank's block of every parameter and moment, in that
@@ -4627,13 +4895,15 @@ def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.distributed.sharding import is_dtensor
     from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint as ck
 
     import resource
 
     rank = int(os.environ.get("RANK", 0))
-    rec = {"rank": rank, "step_ms": [], "save_s": []}
+    rec = {"rank": rank, "step_ms": [], "save_s": [], "save_parts": []}
     plain_cfg, plain_init, plain_step = lt.build_cfg, lt.init_opt_state, lt.make_train_step
     plain_save, plain_resume = lt.Checkpointer.maybe_save, lt.resume_on_mesh
+    plain_write, plain_read = ck.save_checkpoint, lt.iter_checkpoint
     last = {}
 
     def local_bytes(tensors):
@@ -4673,6 +4943,14 @@ def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
             rec["save_s"].append(time.perf_counter() - t0)
         return out
 
+    def write_with_parts(*a, **k):
+        rec["save_parts"].append({})
+        return plain_write(*a, **k, timings=rec["save_parts"][-1])
+
+    def read_with_parts(*a, **k):
+        rec["resume_parts"] = {}
+        return plain_read(*a, **k, timings=rec["resume_parts"])
+
     def timed_resume(model, *a, **k):
         t0 = time.perf_counter()
         out = plain_resume(model, *a, **k)
@@ -4687,6 +4965,7 @@ def mesh_rank_main(out_dir: str, dtype: str, argv: list) -> int:
     lt.build_cfg = build_cfg
     lt.init_opt_state, lt.make_train_step = measured_init, timed_step
     lt.Checkpointer.maybe_save, lt.resume_on_mesh = timed_save, timed_resume
+    ck.save_checkpoint, lt.iter_checkpoint = write_with_parts, read_with_parts
     if card:
         torch.cuda.reset_peak_memory_stats()
     # the group outlives the launcher's main until the state is read
@@ -5244,6 +5523,17 @@ def main() -> int:
 
     log(f"peak device memory (phases 4-16): "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+    # 23. complex values in the native layout: rajat12_ac single and
+    # batched, the AC sweep (rajat12's plan still in the process's cache)
+    log(json.dumps({"native_report": drive_native(dev, clock, card)}))
+
+    # 24. the six examples on the card at their defaults
+    t24 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        examples = drive_examples(tmp)
+    log(f"phase 24: {time.perf_counter() - t24:.1f} s")
+    log(json.dumps({"examples_report": examples}))
 
     # 17. the LM serving path: qwen2.5-3b at full width (bf16), float32
     # against the full-sequence pass, the request scheduler, card against

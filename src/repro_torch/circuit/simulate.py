@@ -534,9 +534,11 @@ def ac_sweep(
     rebuilds on the worst frequency point's values.  A non-converged
     operating-point loop sets ``op_converged=False`` and warns.
 
-    ``layout``: ``"auto"`` (default) or ``"planar"``, the complex values'
-    storage on the kernels; ``"native"`` (the JAX package's route off the
-    kernels) raises ``NotImplementedError`` before any work.  ``device`` and
+    ``layout``: the complex values' layout, ``"auto"`` (default, planar
+    here) or ``"planar"``, on the kernels, or ``"native"``, the JAX
+    package's default complex route: every level of the batched complex
+    factorization a flat step, the dense tails on one batched K3 launch.
+    A bad name raises before any work.  ``device`` and
     ``jit_schedule`` are as in :func:`transient`.  ``mesh`` shards the
     frequency axis of the batched AC refactorize/solve over the mesh's
     devices (see ``GLU``'s ``mesh``); the single-matrix DC operating-point

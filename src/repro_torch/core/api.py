@@ -61,10 +61,13 @@ class GLU:
 
     ``dtype``: float64 (default), float32, complex128 or complex64.  Complex
     values (AC analysis, ``A = G + jwC``) take ``layout="auto"`` or
-    ``"planar"``: K1 and K3 run on their re/im planes and callers see
-    native complex.  ``layout="native"`` with a complex dtype, the JAX
-    package's route off the kernels, raises ``NotImplementedError`` (the
-    planar storage gives the same interface on the kernels).  The batched
+    ``"planar"`` (K1 and K3 run on their re/im planes), or ``"native"``,
+    the JAX package's default complex route: every level a flat step in
+    PyTorch's complex arithmetic and the dense tail on K3
+    (``kernels_disabled_reason`` says so).  Callers see native complex in
+    either.  ``"auto"`` is planar here where the JAX package's default
+    ``GLU`` resolves it to native (see
+    :func:`~.factorize.ported_layout`).  The batched
     methods
     (``factorize_batched``, ``solve_batched``, ``refactorize_solve``)
     factor and solve B matrices on the pattern in lockstep;
@@ -244,7 +247,7 @@ class GLU:
         self.layout = self._factorizer.layout
         self._solver = TorchTriangularSolver(
             self.plan, device=dev, jit_schedule=jit_schedule,
-            executable_cache=executable_cache)
+            executable_cache=executable_cache, layout=self.layout.name)
         self._vals: Optional[torch.Tensor] = None
         self._vals_batch = None       # a tensor, or a sharded batch
         self._batch_size: Optional[int] = None
@@ -662,7 +665,7 @@ def _mesh_device(mesh, device) -> torch.device:
 
 
 def _check_slice(dtype, layout, verify, mesh):
-    """Refuse what this package does not run before any planning work."""
+    """Refuse bad options before any planning work."""
     ported_layout(layout, dtype)
     check_mesh(mesh)
     if verify not in ("off", "plan", "full"):

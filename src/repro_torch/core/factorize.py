@@ -32,11 +32,18 @@ dense tail is padded to a multiple of K2's block; it gathers and scatters
 through explicit lists of its real positions, so its non-pattern entries
 read exact zeros.
 
-Complex values (``layout="planar"``) are a complex64/complex128 value
-array: flat levels run in PyTorch's complex arithmetic, K1 runs read the
-complex array as interleaved re/im pairs with the planar arithmetic
-(``pdiv``/``pmul``), and the dense tail runs through K3 on a (2, Np, Np)
-plane tile.
+Complex values are a complex64/complex128 value array in either layout.
+With ``layout="planar"`` flat levels run in PyTorch's complex arithmetic,
+K1 runs read the complex array as interleaved re/im pairs with the planar
+arithmetic (``pdiv``/``pmul``), and the dense tail runs through K3 on a
+(2, Np, Np) plane tile.  With ``layout="native"`` (the JAX package's
+default complex route, off its kernels) every level is a flat step in
+PyTorch's complex arithmetic, as the JAX package sends its SEGMENTED and
+PANEL levels through its flat path, and the dense tail still runs through
+K3, the one complex tail kernel.  K3 divides by a pivot ``p`` as a product
+with ``conj(p) / |p|^2``, where the JAX package's native tail uses complex
+``/``: the native tail agrees with the reference to rounding, not to the
+bit.
 """
 from __future__ import annotations
 
@@ -185,15 +192,16 @@ def value_dtype(dtype) -> torch.dtype:
 
 
 def ported_layout(layout, dtype) -> ValueLayout:
-    """:func:`resolve_layout`, refusing what this package does not run:
-    complex values in the native layout (the JAX package's route off the
-    kernels) raise ``NotImplementedError``."""
-    lay = resolve_layout(layout, value_dtype(dtype))
-    if lay.dtype.is_complex and not lay.planar:
-        raise NotImplementedError(
-            "layout='native' for complex values is not ported to the "
-            "PyTorch package yet; use layout='auto' or 'planar'")
-    return lay
+    """The value layout of ``layout`` for ``dtype``: :func:`resolve_layout`
+    (``"planar"`` on real values and unknown names raise ``ValueError`` as
+    in the JAX package).  ``"native"`` with complex values is the JAX
+    package's default complex route: every level a flat step, the dense
+    tail on K3.  ``"auto"`` resolves to planar for complex values here,
+    a deliberate difference: the JAX package's ``GLU`` resolves it to
+    native when ``use_pallas`` is off (its default, ``core/api.py:263``),
+    because its TPU kernels take no complex operands; this package has no
+    ``use_pallas``, and its kernels take complex values."""
+    return resolve_layout(layout, value_dtype(dtype))
 
 
 def _build_pallas_layout(plan: FactorizePlan, seg, pad_key: int):
@@ -407,12 +415,13 @@ _MODES = (MODE_FLAT, MODE_SEGMENTED, MODE_PANEL)
 
 def _schedule_kinds(plan: FactorizePlan, level_cut: int, has_tail: bool,
                     mode_override: Optional[str] = None,
-                    disable_modes: tuple = ()):
+                    disable_modes: tuple = (), use_k1: bool = True):
     """One kind per level in the reference's vocabulary ("flat", "pallas"),
     then "dense" for the tail.  A level's mode is ``mode_override`` or its
     plan mode; a disabled mode runs as flat, a disabled flat as segmented
     (the reference's routing, ``core/factorize.py:862-864``); SEGMENTED and
-    PANEL levels with updates go to K1."""
+    PANEL levels with updates go to K1 unless ``use_k1`` is off (complex
+    values in the native layout), which makes every level flat."""
     kinds = []
     for seg in plan.segments:
         if seg.level >= level_cut:
@@ -420,14 +429,26 @@ def _schedule_kinds(plan: FactorizePlan, level_cut: int, has_tail: bool,
         mode = mode_override or seg.mode
         if mode in disable_modes:
             mode = MODE_FLAT if mode != MODE_FLAT else MODE_SEGMENTED
-        kinds.append("pallas" if mode in (MODE_SEGMENTED, MODE_PANEL)
+        kinds.append("pallas" if use_k1 and mode in (MODE_SEGMENTED,
+                                                     MODE_PANEL)
                      and seg.n_upd else "flat")
     return tuple(kinds) + (("dense",) if has_tail else ())
 
 
-def _kernels_disabled_reason(device, mode_override, disable_modes):
+def _native_complex(layout: ValueLayout) -> bool:
+    """Complex values in the native layout: no level runs in K1."""
+    return layout.dtype.is_complex and not layout.planar
+
+
+def _kernels_disabled_reason(device, mode_override, disable_modes,
+                             layout: ValueLayout):
     """Why K1 is off the path, as the reference's ``pallas_disabled_reason``
-    (``core/factorize.py:772-777``); None when the kernels run."""
+    (``core/factorize.py:757-777``, in its order); None when the kernels
+    run."""
+    if _native_complex(layout):
+        return ("complex dtype with layout='native' runs every level as a "
+                "flat step off K1, the dense tail on K3 (pass "
+                "layout='planar' to keep K1)")
     if mode_override is not None and mode_override not in (MODE_SEGMENTED,
                                                            MODE_PANEL):
         return (f"mode_override={mode_override!r} routes every level off "
@@ -449,7 +470,7 @@ class _Schedule:
     plan."""
 
     def __init__(self, plan: FactorizePlan, kinds, level_cut: int, c_star,
-                 planar: bool, device):
+                 layout: ValueLayout, device):
         dev = device
 
         def idx(a, dtype=torch.int64):
@@ -494,8 +515,10 @@ class _Schedule:
         self.step = {
             "flat": _level_step,
             "run": level_run,
-            "dense": _dense_tail_step_planar if planar else _dense_tail_step,
+            "dense": (_dense_tail_step_planar if layout.dtype.is_complex
+                      else _dense_tail_step),
         }
+        self.native = _native_complex(layout)
 
     def run(self, vals, tau=None, count=None) -> None:
         """Every step in order, in place on the filled value array, (nnz +
@@ -503,14 +526,16 @@ class _Schedule:
         ``count``).  With ``tau`` and ``count`` (static pivoting) each step
         first bumps its column diagonals below ``tau`` and adds the bumps
         into ``count``: a flat level and the dense tail through
-        ``perturb_diags``, a K1 run inside its kernel, once per level."""
+        ``perturb_diags`` (native complex values by the reference's native
+        rule), a K1 run inside its kernel, once per level."""
         for g in self.groups:
             if tau is None:
                 self.step[g.kind](vals, *g.arrays)
             elif g.kind == "run":
                 level_run(vals, *g.arrays, tau, count)
             else:
-                count += perturb_diags(vals, g.diag, tau)[1]
+                count += perturb_diags(vals, g.diag, tau,
+                                       native=self.native)[1]
                 self.step[g.kind](vals, *g.arrays)
 
 
@@ -526,10 +551,13 @@ class TorchFactorizer:
         ``"cpu"``.  On the card each run of SEGMENTED/PANEL levels is one
         launch of K1 and the dense tail one of K2 (K3 for complex values);
         on the CPU the same steps run the plain versions.
-    layout: ``"auto"`` (planar for complex values, native for real ones)
-        or ``"planar"``.  ``"native"`` with a complex dtype, the JAX
-        package's route off the kernels, is not ported and raises
-        ``NotImplementedError``.
+    layout: ``"auto"`` (planar for complex values, native for real ones),
+        ``"planar"`` or ``"native"``.  Complex values in the native layout
+        (the JAX package's default complex route) run every level as a flat
+        step in PyTorch's complex arithmetic and the dense tail through K3:
+        ``kinds`` is all "flat" then "dense", and
+        ``kernels_disabled_reason`` names ``layout='native'``.  See
+        :func:`ported_layout` for ``"auto"``.
     dense_tail / dense_tail_density: switch-to-dense for a dense-enough
         trailing column block, as in the JAX package.
     static_pivot: relative threshold eps of the static pivot guard: after
@@ -537,7 +565,9 @@ class TorchFactorizer:
         and each step bumps its column diagonals below ``tau`` just before
         it divides by them (a K1 run once per level, inside the kernel; the
         dense tail before K2 or K3).  Complex values keep their phase
-        (``tau * d / |d|``, the reference's planar rule; ``tau`` is real).
+        (``tau * d / |d|``, ``tau`` real: the reference's planar rule on
+        the planar layout, its native rule in complex arithmetic on the
+        native one).
         ``last_n_perturbed`` is then the bump count, a 0-d int32 device
         tensor.
     jit_schedule: on the card, the whole factorization (entry scatter,
@@ -626,7 +656,7 @@ class TorchFactorizer:
         self.static_pivot = static_pivot
         self.jit_schedule = bool(jit_schedule)
         self.kernels_disabled_reason = _kernels_disabled_reason(
-            self.device, mode_override, disable_modes)
+            self.device, mode_override, disable_modes, self.layout)
         # what twin() passes on: the same schedule key, hence the same
         # cached steps
         self._options = dict(
@@ -644,12 +674,13 @@ class TorchFactorizer:
         self.nnz = plan.nnz
         level_cut, c_star = _level_cut(plan, dense_tail, dense_tail_density)
         self._kinds = _schedule_kinds(plan, level_cut, c_star is not None,
-                                      mode_override, disable_modes)
+                                      mode_override, disable_modes,
+                                      use_k1=not _native_complex(self.layout))
         self._exec_cache = resolve_executable_cache(executable_cache)
         self._sched = self._exec_cache.get_or_build(
             self._schedule_key(),
             lambda: _Schedule(plan, self._kinds, level_cut, c_star,
-                              self.layout.planar, self.device))
+                              self.layout, self.device))
         self.dense_tail_info = self._sched.dense_tail_info
         self.step_kinds = tuple(g.kind for g in self._sched.groups)
         self.n_groups = len(self.step_kinds)

@@ -239,6 +239,12 @@ class TorchTriangularSolver:
     one.  ``executable_cache`` shares the built sweeps, full and pruned,
     between solvers on one plan, as in :class:`~.factorize.TorchFactorizer`.
 
+    ``layout``: the factors' value layout, ``"native"`` or ``"planar"``
+    (the JAX package's argument).  Both hold complex factors as one complex
+    tensor here (the planar route's re/im planes are its interleaved
+    view), so the sweeps are the same steps in PyTorch's complex
+    arithmetic in either, and the layout shares the built sweeps.
+
     ``last_n_dispatches`` counts the latest call's dispatches: replays plus
     reads on the graph path, host-issued steps plus reads otherwise (and
     for the card's first call of each kind, which runs the steps eagerly
@@ -256,7 +262,12 @@ class TorchTriangularSolver:
 
     def __init__(self, plan: FactorizePlan, device=None,
                  jit_schedule: bool = True, executable_cache="default",
-                 shard_slot=None):
+                 shard_slot=None, layout: str = "native"):
+        if layout not in ("native", "planar"):
+            raise ValueError(
+                f"layout must be 'native' or 'planar', got {layout!r} "
+                "(the solver has no dtype to resolve 'auto' against)")
+        self.layout = layout
         self.plan = plan
         self.device = resolve_device(device)
         self.jit_schedule = bool(jit_schedule)
@@ -383,7 +394,8 @@ class TorchTriangularSolver:
                 TorchTriangularSolver(self.plan, device=d,
                                       jit_schedule=self.jit_schedule,
                                       executable_cache=self._cache,
-                                      shard_slot=(sh.descriptor, i))
+                                      shard_slot=(sh.descriptor, i),
+                                      layout=self.layout)
                 for i, d in enumerate(sh.devices)])
         return self._shards[1]
 

@@ -101,7 +101,7 @@ def _level_div(a, b):
     return a / b
 
 
-def perturb_diags(vals, diag_idx, tau):
+def perturb_diags(vals, diag_idx, tau, native: bool = False):
     """Static pivot perturbation (SuperLU_DIST-style), in place on the value
     array ``vals``: any diagonal ``vals[diag_idx]`` with ``|d| < tau``
     becomes ``tau * d / |d|``, magnitude tau and phase kept (real values:
@@ -109,7 +109,10 @@ def perturb_diags(vals, diag_idx, tau):
     tensor of the values' real dtype.  Complex values follow the
     reference's planar rule (``_perturb_diags_planar_body``): ``|d|`` is
     ``hypot(re, im)``, the phase is ``re / |d|`` and ``im / |d|`` each
-    times tau, and an exact zero becomes ``(+tau, 0)``.  Returns
+    times tau, and an exact zero becomes ``(+tau, 0)``; with ``native``
+    (complex values in the native layout) its native rule
+    (``_perturb_diags_body``): ``d / |d|`` in complex arithmetic, times
+    tau.  Both bump where ``|d| < tau``.  Returns
     ``(vals, n_bumped)`` with the count as a 0-d int32 tensor on the
     device.  The reference's ``_perturb_diags_body`` (its ``diag_idx`` is
     padded; here every index is real).  A batch, (B, n) values with a (B,)
@@ -118,7 +121,7 @@ def perturb_diags(vals, diag_idx, tau):
     matrix alone."""
     d = vals[..., diag_idx]
     tau = tau[..., None]
-    if d.is_complex():
+    if d.is_complex() and not native:
         re, im = torch.view_as_real(d).unbind(-1)
         mag = torch.hypot(re, im)
         pos = mag > 0

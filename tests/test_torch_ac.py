@@ -178,16 +178,29 @@ def test_ac_sweep_flags_unconverged_op_point():
 
 
 @pytest.mark.parametrize("option,exc", [
-    (dict(layout="native"), NotImplementedError),
+    (dict(layout="native"), None),
     (dict(mesh=object()), TypeError)], ids=["native", "mesh"])
 def test_ac_sweep_refuses_before_planning(option, exc):
-    """``layout="native"`` and a ``mesh`` that is no ``SweepMesh`` raise
-    before any planning work."""
+    """A ``mesh`` that is no ``SweepMesh`` raises before any planning work.
+    ``layout="native"``, the reference's default complex route, runs
+    (exc None): one batched factorization, the RC low-pass's analytic
+    answer and the reference's native sweep to 1e-9."""
     cache = PlanCache()
     old = set_default_plan_cache(cache)
+    freqs = np.logspace(0, 4, 9)
     try:
-        with pytest.raises(exc):
-            tcirc.ac_sweep(_lowpass(tcirc), [10.0], device="cpu", **option)
+        if exc is None:
+            res = tcirc.ac_sweep(_lowpass(tcirc), freqs, device="cpu",
+                                 **option)
+        else:
+            with pytest.raises(exc):
+                tcirc.ac_sweep(_lowpass(tcirc), [10.0], device="cpu", **option)
     finally:
         set_default_plan_cache(old)
-    assert cache.stats.builds == 0 and cache.stats.hits == 0
+    if exc is not None:
+        assert cache.stats.builds == 0 and cache.stats.hits == 0
+        return
+    assert 1 <= cache.stats.builds <= 2 and res.n_batched_factorizations == 1
+    v_exact = 1.0 / (0.5 + 1j * 2 * np.pi * freqs * 1e-3)
+    np.testing.assert_allclose(res.voltages[:, 0], v_exact, rtol=1e-12)
+    _same_as_reference(res, jcirc.ac_sweep(_lowpass(jcirc), freqs, **option))

@@ -237,14 +237,21 @@ def test_complex64_solve(ac_pair):
 
 
 def test_native_layout_for_complex_raises():
+    """Complex values in the native layout run (every level a flat step,
+    tests/test_torch_native_complex.py holds them against the reference);
+    the planar layout on real values still raises."""
     A = tsparse.ac_jacobian(40, seed=1)
-    with pytest.raises(NotImplementedError, match="layout='native'"):
-        repro_torch.GLU(A, dtype=torch.complex128, layout="native",
-                        device="cpu")
-    g = repro_torch.GLU(A, dtype=torch.complex128, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TorchFactorizer(g.plan, dtype=torch.complex64, device="cpu",
-                        layout="native")
+    gn = repro_torch.GLU(A, dtype=torch.complex128, layout="native",
+                         device="cpu").factorize()
+    assert gn.solve_info["layout"] == "native"
+    assert "layout='native'" in gn.solve_info["kernels_disabled_reason"]
+    g = repro_torch.GLU(A, dtype=torch.complex128, device="cpu").factorize()
+    np.testing.assert_allclose(gn.factorized_values().numpy(),
+                               g.factorized_values().numpy(),
+                               rtol=1e-12, atol=1e-14)
+    fz = TorchFactorizer(g.plan, dtype=torch.complex64, device="cpu",
+                         layout="native")
+    assert set(fz.step_kinds) <= {"flat", "dense"}
     with pytest.raises(ValueError, match="planar"):
         repro_torch.GLU(tsparse.circuit_jacobian(40, seed=1), layout="planar",
                         device="cpu")

@@ -218,6 +218,37 @@ def test_complex_glu_on_card_matches_cpu(cuda):
                                rtol=1e-10, atol=1e-10)
 
 
+def test_native_complex_glu_on_card(cuda):
+    """Complex values in the native layout on the card: no K1 launch, one
+    K3 launch a factorization, the replay bit for bit the steps one by
+    one, the CPU run and the planar route to tolerance; a batch's rows
+    bit for bit the single GLU's."""
+    A = ac_jacobian(300, avg_degree=4.0, seed=0)
+    rng = np.random.default_rng(1)
+    b = rng.normal(size=A.n) + 1j * rng.normal(size=A.n)
+    x_cpu = GLU(A, dtype=torch.complex128, layout="native",
+                device="cpu").factorize().solve(b, refine=2)
+    g = GLU(A, dtype=torch.complex128, layout="native")
+    ge = GLU(A, dtype=torch.complex128, layout="native", jit_schedule=False)
+    g.factorize()
+    k1, k3 = level_run.launches, dense_lu_planar.launches
+    x = g.factorize().solve(b, refine=2)
+    assert level_run.launches == k1 and dense_lu_planar.launches == k3 + 1
+    assert g.solve_info["n_dispatches"] == 1
+    assert "layout='native'" in g.solve_info["kernels_disabled_reason"]
+    xe = ge.factorize().solve(b, refine=2)
+    assert torch.equal(g.factorized_values(), ge.factorized_values())
+    assert x.tobytes() == xe.tobytes() and g.residual(b, x) < 1e-9
+    np.testing.assert_allclose(x, x_cpu, rtol=1e-9, atol=1e-9)
+    gp = GLU(A, dtype=torch.complex128).factorize()
+    torch.testing.assert_close(g.factorized_values(), gp.factorized_values(),
+                               rtol=1e-12, atol=1e-14)
+    vals = np.asarray(A.data)[None] * rng.uniform(0.95, 1.05, (3, A.nnz))
+    fb = g.factorize_batched(vals).factorized_values_batched()
+    for k in range(3):
+        assert torch.equal(fb[k], ge.factorize(vals[k]).factorized_values())
+
+
 # -- CUDA graphs and static pivoting ---------------------------------------
 
 def _graph_and_eager(A, dtype, b, **kw):

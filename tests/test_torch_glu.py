@@ -129,12 +129,21 @@ def test_float32_solve():
     (dict(mesh=object()), TypeError),
     # verify runs ("off", "plan", "full"); any other value is refused
     (dict(verify="bogus"), ValueError),
-    # complex values run on re/im planes; their native layout is not ported
-    (dict(dtype=torch.complex128, layout="native"), NotImplementedError),
-    (dict(dtype=np.complex64, layout="native"), NotImplementedError),
+    # complex values in the native layout, the reference's default complex
+    # route, run (exc None): every level a flat step, the tail on K3
+    (dict(dtype=torch.complex128, layout="native"), None),
+    (dict(dtype=np.complex64, layout="native"), None),
 ], ids=["planar", "mesh", "verify", "complex128", "complex64"])
 def test_out_of_slice_options_raise(option, exc):
     A = torch_circuit_jacobian(40, seed=1)
+    if exc is None:
+        g = repro_torch.GLU(A, device="cpu", **option)
+        b = np.random.default_rng(1).normal(size=A.n)
+        x = g.factorize().solve(b, refine=1)
+        assert g.solve_info["layout"] == "native" and np.iscomplexobj(x)
+        assert set(g._factorizer.step_kinds) <= {"flat", "dense"}
+        assert g.residual(b, x) < 1e-5
+        return
     with pytest.raises(exc):
         repro_torch.GLU(A, device="cpu", **option)
 

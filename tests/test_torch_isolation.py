@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, checked by reading the
+"""The PyTorch port stands alone: no file of ``src/repro_torch``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, checked by reading the
 sources and by importing the port in a fresh interpreter."""
 import os
 import re
@@ -12,6 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted(str(p.relative_to(ROOT))
                  for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+SOURCES += sorted(str(p.relative_to(ROOT))
+                  for p in (ROOT / "examples").glob("torch_*.py"))
 SOURCES.append("chip_smoke.py")
 
 FORBIDDEN = re.compile(

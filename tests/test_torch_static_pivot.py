@@ -91,17 +91,21 @@ def test_glu_static_pivot_matches_reference(ill, mc64, eps):
 
 
 def test_static_pivot_complex_raises():
-    """Complex static pivoting runs on the planar storage; only the native
-    complex layout (not ported: the JAX package's route off the kernels)
-    still raises, before any planning."""
+    """Complex static pivoting runs on the planar storage and on the native
+    one (the reference's native bump rule before each flat level,
+    tests/test_torch_native_complex.py); neither bumps a healthy matrix,
+    and both layouts give the same factors."""
     from repro_torch.sparse import ac_jacobian
 
-    with pytest.raises(NotImplementedError, match="layout='native'"):
-        repro_torch.GLU(ac_jacobian(40), dtype=torch.complex128, device="cpu",
-                        static_pivot=1e-10, layout="native")
+    gn = repro_torch.GLU(ac_jacobian(40), dtype=torch.complex128,
+                         device="cpu", static_pivot=1e-10, layout="native",
+                         plan_cache=None).factorize()
     g = repro_torch.GLU(ac_jacobian(40), dtype=torch.complex128, device="cpu",
                         static_pivot=1e-10, plan_cache=None).factorize()
-    assert g.solve_info["n_perturbed"] == 0
+    assert g.solve_info["n_perturbed"] == gn.solve_info["n_perturbed"] == 0
+    np.testing.assert_allclose(gn.factorized_values().numpy(),
+                               g.factorized_values().numpy(),
+                               rtol=1e-12, atol=1e-14)
 
 
 @pytest.fixture(scope="module")
