@@ -24,11 +24,13 @@ system is the same test on the original one.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..distributed import (batch_blocks, check_mesh, gather_rows,
                            make_scenario_sharding, map_blocks)
@@ -38,6 +40,18 @@ from .planner import MC64Scaling, SymbolicPlan, compute_scaling, plan_factorizat
 from .triangular import TorchTriangularSolver
 
 __all__ = ["GLU", "resolve_value_dtype"]
+
+
+def _span(name: str):
+    """Method decorator: each call is a ``name`` span on the GLU's device
+    (the root of its call's spans when the caller is outside the GLU)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kwargs):
+            with tracing.span(name, getattr(self, "device", None)):
+                return fn(self, *args, **kwargs)
+        return run
+    return wrap
 
 
 def resolve_value_dtype(dtype, device) -> torch.dtype:
@@ -199,6 +213,7 @@ class GLU:
                     mode_override=mode_override, verify=verify, mesh=mesh)
         return self
 
+    @_span("glu.setup")
     def _setup(self, plan: SymbolicPlan, scaling: MC64Scaling, A: CSC,
                from_cache: bool, dtype, layout: str, refine: int,
                refine_tol: Optional[float],
@@ -238,16 +253,18 @@ class GLU:
         self.plan = plan.fplan
         self.static_pivot = static_pivot
         self.jit_schedule = bool(jit_schedule)
-        self._factorizer = TorchFactorizer(
-            self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail,
-            dense_tail_density=dense_tail_density, layout=layout,
-            static_pivot=static_pivot, jit_schedule=jit_schedule,
-            executable_cache=executable_cache, mode_override=mode_override,
-            shard=self._shard)
+        with tracing.span("glu.setup.factorizer"):
+            self._factorizer = TorchFactorizer(
+                self.plan, dtype=self.dtype, device=dev, dense_tail=dense_tail,
+                dense_tail_density=dense_tail_density, layout=layout,
+                static_pivot=static_pivot, jit_schedule=jit_schedule,
+                executable_cache=executable_cache, mode_override=mode_override,
+                shard=self._shard)
         self.layout = self._factorizer.layout
-        self._solver = TorchTriangularSolver(
-            self.plan, device=dev, jit_schedule=jit_schedule,
-            executable_cache=executable_cache, layout=self.layout.name)
+        with tracing.span("glu.setup.solver"):
+            self._solver = TorchTriangularSolver(
+                self.plan, device=dev, jit_schedule=jit_schedule,
+                executable_cache=executable_cache, layout=self.layout.name)
         self._vals: Optional[torch.Tensor] = None
         self._vals_batch = None       # a tensor, or a sharded batch
         self._batch_size: Optional[int] = None
@@ -287,14 +304,16 @@ class GLU:
             data = data * self._scale_data
         return data[..., self._data_perm]
 
+    @_span("glu.factorize")
     def factorize(self, a_data=None) -> "GLU":
         """(Re)factorize; ``a_data`` are new values in A's original CSC entry
         order (same pattern: the SPICE refactorization contract).  A batched
         factorization held before is dropped."""
-        if a_data is None:
-            data = np.asarray(self._A_perm.data)
-        else:
-            data = self._scaled(np.asarray(a_data))
+        with tracing.span("glu.prepare"):
+            if a_data is None:
+                data = np.asarray(self._A_perm.data)
+            else:
+                data = self._scaled(np.asarray(a_data))
         self._factorizer.load(data)
         self._a_vals, self._a_abs = (self._factorizer.a_values,
                                      self._a_abs_single)
@@ -315,6 +334,7 @@ class GLU:
             raise RuntimeError("call factorize() first")
         return self._vals.clone()
 
+    @_span("glu.solve")
     def solve(self, b, refine: Optional[int] = None,
               rhs_pattern=None) -> np.ndarray:
         """Solve A x = b with the current factorization; ``refine`` extra
@@ -324,8 +344,9 @@ class GLU:
         to the pattern's reach (raises if b is nonzero outside it)."""
         self._require_single()
         k = self.refine_default if refine is None else int(refine)
-        pat = self._map_rhs_pattern(rhs_pattern, b)
-        bp = (np.asarray(b) * self.Dr)[self._inv_row]
+        with tracing.span("glu.prepare"):
+            pat = self._map_rhs_pattern(rhs_pattern, b)
+            bp = (np.asarray(b) * self.Dr)[self._inv_row]
         abs_steps = 0
         if k > 0:
             abs_steps = self._refresh_a_abs()
@@ -338,8 +359,11 @@ class GLU:
             rinfo = {"refine_iters": 0, "backward_error": None,
                      "converged": None, "host_syncs": 0}
         self._set_solve_info(rinfo, abs_steps)
-        return xp.cpu().numpy()[self.col_map] * self.Dc
+        x = _to_host(xp)
+        with tracing.span("glu.finish"):
+            return x[self.col_map] * self.Dc
 
+    @_span("glu.solve_multi")
     def solve_multi(self, b_multi, refine: Optional[int] = None,
                     rhs_pattern=None) -> np.ndarray:
         """Solve A X^T = B^T: many right-hand sides against the current
@@ -354,8 +378,9 @@ class GLU:
         if b.ndim != 2 or b.shape[1] != self.n:
             raise ValueError(f"expected (K, {self.n}) rhs, got shape {b.shape}")
         k = self.refine_default if refine is None else int(refine)
-        pat = self._map_rhs_pattern(rhs_pattern, b)
-        bp = (b * self.Dr[None, :])[:, self._inv_row]
+        with tracing.span("glu.prepare"):
+            pat = self._map_rhs_pattern(rhs_pattern, b)
+            bp = (b * self.Dr[None, :])[:, self._inv_row]
         abs_steps = 0
         if k > 0:
             abs_steps = self._refresh_a_abs()
@@ -369,7 +394,9 @@ class GLU:
                      "backward_error": None, "converged": None,
                      "host_syncs": 0}
         self._set_solve_info(rinfo, abs_steps)
-        return xp.cpu().numpy()[:, self.col_map] * self.Dc[None, :]
+        x = _to_host(xp)
+        with tracing.span("glu.finish"):
+            return x[:, self.col_map] * self.Dc[None, :]
 
     def _require_single(self) -> None:
         """Factorize A's own values when nothing is factorized yet; raise
@@ -418,8 +445,10 @@ class GLU:
         self._info.update(rinfo)
         self._info["solve_dispatches"] = (self._solver.last_n_dispatches
                                           + abs_steps)
+        tracing.count(host_syncs=rinfo["host_syncs"])
 
     # -- batched numeric phase (one plan, many matrices) ----------------------
+    @_span("glu.factorize_batched")
     def factorize_batched(self, a_data_batch) -> "GLU":
         """Factorize B matrices on this pattern in lockstep.
 
@@ -434,17 +463,18 @@ class GLU:
         if data.ndim != 2 or data.shape[1] != len(self._data_perm):
             raise ValueError(f"expected (B, {len(self._data_perm)}) values, "
                              f"got shape {data.shape}")
-        scaled = self._scaled(data)
         B = data.shape[0]
         self._batch_pad = 0
-        if self._shard is not None and B > 1:
-            # pad with copies of the LAST scenario (a factorizable system,
-            # so the pad rows never poison diagnostics with inf/NaN); they
-            # are masked out of results and diagnostics
-            self._batch_pad = self._shard.pad(B) - B
-            if self._batch_pad:
-                scaled = np.concatenate(
-                    [scaled, np.repeat(scaled[-1:], self._batch_pad, axis=0)])
+        with tracing.span("glu.prepare"):
+            scaled = self._scaled(data)
+            if self._shard is not None and B > 1:
+                # pad with copies of the LAST scenario (a factorizable
+                # system, so the pad rows never poison diagnostics with
+                # inf/NaN); they are masked out of results and diagnostics
+                self._batch_pad = self._shard.pad(B) - B
+                if self._batch_pad:
+                    scaled = np.concatenate(
+                        [scaled, np.repeat(scaled[-1:], self._batch_pad, axis=0)])
         a_vals = self._factorizer.load_batched(scaled)
         if self._a_vals_batch is not a_vals:
             self._a_vals_batch = a_vals
@@ -467,6 +497,7 @@ class GLU:
         return gather_rows(self._vals_batch, self.device,
                            self._batch_size).clone()
 
+    @_span("glu.solve_batched")
     def solve_batched(self, b_batch, refine: Optional[int] = None,
                       rhs_pattern=None) -> np.ndarray:
         """Solve A_i x_i = b_i for every matrix of the current batched
@@ -485,14 +516,15 @@ class GLU:
             raise ValueError(f"rhs batch of {B} does not match the factorized "
                              f"batch of {self._batch_size}")
         k = self.refine_default if refine is None else int(refine)
-        pat = self._map_rhs_pattern(rhs_pattern, b)
-        bp = (b * self.Dr[None, :])[:, self._inv_row]
-        if self._batch_pad:
-            # zero right-hand sides for the pad rows: their solution is
-            # exactly zero and their backward error 0/0 counts as
-            # converged, so refinement never iterates for them
-            bp = np.concatenate(
-                [bp, np.zeros((self._batch_pad, self.n), dtype=bp.dtype)])
+        with tracing.span("glu.prepare"):
+            pat = self._map_rhs_pattern(rhs_pattern, b)
+            bp = (b * self.Dr[None, :])[:, self._inv_row]
+            if self._batch_pad:
+                # zero right-hand sides for the pad rows: their solution is
+                # exactly zero and their backward error 0/0 counts as
+                # converged, so refinement never iterates for them
+                bp = np.concatenate(
+                    [bp, np.zeros((self._batch_pad, self.n), dtype=bp.dtype)])
         abs_steps = 0
         if k > 0:
             if self._a_abs_batch_stale:
@@ -515,8 +547,11 @@ class GLU:
                      "backward_error": None, "converged": None,
                      "host_syncs": 0}
         self._set_solve_info(rinfo, abs_steps)
-        return xp[:B].cpu().numpy()[:, self.col_map] * self.Dc[None, :]
+        x = _to_host(xp[:B])
+        with tracing.span("glu.finish"):
+            return x[:, self.col_map] * self.Dc[None, :]
 
+    @_span("glu.refactorize_solve")
     def refactorize_solve(self, a_data_batch, b_batch,
                           refine: Optional[int] = None,
                           rhs_pattern=None) -> np.ndarray:
@@ -638,6 +673,13 @@ class GLU:
         """||Ax - b||_inf / ||b||_inf on the original system."""
         r = self._A_scipy @ np.asarray(x) - np.asarray(b)
         return float(np.abs(r).max() / (np.abs(b).max() + 1e-300))
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A call's result on the host: its device-to-host read, which waits
+    for the card's work on it."""
+    with tracing.span("glu.download", x.device, d2h_bytes=x):
+        return x.cpu().numpy()
 
 
 def _host(t: torch.Tensor):

@@ -31,6 +31,7 @@ from typing import Callable, Hashable
 
 import torch
 
+from .. import tracing
 from ..kernels import COUNTED
 
 __all__ = [
@@ -169,11 +170,13 @@ class CapturedSchedule:
 
     def __call__(self) -> int:
         if self.graph is not None:
-            self.graph.replay()
+            with tracing.span("exec.replay", self.device, replays=1):
+                self.graph.replay()
             for kernel, n in self.launches.items():
                 kernel.launches += n
             return 1
-        with torch.cuda.device(self.device):
+        with tracing.span("exec.capture", self.device, captures=1), \
+                torch.cuda.device(self.device):
             main = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(main)

@@ -53,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..distributed import ShardedBatch, psum_exact
 from ..kernels.dense_lu import BLOCK, dense_lu, dense_lu_planar
@@ -759,7 +760,8 @@ class TorchFactorizer:
     def load(self, a_vals) -> None:
         """Copy A values (the plan's A entry order; host or device) into
         the static input buffer."""
-        self.a_values.copy_(torch.as_tensor(a_vals, dtype=self.dtype))
+        with tracing.span("glu.upload", self.device, h2d_bytes=self.a_values):
+            self.a_values.copy_(torch.as_tensor(a_vals, dtype=self.dtype))
 
     def run(self) -> torch.Tensor:
         """Factorize the loaded A values: one replay of the captured graph
@@ -774,7 +776,8 @@ class TorchFactorizer:
     def _dispatch(self, graph, a_values, vals, count) -> int:
         if graph is not None:
             return graph()
-        self._program(a_values, vals, count)
+        with tracing.span("exec.eager", self.device, eager_steps=1 + self.n_groups):
+            self._program(a_values, vals, count)
         return 1 + self.n_groups
 
     def factorize(self, a_vals) -> torch.Tensor:
@@ -828,7 +831,8 @@ class TorchFactorizer:
         if self.shard is None or a.shape[0] % self.shard.n_shards:
             self._sharded_in = None
             st = self._bind_batch(a.shape[0])
-            st["a_values"].copy_(a)
+            with tracing.span("glu.upload", self.device, h2d_bytes=st["a_values"]):
+                st["a_values"].copy_(a)
             return st["a_values"]
         parts = [f.load_batched(block) for f, block in
                  zip(self._shard_executors(), self.shard.split(a))]

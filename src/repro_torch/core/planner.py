@@ -37,6 +37,7 @@ from typing import Optional, Union
 
 import numpy as np
 
+from .. import tracing
 from ..sparse.csc import CSC, pattern_digest
 from .dependency import Levelization, levelize_relaxed
 from .ordering import (
@@ -88,16 +89,17 @@ def compute_scaling(A: CSC, mc64: Union[str, bool, None] = "scale") -> MC64Scali
     """``"scale"``/``True`` — full Duff-Koster max-product matching with
     Dr/Dc scalings; ``"structural"`` — zero-free diagonal only;
     ``"none"``/``False``/``None`` — identity."""
-    if mc64 in (True, "scale"):
-        row_perm, Dr, Dc = max_product_matching(A)
-    elif mc64 == "structural":
-        row_perm = zero_free_diagonal(A)
-        Dr = Dc = np.ones(A.n)
-    elif mc64 in (False, None, "none"):
-        row_perm = np.arange(A.n, dtype=np.int64)
-        Dr = Dc = np.ones(A.n)
-    else:
-        raise ValueError(f"unknown mc64 mode {mc64!r}")
+    with tracing.span("plan.mc64"):
+        if mc64 in (True, "scale"):
+            row_perm, Dr, Dc = max_product_matching(A)
+        elif mc64 == "structural":
+            row_perm = zero_free_diagonal(A)
+            Dr = Dc = np.ones(A.n)
+        elif mc64 in (False, None, "none"):
+            row_perm = np.arange(A.n, dtype=np.int64)
+            Dr = Dc = np.ones(A.n)
+        else:
+            raise ValueError(f"unknown mc64 mode {mc64!r}")
     return MC64Scaling(np.asarray(row_perm, dtype=np.int64), Dr, Dc)
 
 
@@ -211,40 +213,35 @@ def build_symbolic_plan(
     rows0 = indices
     cols0 = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
 
-    t0 = time.perf_counter()
-    # fill-reducing ordering runs on the row-permuted pattern (values are
-    # irrelevant to mindeg/rcm, so a pattern-only CSC suffices)
-    A_rp = CSC(n, indptr.astype(np.int32), indices.astype(np.int32),
-               np.ones(len(rows0))).permute(row_perm,
-                                            np.arange(n, dtype=np.int64))
-    sym_perm = fill_reducing_ordering(A_rp, ordering)
-    row_map = sym_perm[row_perm]
-    col_map = sym_perm
-    inv_row = np.argsort(row_map)
-    t_ordering = time.perf_counter() - t0
+    with tracing.timed("plan.ordering") as t_ordering:
+        # fill-reducing ordering runs on the row-permuted pattern (values
+        # are irrelevant to mindeg/rcm, so a pattern-only CSC suffices)
+        A_rp = CSC(n, indptr.astype(np.int32), indices.astype(np.int32),
+                   np.ones(len(rows0))).permute(row_perm,
+                                                np.arange(n, dtype=np.int64))
+        sym_perm = fill_reducing_ordering(A_rp, ordering)
+        row_map = sym_perm[row_perm]
+        col_map = sym_perm
+        inv_row = np.argsort(row_map)
 
-    t0 = time.perf_counter()
-    # permuted pattern + original-entry-order -> permuted-entry-order map
-    data_perm = np.lexsort((row_map[rows0], col_map[cols0]))
-    perm_rows = row_map[rows0][data_perm]
-    perm_cols = col_map[cols0][data_perm]
-    perm_indptr = np.concatenate(
-        [[0], np.cumsum(np.bincount(perm_cols, minlength=n))]).astype(np.int32)
-    perm_indices = perm_rows.astype(np.int32)
-    A_perm = CSC(n, perm_indptr, perm_indices, np.ones(len(perm_rows)))
-    t_permute = time.perf_counter() - t0
+    with tracing.timed("plan.permute") as t_permute:
+        # permuted pattern + original-entry-order -> permuted-entry-order map
+        data_perm = np.lexsort((row_map[rows0], col_map[cols0]))
+        perm_rows = row_map[rows0][data_perm]
+        perm_cols = col_map[cols0][data_perm]
+        perm_indptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(perm_cols, minlength=n))]).astype(np.int32)
+        perm_indices = perm_rows.astype(np.int32)
+        A_perm = CSC(n, perm_indptr, perm_indices, np.ones(len(perm_rows)))
 
-    t0 = time.perf_counter()
-    pattern = symbolic_fillin(A_perm, symbolic)
-    t_symbolic = time.perf_counter() - t0
+    with tracing.timed("plan.symbolic") as t_symbolic:
+        pattern = symbolic_fillin(A_perm, symbolic)
 
-    t0 = time.perf_counter()
-    levelization = levelize_relaxed(pattern)
-    t_levelize = time.perf_counter() - t0
+    with tracing.timed("plan.levelize") as t_levelize:
+        levelization = levelize_relaxed(pattern)
 
-    t0 = time.perf_counter()
-    fplan = build_plan(pattern, levelization, panel_threshold=panel_threshold)
-    t_plan = time.perf_counter() - t0
+    with tracing.timed("plan.build") as t_plan:
+        fplan = build_plan(pattern, levelization, panel_threshold=panel_threshold)
 
     return SymbolicPlan(
         n=n,
@@ -267,11 +264,11 @@ def build_symbolic_plan(
         spmv_rows=perm_rows.astype(np.int32),
         spmv_cols=perm_cols.astype(np.int32),
         build_seconds={
-            "ordering": t_ordering,
-            "permute": t_permute,
-            "symbolic": t_symbolic,
-            "levelize": t_levelize,
-            "plan": t_plan,
+            "ordering": t_ordering.seconds,
+            "permute": t_permute.seconds,
+            "symbolic": t_symbolic.seconds,
+            "levelize": t_levelize.seconds,
+            "plan": t_plan.seconds,
             "total": time.perf_counter() - t_total,
         },
     )

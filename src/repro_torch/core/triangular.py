@@ -60,6 +60,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..distributed import ShardedBatch
 from ..kernels.ops import add_in_rounds_, masked_correction, round_order, spmv
@@ -118,7 +119,8 @@ def _residual_berr(rows, cols, a_vals, a_abs, x, b, n: int):
 def _read_back(stat):
     """Both refinement counters, ``stat = [berr, iters]`` (each 0-d, or
     (B,) for a batch), in one device-to-host read, as numpy arrays."""
-    b, i = stat.cpu().numpy()
+    with tracing.span("glu.download", stat.device, d2h_bytes=stat):
+        b, i = stat.cpu().numpy()
     return b, i.astype(np.int64)
 
 
@@ -352,7 +354,8 @@ class TorchTriangularSolver:
         """Run ``fn``: one replay of its graph on the card, the steps one by
         one otherwise; returns the dispatches issued."""
         if self.device.type != "cuda" or not self.jit_schedule:
-            fn()
+            with tracing.span("exec.eager", self.device, eager_steps=eager_steps):
+                fn()
             return eager_steps
         graph = bound.graphs.get(name)
         if graph is None:
@@ -426,7 +429,8 @@ class TorchTriangularSolver:
         bound = self._bind((slot, pid), (vals,), shape)
         x = bound.buf("x", lambda: torch.empty(shape, dtype=vals.dtype,
                                                device=vals.device))
-        x.copy_(torch.as_tensor(b, dtype=vals.dtype))
+        with tracing.span("glu.upload", x.device, h2d_bytes=x):
+            x.copy_(torch.as_tensor(b, dtype=vals.dtype))
         self.last_n_dispatches = self._dispatch(
             bound, "solve", lambda: sweeps.run(vals, x), sweeps.n_steps)
         return x
@@ -530,7 +534,8 @@ class _Refinement:
         berr = buf("berr", lead, real)
         iters = buf("iters", lead, torch.int64)
         stat = buf("stat", (2,) + lead, real)
-        b_buf.copy_(torch.as_tensor(b, dtype=vals.dtype))
+        with tracing.span("glu.upload", dev, h2d_bytes=b_buf):
+            b_buf.copy_(torch.as_tensor(b, dtype=vals.dtype))
 
         def residual():
             r_new, berr_new = _residual_berr(a_rows, a_cols, a_vals, a_abs,

@@ -17,10 +17,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
 import torch
+
+from .. import tracing
 
 __all__ = ["load_library", "build_dir", "nvcc_path", "check", "count_launch"]
 
@@ -99,7 +100,6 @@ def _build(out_dir: Path, digest: str) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=out_dir, prefix="build."))
     try:
-        t0 = time.perf_counter()
         procs = []
         for src in _sources():
             obj = work / (src.stem + ".o")
@@ -127,8 +127,7 @@ def _build(out_dir: Path, digest: str) -> Path:
         os.replace(stamp, out_dir / stamp.name)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    build_info.update(seconds=time.perf_counter() - t0, cached=False,
-                      log="\n".join(logs), path=str(lib_path))
+    build_info.update(cached=False, log="\n".join(logs), path=str(lib_path))
     return lib_path
 
 
@@ -138,22 +137,25 @@ def load_library():
     with _lock:
         if _lib is not None:
             return _lib
-        out_dir = build_dir()
-        digest = _digest(_sources())
-        lib_path = out_dir / LIB_NAME
-        stamp = out_dir / (LIB_NAME + ".hash")
-        if (lib_path.exists() and stamp.exists()
-                and stamp.read_text().strip() == digest):
-            build_info.update(seconds=0.0, cached=True, log="",
-                              path=str(lib_path))
-        else:
-            lib_path = _build(out_dir, digest)
-        lib = ctypes.CDLL(str(lib_path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with tracing.span("kernels.load"):
+            out_dir = build_dir()
+            digest = _digest(_sources())
+            lib_path = out_dir / LIB_NAME
+            stamp = out_dir / (LIB_NAME + ".hash")
+            if (lib_path.exists() and stamp.exists()
+                    and stamp.read_text().strip() == digest):
+                build_info.update(seconds=0.0, cached=True, log="",
+                                  path=str(lib_path))
+            else:
+                with tracing.timed("kernels.build") as built:
+                    lib_path = _build(out_dir, digest)
+                build_info["seconds"] = built.seconds
+            lib = ctypes.CDLL(str(lib_path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
         return lib
 
 
